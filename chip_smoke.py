@@ -103,20 +103,59 @@ def proposal_like_boxes(rng, batch: int, k: int) -> torch.Tensor:
 
 
 def near_threshold_boxes(rng, n_pairs: int, t: float) -> torch.Tensor:
-    """(1, 2*n_pairs, 4) pairs whose IoU sits at ``t`` to within float
-    rounding: b is a shifted by d = w(1-t)/(1+t), jittered by ~1 ulp, so
-    the f32 rounding of ``inter >= t * union`` decides each pair."""
-    grid = int(np.ceil(np.sqrt(n_pairs)))
+    """(1, 2*n_pairs, 4) isolated pairs whose IoU is ``t`` before rounding.
+
+    Box b is box a shifted right by d = w(1-t)/(1+t), so IoU(a, b) = t in
+    exact arithmetic; rounding the coordinates to f32 leaves each pair's
+    ``inter >= t * union`` within a few rounding errors of equality. A pair
+    spans less than 2w by h, and the grid step exceeds both with a margin,
+    so no box meets a box of another pair: the greedy pass keeps each
+    second box iff its own pair's test does not suppress it."""
+    w_max, h_max = 120.0, 60.0
+    step_x, step_y = 2 * w_max + 8, h_max + 8
+    cols = int(np.ceil(np.sqrt(n_pairs * step_y / step_x)))  # square field
     rows = []
-    for p in range(n_pairs):  # coordinates stay < ~1200: fine f32 rounding
-        x = (p % grid) * 22.0 + rng.uniform(0, 50)
-        y = (p // grid) * 22.0 + rng.uniform(0, 50)
-        w = rng.uniform(20, 200)
-        h = rng.uniform(10, 100)
-        d = w * (1 - t) / (1 + t) * (1 + rng.uniform(-2e-7, 2e-7))
+    for p in range(n_pairs):
+        x = (p % cols) * step_x + rng.uniform(0, 4)
+        y = (p // cols) * step_y + rng.uniform(0, 4)
+        w = rng.uniform(20, w_max)
+        h = rng.uniform(10, h_max)
+        d = w * (1 - t) / (1 + t)
         a = [x, y, x + w - 1, y + h - 1]
         rows += [a, [a[0] + d, a[1], a[2] + d, a[3]]]
     return torch.tensor(np.asarray(rows, np.float32))[None]
+
+
+def pair_tests(boxes: np.ndarray, t: float) -> dict:
+    """Each pair's suppression test (second box by first), three ways.
+
+    ``f32``: every step one rounded f32 operation in the kernel's order
+    (what the kernel and the plain version must compute); ``f64``: the same
+    formula in f64 on the same f32 inputs; ``fma``: f32 with the two
+    contractions ``nvcc`` makes by default, ``area_a + area_b`` as
+    fma(side, side, area_b) and ``... - inter`` as fma(-iw, ih, ...),
+    each emulated with one rounding from f64."""
+    f32, f64 = np.float32, np.float64
+    a, b = boxes[0::2].astype(f32), boxes[1::2].astype(f32)
+    t32 = f32(t)
+
+    def parts(a, b, one):
+        iw = np.maximum((np.minimum(a[:, 2], b[:, 2]) - np.maximum(a[:, 0], b[:, 0])) + one, 0)
+        ih = np.maximum((np.minimum(a[:, 3], b[:, 3]) - np.maximum(a[:, 1], b[:, 1])) + one, 0)
+        sides = [(a[:, 2] - a[:, 0]) + one, (a[:, 3] - a[:, 1]) + one,
+                 (b[:, 2] - b[:, 0]) + one, (b[:, 3] - b[:, 1]) + one]
+        return iw, ih, sides
+
+    iw, ih, (sax, say, sbx, sby) = parts(a, b, f32(1))
+    inter, area_a, area_b = iw * ih, sax * say, sbx * sby
+    plain = inter >= t32 * np.maximum((area_a + area_b) - inter, f32(1e-10))
+    s = (f64(sax) * f64(say) + f64(area_b)).astype(f32)
+    uni = (f64(s) - f64(iw) * f64(ih)).astype(f32)
+    fma = inter >= t32 * np.maximum(uni, f32(1e-10))
+    iw, ih, (sax, say, sbx, sby) = parts(a.astype(f64), b.astype(f64), 1.0)
+    inter = iw * ih
+    exact = inter >= f64(t32) * np.maximum(sax * say + sbx * sby - inter, 1e-10)
+    return {"f32": plain, "f64": exact, "fma": fma}
 
 
 def clusters(rng, n: int, centers: int) -> torch.Tensor:
@@ -199,11 +238,22 @@ def check_nms_kernel(dev) -> dict:
             raise AssertionError(f"nms_fused disagrees with its plain version: {name}")
         worst = max(worst, bad)
         if name.startswith("near"):
-            # the rounding must actually decide: both outcomes occur
-            pairs = kern[0].view(-1, 2)[:, 1]
-            log(f"    second box kept in {int(pairs.sum())} of {len(pairs)} pairs")
-            if pairs.all() or not pairs.any():
+            # isolated pairs: each second box follows its own pair's f32
+            # test, and rounding must decide some pairs (f32 differs from
+            # f64, or from the FMA-contracted version)
+            tests = pair_tests(b[0].cpu().numpy(), t)
+            pairs = kern[0].view(-1, 2).cpu().numpy()
+            n_f64 = int((tests["f32"] != tests["f64"]).sum())
+            n_fma = int((tests["f32"] != tests["fma"]).sum())
+            log(f"    second box kept in {int(pairs[:, 1].sum())} of {len(pairs)} "
+                f"pairs; f32 test differs from f64 in {n_f64}, from FMA in {n_fma}")
+            if not pairs[:, 0].all() or (pairs[:, 1] == tests["f32"]).any():
+                raise AssertionError("a near-threshold pair was not decided by "
+                                     "its own f32 test")
+            if pairs[:, 1].all() or not pairs[:, 1].any():
                 raise AssertionError("near-threshold pairs did not straddle t")
+            if n_f64 == 0 or n_fma == 0:
+                raise AssertionError("rounding decided no near-threshold pair")
 
     shapes = []
     for name, b, v, t, cap in cases[:2]:

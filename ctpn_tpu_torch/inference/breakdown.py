@@ -25,14 +25,7 @@ import numpy as np
 import torch
 
 from ctpn_tpu_torch.config import cfg
-from ctpn_tpu_torch.inference.pipeline import (
-    CTPNPredictor,
-    forward_features,
-    lines_kwargs,
-    proposal_kwargs,
-)
-from ctpn_tpu_torch.ops.proposal import proposal_layer
-from ctpn_tpu_torch.postprocess.detector import detect_lines
+from ctpn_tpu_torch.inference.pipeline import CTPNPredictor, build_detect_fn
 from ctpn_tpu_torch.utils.device import resolve_device
 from ctpn_tpu_torch.utils.image import load_image_bgr, prep_image
 from ctpn_tpu_torch.utils.weights import load_params
@@ -43,23 +36,20 @@ PHOTOS = sorted((REPO / "docs" / "demo_results" / "H").glob("0*.*"))
 
 
 def _staged(pred: CTPNPredictor, images: torch.Tensor, info: torch.Tensor):
-    """The detect function's three stages, each between CUDA events."""
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    with torch.inference_mode():
-        ev[0].record()
-        outs = forward_features(pred.model, images)
-        ev[1].record()
-        props = proposal_layer(
-            outs.cls_prob, outs.bbox_pred, info, **proposal_kwargs()
-        )
-        ev[2].record()
-        lines = detect_lines(
-            props.rois, props.valid, info,
-            max_chain_len=outs.cls_prob.shape[2], **lines_kwargs(pred.mode),
-        )
-        ev[3].record()
-        lines.count.cpu()
-    return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    """Device ms of each stage of the predictor's own detect path, between
+    CUDA events recorded at its stage marks."""
+    events = []
+
+    def record(name: str) -> None:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+
+    detect = build_detect_fn(pred.model, mode=pred.mode, on_stage=record)
+    record("start")
+    _, lines = detect(images, info)
+    lines.count.cpu()
+    return [events[i].elapsed_time(events[i + 1]) for i in range(3)]
 
 
 def main(argv=None) -> dict:

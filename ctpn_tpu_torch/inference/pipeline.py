@@ -93,28 +93,32 @@ def build_detect_fn(
     pre_nms_top_n: Optional[int] = None,
     post_nms_top_n: Optional[int] = None,
     max_lines: Optional[int] = None,
-    with_lines: bool = True,
-) -> Callable[[torch.Tensor, torch.Tensor], Tuple[Proposals, Optional[TextLines]]]:
+    on_stage: Optional[Callable[[str], None]] = None,
+) -> Callable[[torch.Tensor, torch.Tensor], Tuple[Proposals, TextLines]]:
     """Returns fn(images, im_info) -> (Proposals, TextLines), batched.
 
     ``images``: (N, bh, bw, 3) uint8 or float32 BGR (not mean-subtracted),
-    ``im_info``: (N, 3), both on the model's device.
+    ``im_info``: (N, 3), both on the model's device. ``on_stage(name)``,
+    if given, is called after each stage ("forward", "proposal_layer",
+    "detect_lines"), e.g. to record a CUDA event there.
     """
     props_kw = proposal_kwargs(pre_nms_top_n, post_nms_top_n)
     lines_kw = lines_kwargs(mode, max_lines)
+    mark = on_stage or (lambda name: None)
 
     @torch.inference_mode()
     def detect(images: torch.Tensor, im_info: torch.Tensor):
         outs = forward_features(model, images)
+        mark("forward")
         props = proposal_layer(outs.cls_prob, outs.bbox_pred, im_info, **props_kw)
-        if not with_lines:
-            return props, None
+        mark("proposal_layer")
         # chains advance >= 1 column per edge: the bucket's 16-px column
         # count bounds path length (fewer closure squarings)
         lines = detect_lines(
             props.rois, props.valid, im_info,
             max_chain_len=outs.cls_prob.shape[2], **lines_kw,
         )
+        mark("detect_lines")
         return props, lines
 
     return detect

@@ -85,24 +85,23 @@ def nms_keep_sorted_fused_ref(
     valid: torch.Tensor,
     thresh: float,
     max_keep: Optional[int] = None,
-    block: int = BLOCK,
 ) -> torch.Tensor:
     """Plain PyTorch version of the fused kernel, on any device."""
     _check(boxes, valid)
     batch, k = valid.shape
     cap = _cap(k, max_keep)
     keep = torch.zeros_like(valid)
-    idx = torch.arange(block, device=boxes.device)
+    idx = torch.arange(BLOCK, device=boxes.device)
     earlier = idx[None, :] < idx[:, None]  # [i, j]: j precedes i
     for n in range(batch):
         kept = boxes.new_zeros((0, 4))
         count = 0
-        for lo in range(0, k, block):
+        for lo in range(0, k, BLOCK):
             if count >= cap:
                 break
-            rows = boxes[n, lo:lo + block]
+            rows = boxes[n, lo:lo + BLOCK]
             r = rows.shape[0]
-            base = valid[n, lo:lo + block]
+            base = valid[n, lo:lo + BLOCK]
             if count:
                 base = base & ~_suppress(rows, kept, thresh).any(dim=1)
             # s[i, j]: candidate j (earlier in the block) suppresses row i
