@@ -1,27 +1,46 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: builds the kernels,
-holds each against its plain PyTorch version, drives the main path and
-checks what comes out.
+holds each against its plain PyTorch version, drives the main path and the
+serving path, and checks what comes out.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result line):
 
 1. device: CUDA must be available; prints the card's name and power limit.
-2. build: compiles every kernel of the path from ``ctpn_tpu_torch/ops/csrc``
-   (one ``nvcc`` per source, in parallel) and prints the build time.
-3. kernels: each kernel against its plain version on the card, at the main
-   path's shapes and on edge cases; the keep mask's prefix must be
-   identical (tolerance 0: it is an integer output). Times both.
+2. build: compiles every kernel from ``ctpn_tpu_torch/ops/csrc`` (one
+   ``nvcc`` per source, in parallel), prints the build time and each
+   kernel's registers, shared memory and spills.
+3. kernels: each kernel against its plain version on the card, at its
+   path's shapes and on edge cases. The fused NMS keep mask's prefix and
+   the bitmask words must be identical (tolerance 0: integer outputs); the
+   stem's max relative error ``|a-b|/(|b|+1)`` must be below 1e-2 (bf16
+   resolution, the JAX package's tolerance). Times kernel, plain version,
+   and for the stem the stock cuDNN block (``stock_ms``).
 4. main path: ``CTPNPredictor(device="cuda")`` with the shipped weights
-   (``data/artifacts/ctpn_synth_f16.npz``) runs ``detect_image`` on the five
-   committed demo photos with launch counts zeroed just before; every
-   kernel must have launched (the fused NMS exactly twice per image). The
-   same detection with the plain NMS must pair one-to-one within 0.5 px,
-   and the records must recover the committed reference results
+   (``data/artifacts/ctpn_synth_f16.npz``), default config, runs
+   ``detect_image`` on the five committed demo photos with launch counts
+   zeroed just before; the fused NMS must launch exactly twice per image.
+   The same detection with the plain NMS must pair one-to-one within
+   0.5 px, and the records must recover the committed reference results
    (``docs/demo_results/H/res_*.txt``). Then ``run_batch`` at batch 8 on
    the 608x912 bucket, timed.
-5. prints one ``{"kernels": [...]}`` line, the card line, and last
+5. serving path (``TPU.NMS_FUSED = False``, ``TPU.FUSED_STEM = True``): the
+   fused-stem model's ``cls_prob`` on the photos against the same model with
+   the stem's plain version and against the stock-stem model (atol 2e-2 in
+   the served bf16 trunk; 5e-3 for kernel against plain version with an f32
+   trunk, where only the stem rounds to bf16); ``DetectionServer``
+   in-process answers 8 concurrent POSTs (the photos plus 3 repeats) with
+   counts zeroed just before: every response 200 with finite records,
+   fewer batches than requests, exactly 2 bitmask and 1 stem launches per
+   batch and no fused-NMS launch, >= 75 % of the committed reference lines
+   found. Then ``stream_detect`` over the
+   photos with the same accounting, and ``run_batch`` at batch 8 timed with
+   the resolve's sweeps and host syncs per batch.
+6. CLI: ``python3 -m ctpn_tpu_torch.cli.serve ... --set TPU.NMS_FUSED False
+   TPU.FUSED_STEM True`` as a subprocess answers one POST with 200 and
+   ``count > 0``.
+7. prints one ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package ``ctpn_tpu``.
@@ -31,22 +50,31 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
+import queue
+import signal
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
+import warnings
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 REPO = Path(__file__).resolve().parent
 ARTIFACT = REPO / "data" / "artifacts" / "ctpn_synth_f16.npz"
 PHOTOS = [REPO / "docs" / "demo_results" / "H" / n
           for n in ("006.jpg", "007.jpg", "008.jpg", "009.jpg", "010.png")]
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 non-tensor FLOP/s
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 non-tensor FLOP/s,
+# dense bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12
 # least float ops of one IoU pair test with per-box areas precomputed:
 # 2 min + 2 max + 4 add/sub (sides), 2 max + 1 mul (inter), 2 add/sub +
 # 1 max (union), 1 mul (t * union), 1 compare
@@ -291,6 +319,214 @@ def check_nms_kernel(dev) -> dict:
     }
 
 
+def check_bitmask_kernel(dev) -> dict:
+    from ctpn_tpu_torch.ops import nms_bitmask as NB
+    from ctpn_tpu_torch.ops import nms_fused as NF
+
+    def valid_of(b):
+        return torch.ones(b.shape[:2], dtype=torch.bool, device=dev)
+
+    rng = np.random.RandomState(1)
+    main = proposal_like_boxes(rng, 1, 12000).to(dev)
+    batch8 = proposal_like_boxes(rng, 8, 12000).to(dev)
+    ones8 = valid_of(batch8)
+    # the detector's input: each image's first 1000 proposal survivors
+    kept = NF.nms_keep_sorted_fused_ref(batch8, ones8, 0.7, max_keep=1000)
+    det8 = torch.stack([batch8[i, kept[i]][:1000] for i in range(8)]).contiguous()
+    odd = proposal_like_boxes(rng, 1, 1300).to(dev)
+    odd_valid = torch.from_numpy(rng.rand(1, 1300) > 0.3).to(dev)
+    cases = [
+        ("proposal (1,12000) t=0.7", main, valid_of(main), 0.7),
+        ("detector (1,1000) t=0.2", det8[:1].contiguous(), valid_of(det8[:1]), 0.2),
+        ("served proposal (8,12000) t=0.7", batch8, ones8, 0.7),
+        ("served detector (8,1000) t=0.2", det8, valid_of(det8), 0.2),
+        ("N=1300, 30% invalid, t=0.5", odd, odd_valid, 0.5),
+        ("all invalid (1,700) t=0.7", odd[:, :700].contiguous(),
+         torch.zeros((1, 700), dtype=torch.bool, device=dev), 0.7),
+    ]
+    for t in (0.7, 0.2, 0.5):
+        near = near_threshold_boxes(rng, 2000, t).to(dev)
+        cases.append((f"near-threshold pairs (1,4000) t={t}", near, valid_of(near), t))
+
+    worst = 0
+    for name, b, v, t in cases:
+        kern = NB.suppression_bitmask(b, v, t)
+        torch.cuda.synchronize()
+        plain = NB.suppression_bitmask_ref(b, v, t)
+        bad = int((kern != plain).sum())
+        log(f"  nms_bitmask {name}: {tuple(kern.shape)} words, "
+            f"{int((kern != 0).sum())} non-zero, differing words {bad}")
+        if bad:
+            raise AssertionError(f"nms_bitmask disagrees with its plain version: {name}")
+        worst = max(worst, bad)
+        if name.startswith("near"):
+            # isolated pairs: row 2p's only bit is column 2p+1, set iff the
+            # pair's own f32 test suppresses
+            tests = pair_tests(b[0].cpu().numpy(), t)
+            rows = np.arange(0, b.shape[1], 2)
+            words = kern[0].cpu().numpy().view(np.uint32)
+            bits = (words[rows, (rows + 1) // 32] >> ((rows + 1) % 32)) & 1
+            n_f64 = int((tests["f32"] != tests["f64"]).sum())
+            n_fma = int((tests["f32"] != tests["fma"]).sum())
+            log(f"    bit set in {int(bits.sum())} of {len(rows)} pairs; f32 test "
+                f"differs from f64 in {n_f64}, from FMA in {n_fma}")
+            if (bits.astype(bool) != tests["f32"]).any():
+                raise AssertionError("a near-threshold pair's bit is not its f32 test")
+            if int((kern != 0).sum()) != int(bits.sum()):
+                raise AssertionError("bits set outside the isolated pairs")
+            if n_f64 == 0 or n_fma == 0:
+                raise AssertionError("rounding decided no near-threshold pair")
+
+    shapes = []
+    for name, b, v, t in cases[:4]:
+        ms = cuda_ms(lambda: NB.suppression_bitmask(b, v, t), 20)
+        plain_ms = cuda_ms(lambda: NB.suppression_bitmask_ref(b, v, t), 3)
+        batch, n = v.shape
+        nv = v.sum(dim=1).cpu().numpy().astype(np.int64)
+        n_ops = int((nv * (nv - 1) // 2).sum()) * IOU_PAIR_OPS  # j > i, both valid
+        n_bytes = batch * n * (16 + 1) + batch * n * NB.num_words(n) * 4
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = n_ops / F32_OPS_PER_S * 1e3
+        shapes.append({
+            "call": name, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": n_bytes, "operations": n_ops,
+        })
+        log(f"  nms_bitmask {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {max(bytes_ms, ops_ms) * 1e3:.3f} us "
+            f"({n_ops} ops, {n_bytes} bytes)")
+    head = shapes[2]  # the served path's proposal call: batch 8
+    return {
+        "name": "nms_bitmask",
+        "route": "cuda",
+        "source": "ctpn_tpu_torch/ops/csrc/nms_bitmask.cu",
+        "replaces": "ctpn_tpu/ops/nms_pallas.py:55",
+        "launches": None,  # filled from the serving path's run
+        "max_abs_err": float(worst),
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": None,  # no PyTorch call computes a packed suppression mask
+        "shapes": shapes,
+    }
+
+
+# ---------------------------------------------------------------- stem
+
+
+def stock_block(x, w1, b1, w2, b2) -> torch.Tensor:
+    """VGG block 1 as the stock trunk runs it: cuDNN convs in the input's
+    dtype, separate ReLUs and pool."""
+    y = F.relu(F.conv2d(x, w1.to(x.dtype), b1.to(x.dtype), padding=1))
+    y = F.relu(F.conv2d(y, w2.to(x.dtype), b2.to(x.dtype), padding=1))
+    return F.max_pool2d(y, 2, 2)
+
+
+def photo_batch(bucket=(608, 912)) -> tuple:
+    """The five demo photos plus three repeats, padded to ``bucket``:
+    (uint8 images (8, h, w, 3), im_info (8, 3))."""
+    from ctpn_tpu_torch.utils.image import load_image_bgr, prep_image
+
+    preps = [prep_image(load_image_bgr(str(p)), bucket=bucket) for p in PHOTOS]
+    data = np.stack([p[0] for p in preps] + [preps[0][0]] * 3)
+    infos = np.stack([p[1] for p in preps] + [preps[0][1]] * 3)
+    return data, infos
+
+
+def stem_input(images: np.ndarray, dev) -> torch.Tensor:
+    """uint8 BGR (N, H, W, 3) -> the trunk's input: mean-subtracted, bf16,
+    (N, 3, H, W) channels_last."""
+    from ctpn_tpu_torch.config import cfg
+
+    x = torch.from_numpy(images).to(dev).float()
+    x = x - torch.tensor(cfg.PIXEL_MEANS, device=dev)
+    return x.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.float(), b.float()
+    return float(((a - b).abs() / (b.abs() + 1.0)).max())
+
+
+def check_stem_kernel(dev) -> dict:
+    from ctpn_tpu_torch.ops import stem_fused as SF
+    from ctpn_tpu_torch.utils.weights import load_params, params_from_jax
+
+    state = params_from_jax(load_params(str(ARTIFACT), device=dev))
+    shipped = [state[f"trunk.conv1_{i}.{k}"] for i in (1, 2) for k in ("weight", "bias")]
+    rng = np.random.RandomState(2)
+
+    def rand_weights(b1_value=None):
+        def t(a):
+            return torch.from_numpy(a.astype(np.float32)).to(dev)
+        b1 = (np.full(64, b1_value) if b1_value is not None
+              else rng.randn(64) * 0.1)
+        return [t(rng.randn(64, 3, 3, 3) * 0.05), t(b1),
+                t(rng.randn(64, 64, 3, 3) * 0.05), t(rng.randn(64) * 0.1)]
+
+    data, _ = photo_batch()
+    small = rng.uniform(-120, 120, (2, 40, 72, 3)).astype(np.float32)
+    small_x = torch.from_numpy(small).to(dev).permute(0, 3, 1, 2).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    zero_x = torch.zeros((1, 3, 32, 48), dtype=torch.bfloat16, device=dev).contiguous(
+        memory_format=torch.channels_last)
+    ring_w = rand_weights(b1_value=3.0)
+    ring_w[3] = torch.zeros_like(ring_w[3])
+    cases = [
+        ("served (8,3,608,912), demo photos, shipped weights",
+         stem_input(data, dev), shipped),
+        ("odd tiles (2,3,40,72), random", small_x, rand_weights()),
+        ("zero image, conv1 bias 3.0 (1,3,32,48)", zero_x, ring_w),
+    ]
+    worst = 0.0
+    for name, x, ws in cases:
+        kern = SF.fused_stem_block(x, *ws)
+        torch.cuda.synchronize()
+        plain = SF.fused_stem_block_ref(x, *ws)
+        err = rel_err(kern, plain)
+        n_diff = int((kern != plain).sum())
+        log(f"  stem_fused {name}: out {tuple(kern.shape)}, max rel err {err:.3e}, "
+            f"{n_diff} of {kern.numel()} values differ")
+        if not kern.is_contiguous(memory_format=torch.channels_last):
+            raise AssertionError("stem output is not channels_last")
+        if not torch.isfinite(kern.float()).all() or err >= 1e-2:
+            raise AssertionError(f"stem_fused disagrees with its plain version: {name}")
+        worst = max(worst, err)
+
+    name, x, ws = cases[0]
+    ms = cuda_ms(lambda: SF.fused_stem_block(x, *ws), 20)
+    plain_ms = cuda_ms(lambda: SF.fused_stem_block_ref(x, *ws), 3)
+    stock_ms = cuda_ms(lambda: stock_block(x, *ws), 20)
+    n, _, h, w = x.shape
+    n_ops = 2 * n * h * w * (27 * 64 + 576 * 64)
+    n_bytes = (x.numel() * 2 + n * 64 * (h // 2) * (w // 2) * 2
+               + sum(t.numel() * 2 for t in (ws[0], ws[2])) + 2 * 64 * 4)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / BF16_TENSOR_OPS_PER_S * 1e3
+    log(f"  stem_fused {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+        f"stock cuDNN block {stock_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
+        f"({n_ops} ops, {n_bytes} bytes)")
+    return {
+        "name": "stem_fused",
+        "route": "cuda",
+        "source": "ctpn_tpu_torch/ops/csrc/stem_fused.cu",
+        "replaces": "ctpn_tpu/ops/stem_pallas.py:54",
+        "launches": None,  # filled from the serving path's run
+        "max_abs_err": worst,  # max relative error |a-b|/(|b|+1)
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,  # no single PyTorch call computes the fused block
+        "stock_ms": stock_ms,
+        "shapes": [{"call": name, "ms": ms, "plain_ms": plain_ms,
+                    "stock_ms": stock_ms, "bytes": n_bytes, "operations": n_ops}],
+    }
+
+
 # ---------------------------------------------------------------- main path
 
 
@@ -305,6 +541,19 @@ def plain_nms():
         yield
     finally:
         NF.nms_keep_sorted_fused = kernel
+
+
+@contextlib.contextmanager
+def plain_stem():
+    """Route the model's block 1 to the stem's plain version, on the card."""
+    from ctpn_tpu_torch.models import vgg
+    from ctpn_tpu_torch.ops import stem_fused as SF
+
+    vgg.fused_stem_block = SF.fused_stem_block_ref
+    try:
+        yield
+    finally:
+        vgg.fused_stem_block = SF.fused_stem_block
 
 
 def rows_match(a: np.ndarray, b: np.ndarray, atol: float) -> float:
@@ -344,11 +593,11 @@ def recall_vs_committed(recs: np.ndarray, photo: Path) -> tuple:
     return int((iou.max(axis=1) >= 0.5).sum()), len(ref)
 
 
-def drive_main_path(dev, kernel_entry: dict) -> None:
+def drive_main_path(dev, kernel_entry: dict) -> list:
     from ctpn_tpu_torch.config import cfg
     from ctpn_tpu_torch.inference.pipeline import CTPNPredictor
     from ctpn_tpu_torch.ops import nms_fused as NF
-    from ctpn_tpu_torch.utils.image import load_image_bgr, prep_image
+    from ctpn_tpu_torch.utils.image import load_image_bgr
     from ctpn_tpu_torch.utils.weights import load_params
 
     pred = CTPNPredictor(load_params(str(ARTIFACT), device=dev), device=dev)
@@ -396,25 +645,277 @@ def drive_main_path(dev, kernel_entry: dict) -> None:
     log(f"  kernel vs plain NMS end to end: records pair one-to-one, "
         f"worst diff {worst} px")
 
-    preps = [prep_image(im, bucket=(608, 912)) for im in images]
-    data = np.stack([p[0] for p in preps] + [preps[0][0]] * 3)
-    infos = np.stack([p[1] for p in preps] + [preps[0][1]] * 3)
+    data, infos = photo_batch()
+    sec = time_run_batch(pred, data, infos)
+    log("  e2e " + json.dumps({
+        "run_batch": "8x608x912 uint8", "ms_per_batch": sec * 1e3,
+        "img_per_s": 8 / sec, "iters": 10}))
+    return [recs for recs, _, _ in results]
 
+
+def time_run_batch(pred, data: np.ndarray, infos: np.ndarray, iters: int = 10) -> float:
+    """Mean host seconds of ``run_batch`` plus the fetch of its counts,
+    after one warm-up run."""
     def batch():
         _, lines = pred.run_batch(data, infos)
         lines.count.cpu()
 
     batch()
-    iters = 10
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(iters):
         batch()
     torch.cuda.synchronize()
-    sec = (time.perf_counter() - t0) / iters
+    return (time.perf_counter() - t0) / iters
+
+
+def paired_within(a: np.ndarray, b: np.ndarray, atol: float) -> int:
+    """Rows of ``a`` paired one-to-one with rows of ``b`` within ``atol``."""
+    used = np.zeros(len(b), bool)
+    n = 0
+    for row in a:
+        if used.all():
+            break
+        d = np.abs(b - row[None]).max(axis=1)
+        d[used] = np.inf
+        j = int(d.argmin())
+        if d[j] <= atol:
+            used[j] = True
+            n += 1
+    return n
+
+
+def post(url: str, body: bytes) -> tuple:
+    req = urllib.request.Request(url, data=body, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def counted_wrappers() -> dict:
+    """Each kernel's wrapper, whose ``LAUNCHES`` counts its launches."""
+    from ctpn_tpu_torch.ops import nms_bitmask, nms_fused, stem_fused
+
+    return {"nms_bitmask": nms_bitmask.suppression_bitmask,
+            "stem_fused": stem_fused.fused_stem_block,
+            "nms_fused": nms_fused.nms_keep_sorted_fused}
+
+
+def launch_counts() -> dict:
+    return {name: fn.LAUNCHES for name, fn in counted_wrappers().items()}
+
+
+def zero_launch_counts() -> None:
+    for fn in counted_wrappers().values():
+        fn.LAUNCHES = 0
+
+
+def check_route_launches(counts: dict, batches: int, what: str) -> None:
+    want = {"nms_bitmask": 2 * batches, "stem_fused": batches, "nms_fused": 0}
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want} "
+                             f"for {batches} batches")
+
+
+def drive_serving_path(dev, bitmask_entry: dict, stem_entry: dict,
+                       default_recs: list) -> None:
+    from ctpn_tpu_torch.config import cfg
+    from ctpn_tpu_torch.inference.pipeline import CTPNPredictor, forward_features
+    from ctpn_tpu_torch.inference.streaming import stream_detect
+    from ctpn_tpu_torch.ops import nms
+    from ctpn_tpu_torch.serving import DetectionServer
+    from ctpn_tpu_torch.utils.image import load_image_bgr, prep_image, resize_im
+    from ctpn_tpu_torch.utils.weights import load_params
+
+    params = load_params(str(ARTIFACT), device=dev)
+    stock = CTPNPredictor(params, device=dev)  # default cfg: stock stem
+    cfg.TPU.NMS_FUSED = False
+    cfg.TPU.FUSED_STEM = True
+    pred = CTPNPredictor(params, device=dev)
+    if not pred.model.trunk.fused_stem or stock.model.trunk.fused_stem:
+        raise AssertionError("the cfg flags did not select the stem routes")
+    log(f"  predictor: {cfg.TPU.COMPUTE_DTYPE}, mode {pred.mode}, NMS_FUSED "
+        f"{cfg.TPU.NMS_FUSED}, FUSED_STEM {cfg.TPU.FUSED_STEM}")
+
+    # The fused-stem model against the same model with the stem's plain
+    # version (the kernel's own definition) and against the stock-stem
+    # model. In the served bf16 trunk a stem value that rounds to the other
+    # bf16 neighbour propagates through eleven more bf16 convs: limit 2e-2,
+    # the port's bf16 head tolerance (tests/test_torch_model.py). With an
+    # f32 trunk only the stem rounds: kernel against plain version at 5e-3,
+    # the JAX package's fused-stem tolerance (tests/test_stem.py).
+    dtype = cfg.TPU.COMPUTE_DTYPE
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    pred32 = CTPNPredictor(params, device=dev)
+    cfg.TPU.COMPUTE_DTYPE = dtype
+    worst = {"plain": 0.0, "stock": 0.0, "plain_f32": 0.0}
+    buckets = []
+    for photo in PHOTOS:
+        im, _ = resize_im(load_image_bgr(str(photo)), cfg.TEXT.SCALE, cfg.TEXT.MAX_SCALE)
+        padded = prep_image(im)[0]
+        buckets.append(padded.shape[:2])
+        x = torch.from_numpy(padded[None]).to(dev)
+        with torch.inference_mode():
+            a = forward_features(pred.model, x).cls_prob
+            a32 = forward_features(pred32.model, x).cls_prob
+            with plain_stem():
+                p = forward_features(pred.model, x).cls_prob
+                p32 = forward_features(pred32.model, x).cls_prob
+            b = forward_features(stock.model, x).cls_prob
+        if not (torch.isfinite(a).all() and torch.isfinite(a32).all()):
+            raise AssertionError(f"{photo.name}: non-finite cls_prob")
+        for key, (u, v) in {"plain": (a, p), "stock": (a, b),
+                            "plain_f32": (a32, p32)}.items():
+            worst[key] = max(worst[key], float((u - v).abs().max()))
+    log(f"  fused-stem cls_prob on {len(PHOTOS)} photos, max abs diff: {dtype} "
+        f"trunk, kernel vs the stem's plain version {worst['plain']:.3e} and vs "
+        f"the stock stem {worst['stock']:.3e} (limit 2e-2); float32 trunk, "
+        f"kernel vs plain version {worst['plain_f32']:.3e} (limit 5e-3)")
+    if max(worst["plain"], worst["stock"]) > 2e-2 or worst["plain_f32"] > 5e-3:
+        raise AssertionError("fused-stem cls_prob out of tolerance")
+    del stock, pred32
+
+    for bucket in sorted(set(buckets)):  # build, cuDNN algorithm choice
+        pred.warmup(bucket, batch=8)
+    bodies = [p.read_bytes() for p in PHOTOS]
+    requests = list(range(len(PHOTOS))) + [4, 1, 2]  # 5 photos + 3 repeats
+    srv = DetectionServer(pred, host="127.0.0.1", port=0, max_batch=8,
+                          window_ms=200.0)
+    serve_thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    serve_thread.start()
+    host, port = srv.server_address
+    results = [None] * len(requests)
+
+    def client(slot):
+        results[slot] = post(f"http://{host}:{port}/detect", bodies[requests[slot]])
+
+    try:
+        zero_launch_counts()  # counts of the serving path only
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(i,)) for i in range(len(requests))]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=600)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        batches = srv.batcher.batches_run
+    finally:
+        srv.shutdown()
+        srv.batcher.join(timeout=60)
+        serve_thread.join(timeout=60)
+    log(f"  HTTP: {len(requests)} concurrent POSTs answered in {wall:.3f} s, "
+        f"{batches} batches, launches {counts}")
+    hits = n_ref = 0
+    for slot, res in enumerate(results):
+        if res is None:
+            raise AssertionError(f"request {slot} got no response")
+        status, out = res
+        photo = PHOTOS[requests[slot]]
+        if status != 200:
+            raise AssertionError(f"{photo.name}: HTTP {status} {out}")
+        recs = np.asarray(out["boxes"], np.float64).reshape(-1, 9)
+        if out["count"] != len(recs) or not np.isfinite(recs).all():
+            raise AssertionError(f"{photo.name}: bad records")
+        if slot < len(PHOTOS):
+            hit, n = recall_vs_committed(recs, photo)
+            hits, n_ref = hits + hit, n_ref + n
+            ref = default_recs[slot]
+            log(f"  {photo.name}: {len(recs)} lines over HTTP, reference lines "
+                f"{hit}/{n}; {paired_within(recs, ref, 0.5)} of {len(ref)} default-"
+                f"route records paired within 0.5 px")
+    if batches >= len(requests):
+        raise AssertionError(f"{batches} batches for {len(requests)} requests: no coalescing")
+    check_route_launches(counts, batches, "served path")
+    if hits < 0.75 * n_ref:
+        raise AssertionError(f"only {hits}/{n_ref} committed reference lines found")
+    bitmask_entry["launches"] = counts["nms_bitmask"]
+    stem_entry["launches"] = counts["stem_fused"]
+    log(f"  served path: reference recall {hits}/{n_ref}")
+
+    zero_launch_counts()
+    streamed = dict(stream_detect([str(p) for p in PHOTOS], pred, batch_size=8))
+    torch.cuda.synchronize()
+    n_batches = len(set(buckets))  # 5 photos < 8: one padded batch per bucket
+    check_route_launches(launch_counts(), n_batches, "stream_detect")
+    for slot, photo in enumerate(PHOTOS):
+        recs = streamed[str(photo)]
+        if recs.ndim != 2 or recs.shape[1] != 9 or not np.isfinite(recs).all():
+            raise AssertionError(f"{photo.name}: bad streamed records")
+        http = np.asarray(results[slot][1]["boxes"], np.float64).reshape(-1, 9)
+        log(f"  stream_detect {photo.name}: {len(recs)} lines, "
+            f"{paired_within(recs, http, 0.5)} paired with HTTP within 0.5 px")
+    log(f"  stream_detect: {n_batches} batches, launches {launch_counts()}")
+
+    data, infos = photo_batch()
+    sweeps = nms.nms_fixed_point_blocked.SWEEPS
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _, lines = pred.run_batch(data, infos)
+            lines.count.cpu()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    n_sweeps = nms.nms_fixed_point_blocked.SWEEPS - sweeps
+    n_syncs = sum("synchroniz" in str(w.message) for w in caught)
+    sec = time_run_batch(pred, data, infos)
     log("  e2e " + json.dumps({
+        "route": "NMS_FUSED False, FUSED_STEM True",
         "run_batch": "8x608x912 uint8", "ms_per_batch": sec * 1e3,
-        "img_per_s": 8 / sec, "iters": iters}))
+        "img_per_s": 8 / sec, "iters": 10,
+        "resolve_sweeps_per_batch": n_sweeps,
+        "host_syncs_per_batch": n_syncs}))
+
+
+def check_cli() -> None:
+    """The serve CLI as a subprocess: one POST, 200 and count > 0."""
+    cmd = [sys.executable, "-m", "ctpn_tpu_torch.cli.serve", "--artifact",
+           str(ARTIFACT), "--port", "0", "--no-warmup",
+           "--set", "TPU.NMS_FUSED", "False", "TPU.FUSED_STEM", "True"]
+    proc = subprocess.Popen(cmd, cwd=str(REPO), stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            env=dict(os.environ, PYTHONPATH=str(REPO)))
+    lines: "queue.Queue" = queue.Queue()
+
+    def pump():
+        for line in proc.stdout:
+            lines.put(line)
+
+    reader = threading.Thread(target=pump, daemon=True)
+    reader.start()
+    seen = []
+    try:
+        port = None
+        deadline = time.monotonic() + 300
+        while port is None and time.monotonic() < deadline:
+            try:
+                line = lines.get(timeout=5)
+            except queue.Empty:
+                if proc.poll() is not None:
+                    break
+                continue
+            seen.append(line)
+            if "listening on" in line:
+                port = int(line.split("listening on ")[1].split()[0].rsplit(":", 1)[1])
+        if port is None:
+            raise AssertionError("the serve CLI printed no listening line:\n" + "".join(seen))
+        status, out = post(f"http://127.0.0.1:{port}/detect", PHOTOS[-1].read_bytes())
+        if status != 200 or out.get("count", 0) <= 0:
+            raise AssertionError(f"serve CLI answered {status}: {out}")
+        log(f"  serve CLI on port {port}: HTTP {status}, {out['count']} lines "
+            f"for {PHOTOS[-1].name}")
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=60)
+        reader.join(timeout=10)
 
 
 def main() -> int:
@@ -425,27 +926,34 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     card = card_line()
-    log(f"[1/5] device: {torch.cuda.get_device_name(0)} | {card} | "
+    log(f"[1/7] device: {torch.cuda.get_device_name(0)} | {card} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    logs = _build.build(["nms_fused"])
-    log(f"[2/5] build: {time.perf_counter() - t0:.2f} s")
+    logs = _build.build(["nms_fused", "nms_bitmask", "stem_fused"])
+    log(f"[2/7] build: {time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    log("[3/5] kernels against their plain versions")
-    entry = check_nms_kernel(dev)
+    log("[3/7] kernels against their plain versions")
+    entries = [check_nms_kernel(dev), check_bitmask_kernel(dev), check_stem_kernel(dev)]
 
-    log("[4/5] main path")
-    drive_main_path(dev, entry)
-    if not entry["launches"]:
-        raise AssertionError("a kernel of the path was never launched")
+    log("[4/7] main path (default config)")
+    default_recs = drive_main_path(dev, entries[0])
 
-    log("[5/5] result")
-    print(json.dumps({"kernels": [entry]}))
+    log("[5/7] serving path (TPU.NMS_FUSED False, TPU.FUSED_STEM True)")
+    drive_serving_path(dev, entries[1], entries[2], default_recs)
+    for entry in entries:
+        if not entry["launches"]:
+            raise AssertionError(f"{entry['name']} was never launched on its path")
+
+    log("[6/7] serve CLI")
+    check_cli()
+
+    log("[7/7] result")
+    print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

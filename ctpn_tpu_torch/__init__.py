@@ -6,11 +6,14 @@ its NHWC layouts and output contracts (``CTPNOutputs``, ``Proposals``,
 ``TextLines``, the (M, 9) line records). This package imports neither JAX
 nor any module of ``ctpn_tpu``.
 
-    ops/          anchors, box decode, greedy NMS (hand-written CUDA kernel
-                  under ops/csrc/ and its plain PyTorch version), proposals
+    ops/          anchors, box decode, greedy NMS (fused kernel, or the
+                  suppression bitmask kernel and its resolve), the fused
+                  VGG block 1, proposals; hand-written CUDA kernels under
+                  ops/csrc/, each beside its plain PyTorch version
     models/       VGG16 trunk + BiLSTM + CTPN heads (nn.Module)
     postprocess/  H-mode text-line connector, detector, line-union pass
-    inference/    end-to-end predictor
+    inference/    end-to-end predictor, stream_detect, stage breakdown
+    serving.py    HTTP server with micro-batching (cli/serve.py runs it)
     utils/        image preprocessing, weight loading, device selection
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for

@@ -206,11 +206,12 @@ def _default_cfg() -> AttrDict:
     p.MAX_LINES = 128  # padded text lines per image
     p.NMS_TILE = 256  # Pallas NMS bitmask row-tile size (multiple of 8)
     p.NMS_TILE_J = 2048  # Pallas NMS bitmask column-tile size (mult. of 16)
-    p.NMS_FUSED = True  # single-kernel NMS (build+resolve fused, early exit)
+    # single-kernel NMS (build+resolve fused, early exit); False: the
+    # bitmask kernel plus the blocked resolve (ops/nms.py)
+    p.NMS_FUSED = True
     p.NMS_FUSED_BLOCK = 512  # fused NMS block size (multiple of 32)
-    # route VGG block 1 through the fused Pallas stem (inference graphs
-    # only). Default off: slower than XLA on DMA-limited backends — see
-    # docs/PERFORMANCE.md "Fused-stem kernel post-mortem"
+    # route VGG block 1 through the fused stem kernel (inference graphs
+    # only; ops/stem_fused.py). Default off, as in the JAX package
     p.FUSED_STEM = False
     # batch-packed VGG block 1 (inference graphs, even batches): two images
     # share the channel dim through block-diagonal weights, halving the HBM

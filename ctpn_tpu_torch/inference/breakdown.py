@@ -1,7 +1,8 @@
 """Where the time goes: stage times and top device kernels of the batched
 H-mode detect on one CUDA card.
 
-    python3 -m ctpn_tpu_torch.inference.breakdown [--batch 8] [--iters 10]
+    python3 -m ctpn_tpu_torch.inference.breakdown [--batch 8] [--iters 10] \
+        [--set TPU.NMS_FUSED False TPU.FUSED_STEM True]
 
 Runs ``CTPNPredictor`` with the shipped weights on a batch of the committed
 demo photos in the 608x912 bucket, after a warm-up, and prints one JSON
@@ -24,7 +25,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ctpn_tpu_torch.config import cfg
+from ctpn_tpu_torch.config import cfg, cfg_from_list
 from ctpn_tpu_torch.inference.pipeline import CTPNPredictor, build_detect_fn
 from ctpn_tpu_torch.utils.device import resolve_device
 from ctpn_tpu_torch.utils.image import load_image_bgr, prep_image
@@ -56,7 +57,10 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--set", dest="set_cfg", nargs="*", default=[],
+                    help="cfg key/value overrides, e.g. the kernel routes")
     args = ap.parse_args(argv)
+    cfg_from_list(args.set_cfg)
 
     dev = resolve_device("cuda")
     card = subprocess.run(
@@ -102,6 +106,8 @@ def main(argv=None) -> dict:
         "batch": args.batch,
         "bucket": [608, 912],
         "dtype": cfg.TPU.COMPUTE_DTYPE,
+        "nms_fused": cfg.TPU.NMS_FUSED,
+        "fused_stem": cfg.TPU.FUSED_STEM,
         "wall_ms_per_batch": wall_ms,
         "img_per_s": args.batch / wall_ms * 1e3,
         "stage_device_ms": {

@@ -131,6 +131,10 @@ class CTPNPredictor:
     ``utils.weights.load_params`` or a nested flax tree); it is loaded into
     ``model`` (default: ``get_network("VGGnet_test")`` from the cfg).
     Runs on CUDA unless ``device`` says otherwise; without CUDA it raises.
+
+    ``buckets_run`` records, in first-run order, each (height, width)
+    bucket that ``run_batch`` has run: the server reports it where the JAX
+    package reports its compiled programs.
     """
 
     def __init__(
@@ -148,10 +152,13 @@ class CTPNPredictor:
         self.model.eval()
         self.mode = mode or cfg.TEST.DETECT_MODE
         self._detect = build_detect_fn(self.model, mode=self.mode)
+        self.buckets_run: Dict[Tuple[int, int], None] = {}
 
     def run_batch(self, images: np.ndarray, im_info: np.ndarray):
         """(N, bh, bw, 3) uint8/float32 batch -> (Proposals, TextLines) on
-        the device."""
+        the device. Returns once the work is queued on the device (the
+        routes' own host syncs aside): callers fetch with ``.cpu()``."""
+        self.buckets_run.setdefault(tuple(int(d) for d in images.shape[1:3]))
         x = torch.as_tensor(np.ascontiguousarray(images)).to(self.device)
         info = torch.as_tensor(np.asarray(im_info, np.float32)).to(self.device)
         return self._detect(x, info)

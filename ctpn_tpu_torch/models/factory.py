@@ -17,8 +17,8 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 def get_network(name: str, device: Union[str, torch.device] = "cuda") -> CTPN:
     """A randomly initialised ``CTPN`` on ``device``, in eval mode.
 
-    ``TPU.FUSED_STEM`` on the test network raises until the stem kernel is
-    ported. ``TPU.PACKED_STEM`` needs nothing: the packed block equals the
+    ``TPU.FUSED_STEM`` routes block 1 of the test network (inference only)
+    through the fused stem kernel. ``TPU.PACKED_STEM`` needs nothing: the packed block equals the
     stock convs, which run either way.
     """
     if name not in ("VGGnet_train", "VGGnet_test", "ctpn"):

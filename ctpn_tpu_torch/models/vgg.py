@@ -8,7 +8,12 @@ run NCHW; on CUDA the activations are kept channels_last for cuDNN.
 
 The JAX package's two block-1 variants map as follows:
 
-* ``fused_stem`` (the Pallas stem kernel) is not ported yet and raises.
+* ``fused_stem`` routes block 1 (when it has two convs) through
+  ``ops/stem_fused.py``: the hand-written CUDA kernel on the card, its
+  plain version on the CPU. Same parameters (``conv1_1``/``conv1_2``), so
+  one state dict loads either route. The block computes in bf16 whatever
+  the compute dtype, and its output is cast back to the input's dtype, as
+  in the JAX package.
 * ``packed_stem`` packs image pairs into channels through block-diagonal
   weights, a TPU lane-layout trick whose output equals the stock block;
   here it runs the stock convs.
@@ -21,6 +26,8 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ctpn_tpu_torch.ops.stem_fused import fused_stem_block
 
 # (block, reps, channels) for VGG16's conv layers
 VGG_STAGES: Tuple[Tuple[int, int, int], ...] = (
@@ -48,7 +55,8 @@ class VGG16Trunk(nn.Module):
     """Feature extractor on NCHW tensors: (N, 3, H, W) -> (N, C, H/16, W/16).
 
     ``stages`` defaults to VGG16; tests substitute a narrow ladder with the
-    same stride-16 pooling structure.
+    same stride-16 pooling structure. ``fused_stem`` routes block 1
+    through the fused stem kernel.
     """
 
     def __init__(
@@ -57,12 +65,8 @@ class VGG16Trunk(nn.Module):
         fused_stem: bool = False,
     ):
         super().__init__()
-        if fused_stem:
-            raise NotImplementedError(
-                "TPU.FUSED_STEM selects the fused stem kernel, which is not "
-                "ported yet (ROADMAP queue B, item 3)"
-            )
         self.stages = tuple(stages)
+        self.fused_stem = fused_stem
         cin = 3  # BGR
         for block, reps, ch in self.stages:
             for rep in range(1, reps + 1):
@@ -72,8 +76,19 @@ class VGG16Trunk(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for block, reps, _ in self.stages:
+            if block == 1 and self.fused_stem and reps == 2:
+                x = self._fused_block1(x)
+                continue
             for rep in range(1, reps + 1):
                 x = F.relu(getattr(self, f"conv{block}_{rep}")(x))
             if block < 5:  # pools 1-4 only: stride 16 at conv5_3
                 x = F.max_pool2d(x, 2, 2)
         return x
+
+    def _fused_block1(self, x: torch.Tensor) -> torch.Tensor:
+        y = fused_stem_block(
+            x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last),
+            self.conv1_1.weight, self.conv1_1.bias,
+            self.conv1_2.weight, self.conv1_2.bias,
+        )
+        return y.to(x.dtype)

@@ -33,7 +33,10 @@ NVCC_FLAGS = (
 )
 # per-source extra flags: the NMS IoU test must round exactly as the plain
 # version does, so no multiply-add contraction
-EXTRA_FLAGS: Dict[str, Sequence[str]] = {"nms_fused": ("-fmad=false",)}
+EXTRA_FLAGS: Dict[str, Sequence[str]] = {
+    "nms_fused": ("-fmad=false",),
+    "nms_bitmask": ("-fmad=false",),
+}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

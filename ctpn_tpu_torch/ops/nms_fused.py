@@ -40,25 +40,28 @@ SMEM_KEPT_MAX = 8192
 
 
 def _suppress(rows: torch.Tensor, cols: torch.Tensor, thresh: float) -> torch.Tensor:
-    """(R, C) bool: IoU(rows[i], cols[j]) >= thresh, divide-free, +1 areas.
+    """(..., R, C) bool: IoU(rows[i], cols[j]) >= thresh, divide-free, +1
+    areas, for rows (..., R, 4) and cols (..., C, 4).
 
-    Each step is one rounded f32 operation, in the order of the TPU kernel
-    and of ``nms_fused.cu``, so the three agree bit for bit.
+    Each step is one rounded f32 operation, in the order of the TPU kernels
+    and of ``nms_fused.cu`` / ``nms_bitmask.cu``, so all agree bit for bit.
     """
     iw = (
-        torch.minimum(rows[:, None, 2], cols[None, :, 2])
-        - torch.maximum(rows[:, None, 0], cols[None, :, 0])
+        torch.minimum(rows[..., :, None, 2], cols[..., None, :, 2])
+        - torch.maximum(rows[..., :, None, 0], cols[..., None, :, 0])
         + 1.0
     )
     ih = (
-        torch.minimum(rows[:, None, 3], cols[None, :, 3])
-        - torch.maximum(rows[:, None, 1], cols[None, :, 1])
+        torch.minimum(rows[..., :, None, 3], cols[..., None, :, 3])
+        - torch.maximum(rows[..., :, None, 1], cols[..., None, :, 1])
         + 1.0
     )
     inter = torch.clamp(iw, min=0.0) * torch.clamp(ih, min=0.0)
-    area_r = (rows[:, 2] - rows[:, 0] + 1.0) * (rows[:, 3] - rows[:, 1] + 1.0)
-    area_c = (cols[:, 2] - cols[:, 0] + 1.0) * (cols[:, 3] - cols[:, 1] + 1.0)
-    union = torch.clamp(area_r[:, None] + area_c[None, :] - inter, min=1e-10)
+    area_r = (rows[..., 2] - rows[..., 0] + 1.0) * (rows[..., 3] - rows[..., 1] + 1.0)
+    area_c = (cols[..., 2] - cols[..., 0] + 1.0) * (cols[..., 3] - cols[..., 1] + 1.0)
+    union = torch.clamp(
+        area_r[..., :, None] + area_c[..., None, :] - inter, min=1e-10
+    )
     return inter >= thresh * union
 
 

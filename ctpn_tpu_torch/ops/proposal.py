@@ -23,20 +23,13 @@ import torch
 
 from ctpn_tpu_torch.ops.anchors import FEAT_STRIDE, NUM_ANCHORS, shifted_anchors
 from ctpn_tpu_torch.ops.boxes import bbox_transform_inv, box_sizes, clip_boxes
-from ctpn_tpu_torch.ops.nms import nms_keep_sorted
+from ctpn_tpu_torch.ops.nms import nms_keep_sorted, take_rows
 
 
 class Proposals(NamedTuple):
     rois: torch.Tensor  # (N, post_n, 5) [score, x1, y1, x2, y2]
     valid: torch.Tensor  # (N, post_n) bool
     count: torch.Tensor  # (N,) int32
-
-
-def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Gather rows of ``x`` (N, K, ...) along dim 1 by ``idx`` (N, M)."""
-    if x.ndim == 2:
-        return torch.gather(x, 1, idx)
-    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
 
 
 def proposal_layer(
@@ -85,8 +78,8 @@ def proposal_layer(
     lo = max(k - pre_nms_top_n, 0)
     order = order[:, lo:].flip(1)
     top_scores = s_key[:, lo:].flip(1)
-    top_boxes = _take(boxes, order)
-    top_valid = _take(valid, order)
+    top_boxes = take_rows(boxes, order)
+    top_valid = take_rows(valid, order)
 
     keep = nms_keep_sorted(
         top_boxes, top_valid, nms_thresh, max_keep=post_nms_top_n
@@ -104,7 +97,7 @@ def proposal_layer(
     count = torch.clamp(keep.sum(dim=1), max=post_nms_top_n).to(torch.int32)
     slot_valid = torch.arange(post_nms_top_n, device=dev)[None] < count[:, None]
 
-    out_boxes = torch.where(slot_valid[..., None], _take(top_boxes, compact), 0.0)
-    out_scores = torch.where(slot_valid, _take(top_scores, compact), -1.0)
+    out_boxes = torch.where(slot_valid[..., None], take_rows(top_boxes, compact), 0.0)
+    out_scores = torch.where(slot_valid, take_rows(top_scores, compact), -1.0)
     rois = torch.cat([out_scores[..., None], out_boxes], dim=-1)
     return Proposals(rois=rois, valid=slot_valid, count=count)

@@ -1,0 +1,170 @@
+"""VGG block 1 fused: conv1_1 + ReLU + conv1_2 + ReLU + 2x2/2 max-pool.
+
+Port of ``ctpn_tpu/ops/stem_pallas.py::_stem_kernel`` (the Pallas TPU
+kernel behind ``fused_stem_block``, ``pl.pallas_call`` at
+``stem_pallas.py:140``).
+
+* :func:`fused_stem_block` is the wrapper. A CUDA tensor launches the
+  hand-written kernel ``ops/csrc/stem_fused.cu`` (a CTA per 16x16 tile of
+  conv1_2 outputs: conv1_1 on the SIMT cores into a bf16 shared tile with
+  its one-pixel ring, conv1_2 as an implicit GEMM on the tensor cores, the
+  pool in the epilogue); a CPU tensor runs the plain version. There is no
+  fallback from one to the other.
+* :func:`fused_stem_block_ref` is the plain PyTorch version: f32 on
+  bf16-rounded inputs and weights, rounding to bf16 where the kernel does
+  (``tests/test_stem.py::_stock`` computes the same). conv1_2 is
+  ``F.conv2d``; conv1_1 sums its 27 products in a fixed order (below).
+
+Contract (both versions): x (N, 3, H, W) bf16 with H % 8 == 0 and
+W % 8 == 0 (``ValueError`` otherwise), weights in the port's ``Conv2d``
+layout (w1 (64, 3, 3, 3), w2 (64, 64, 3, 3), OIHW, any float dtype; biases
+(64,)). The output is (N, 64, H/2, W/2) bf16 in ``channels_last``:
+
+1. conv1_1 with bf16 operands, f32 accumulation and the f32 bias, ReLU;
+2. conv1 values centred outside the image are zero (SAME padding);
+3. round to bf16;
+4. conv1_2 with the same numerics, ReLU, round to bf16;
+5. 2x2/2 max-pool.
+
+conv1_1 adds its 27 products (exact in f32: bf16 x bf16) to zero in
+(ky, kx, ci) order, then the bias; the kernel and the plain version do the
+same, so their conv1 values agree bit for bit. This matters: with real
+pixels a conv1 value of a few hundred has a bf16 ulp of 1-2, and a conv1
+value that another order of summation rounds to the other bf16 neighbour
+moves conv1_2 outputs near zero by w2 times that ulp, past the 1e-2
+tolerance below. What remains between the two is conv1_2's order of
+summation: at most one bf16 ulp of each output, a relative error
+``|a-b|/(|b|+1)`` below 2**-7.
+
+The bf16 roundings apply whatever the trunk's compute dtype: with
+``COMPUTE_DTYPE = float32`` the block's output is bf16 values cast back,
+as in the JAX package (``ctpn_tpu/models/vgg.py:166``). The kernel needs
+x in ``channels_last`` (NHWC in memory); the plain version takes any
+layout.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+CH = 64  # output channels of both convs (VGG16's block 1)
+CIN = 3
+
+
+def _check(x, w1, b1, w2, b2) -> None:
+    if x.ndim != 4 or x.shape[1] != CIN:
+        raise ValueError(f"x must be (N, 3, H, W), got {tuple(x.shape)}")
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"x must be bfloat16, got {x.dtype}")
+    h, w = x.shape[2:]
+    if h % 8 or w % 8:
+        raise ValueError(f"stem geometry must have H%8==0, W%8==0; got {h}x{w}")
+    shapes = {"w1": (w1, (CH, CIN, 3, 3)), "b1": (b1, (CH,)),
+              "w2": (w2, (CH, CH, 3, 3)), "b2": (b2, (CH,))}
+    for name, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        if t.device != x.device:
+            raise ValueError(f"{name} must be on {x.device}, got {t.device}")
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """Round to bf16 and widen back to f32 (exact)."""
+    return t.to(torch.bfloat16).float()
+
+
+def fused_stem_block_ref(
+    x: torch.Tensor,
+    w1: torch.Tensor,
+    b1: torch.Tensor,
+    w2: torch.Tensor,
+    b2: torch.Tensor,
+) -> torch.Tensor:
+    """Plain PyTorch version of the stem kernel, on any device.
+
+    Both convs run in f32 on bf16 values. On the card cuDNN may run the f32
+    conv1_2 in TF32, whose operands keep 10 mantissa bits: bf16 values (8
+    bits) pass through exactly, so the products stay exact either way.
+    """
+    _check(x, w1, b1, w2, b2)
+    n, _, h, w = x.shape
+    xp = F.pad(x.float(), (1, 1, 1, 1))
+    w1r = _bf16(w1)
+    acc = xp.new_zeros((n, CH, h, w))
+    for ky in range(3):  # conv1_1 in the kernel's order of summation
+        for kx in range(3):
+            for ci in range(CIN):
+                acc += xp[:, ci:ci + 1, ky:ky + h, kx:kx + w] * w1r[:, ci, ky, kx].view(1, CH, 1, 1)
+    y = F.relu(acc + b1.float().view(1, CH, 1, 1))
+    y = F.relu(F.conv2d(_bf16(y), _bf16(w2), b2.float(), padding=1))
+    y = F.max_pool2d(_bf16(y), 2, 2).to(torch.bfloat16)
+    return y.contiguous(memory_format=torch.channels_last)
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    fn = lib.ctpn_stem_fused
+    p = ctypes.c_void_p
+    fn.argtypes = [p, p, p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
+    fn.restype = ctypes.c_int
+
+
+def fused_stem_block(
+    x: torch.Tensor,
+    w1: torch.Tensor,
+    b1: torch.Tensor,
+    w2: torch.Tensor,
+    b2: torch.Tensor,
+) -> torch.Tensor:
+    """VGG block 1, (N, 3, H, W) bf16 -> (N, 64, H/2, W/2) bf16 channels_last.
+
+    CPU tensors run :func:`fused_stem_block_ref`; CUDA tensors launch the
+    kernel (adding one to ``fused_stem_block.LAUNCHES``) or raise.
+    """
+    _check(x, w1, b1, w2, b2)
+    dev = x.device
+    if dev.type == "cpu":
+        return fused_stem_block_ref(x, w1, b1, w2, b2)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_stem_block: unsupported device {dev}")
+    if not x.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError("fused_stem_block: x must be channels_last on CUDA")
+    from ctpn_tpu_torch.ops import _build
+
+    lib = _build.load("stem_fused")
+    _declare(lib)
+    n, _, h, w = x.shape
+    out = torch.empty(
+        (n, CH, h // 2, w // 2), dtype=torch.bfloat16, device=dev,
+        memory_format=torch.channels_last,
+    )
+    if n == 0:
+        return out
+    # kernel layouts: w1 (co, ky, kx, ci) as bf16 values in f32; w2 rows
+    # (ky, kx, ci), columns co, in bf16
+    w1k = _bf16(w1).permute(0, 2, 3, 1).contiguous()
+    w2k = w2.to(torch.bfloat16).permute(2, 3, 1, 0).reshape(9 * CH, CH).contiguous()
+    b1k = b1.float().contiguous()
+    b2k = b2.float().contiguous()
+    with torch.cuda.device(dev):
+        err = lib.ctpn_stem_fused(
+            x.data_ptr(),
+            w1k.data_ptr(),
+            b1k.data_ptr(),
+            w2k.data_ptr(),
+            b2k.data_ptr(),
+            out.data_ptr(),
+            n,
+            h,
+            w,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"stem_fused kernel launch failed: CUDA error {err}")
+    fused_stem_block.LAUNCHES += 1
+    return out
+
+
+fused_stem_block.LAUNCHES = 0

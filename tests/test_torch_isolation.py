@@ -45,6 +45,12 @@ def test_package_imports_no_jax_and_no_ctpn_tpu():
     ).stdout.splitlines()
     assert int(out[0]) == len(_module_names()) >= 15
     assert out[1] == "", f"forbidden modules imported: {out[1]}"
+    # the walk covers the serving slice's modules
+    assert {
+        "ctpn_tpu_torch.serving", "ctpn_tpu_torch.cli.serve",
+        "ctpn_tpu_torch.inference.streaming", "ctpn_tpu_torch.ops.nms_bitmask",
+        "ctpn_tpu_torch.ops.stem_fused",
+    } <= set(_module_names())
 
 
 def _imported_roots(path):

@@ -166,9 +166,13 @@ def test_wrapper_rejects_bad_inputs(rng):
         nms_keep_sorted_fused(b[0], torch.ones((10,), dtype=torch.bool), 0.5)
 
 
-def test_bitmask_nms_not_ported_raises():
+def test_bitmask_nms_not_ported_raises(rng):
+    """The bitmask route is ported now and no longer raises: ``TPU.NMS_FUSED
+    = False`` selects the bitmask kernel and the blocked resolve, which give
+    the same keep mask as the fused route when nothing is capped."""
+    sb, _ = _sorted_dets(rng, 600)
+    b = torch.from_numpy(sb)[None]
+    v = torch.from_numpy(rng.rand(1, 600) > 0.2)
     tcfg.TPU.NMS_FUSED = False
-    with pytest.raises(NotImplementedError, match="queue B"):
-        tnms.nms_keep_sorted(
-            torch.zeros((1, 4, 4)), torch.ones((1, 4), dtype=torch.bool), 0.5
-        )
+    got = tnms.nms_keep_sorted(b, v, 0.5)
+    assert torch.equal(got, nms_keep_sorted_fused_ref(b, v, 0.5))
