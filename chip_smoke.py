@@ -4,15 +4,24 @@ holds each against its plain PyTorch version, drives the main path and the
 serving path, and checks what comes out.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels-only
+
+``--kernels-only`` stops after phase 3 and prints the ``kernels`` line
+(without launch counts) and the card line, but no final result line: it
+times the kernels of another checkout on the same card, when this file is
+copied into that checkout.
 
 Phases (any failure exits non-zero and prints no result line):
 
 1. device: CUDA must be available; prints the card's name and power limit.
 2. build: compiles every kernel from ``ctpn_tpu_torch/ops/csrc`` (one
    ``nvcc`` per source, in parallel), prints the build time and each
-   kernel's registers, shared memory and spills.
+   kernel's registers, shared memory, spills and ptxas performance notes.
 3. kernels: each kernel against its plain version on the card, at its
-   path's shapes and on edge cases. The fused NMS keep mask's prefix and
+   path's shapes and on edge cases (NMS: K one past a block, caps reached
+   on a block's last box and mid-chain, a batch of unequal survivor
+   counts, near-threshold pairs; stem: both served buckets, partial and
+   sub-tile images, weights changed between calls). The fused NMS keep mask's prefix and
    the bitmask words must be identical (tolerance 0: integer outputs); the
    stem's max relative error ``|a-b|/(|b|+1)`` must be below 1e-2 (bf16
    resolution, the JAX package's tolerance). Times kernel, plain version,
@@ -29,7 +38,10 @@ Phases (any failure exits non-zero and prints no result line):
    fused-stem model's ``cls_prob`` on the photos against the same model with
    the stem's plain version and against the stock-stem model (atol 2e-2 in
    the served bf16 trunk; 5e-3 for kernel against plain version with an f32
-   trunk, where only the stem rounds to bf16); ``DetectionServer``
+   trunk, where only the stem rounds to bf16); one batch of 8 through
+   ``run_batch`` on the bitmask route with the stock stem must give the
+   default route's records exactly (0.0 px, same counts), and the records
+   the fused stem moves are counted; ``DetectionServer``
    in-process answers 8 concurrent POSTs (the photos plus 3 repeats) with
    counts zeroed just before: every response 200 with finite records,
    fewer batches than requests, exactly 2 bitmask and 1 stem launches per
@@ -238,17 +250,46 @@ def check_nms_kernel(dev) -> dict:
     dense = clusters(rng, 3000, 12).to(dev)
 
     # the detector's input is the proposal call's first 1000 survivors
+    ones8 = valid_of(batch8)
     kept = NF.nms_keep_sorted_fused_ref(main, ones, 0.7, max_keep=1000)
     det = main[:, kept[0]][:, :1000].contiguous()
+    kept8 = NF.nms_keep_sorted_fused_ref(batch8, ones8, 0.7, max_keep=1000)
+    det8 = torch.stack([batch8[i, kept8[i]][:1000] for i in range(8)]).contiguous()
+    # disjoint boxes all survive: a cap of 512 is reached on the last box of
+    # block 0, one of 1024 on the last box of block 1
+    g = torch.arange(1100, dtype=torch.float32, device=dev)
+    gx, gy = (g % 40) * 30, torch.div(g, 40, rounding_mode="floor") * 30
+    disjoint = torch.stack([gx, gy, gx + 20, gy + 20], 1)[None].contiguous()
+    # deep chains, with the cap in the middle of block 1's survivors
+    chain = clusters(rng, 1500, 40).to(dev)
+    full = NF.nms_keep_sorted_fused_ref(chain, valid_of(chain), 0.5)[0]
+    chain_cap = int(full[:512].sum()) + int(full[512:1024].sum()) // 2
+    # batch 8 from one tight cluster (a handful of survivors) to disjoint
+    # boxes (every image's cluster runs its own number of blocks)
+    mixed = torch.cat([clusters(rng, 1100, c).to(dev) for c in (1, 2, 6, 20, 60, 200, 600)]
+                      + [disjoint])
+    mixed_valid = torch.from_numpy(rng.rand(8, 1100) > 0.1).to(dev)
     cases = [
         ("proposal (1,12000) t=0.7 cap=1000", main, ones, 0.7, 1000),
         ("detector (1,1000) t=0.2", det, valid_of(det), 0.2, None),
-        ("batch 8 (8,12000) t=0.7 cap=1000", batch8, valid_of(batch8), 0.7, 1000),
+        ("batch 8 (8,12000) t=0.7 cap=1000", batch8, ones8, 0.7, 1000),
+        ("batch 8 detector (8,1000) t=0.2", det8, valid_of(det8), 0.2, None),
         ("no cap (1,12000) t=0.7, kept list in global scratch", main, ones, 0.7, None),
         ("K=1300, 30% invalid, t=0.5", odd, odd_valid, 0.5, None),
         ("all invalid (1,700) cap=100", odd[:, :700].contiguous(),
          torch.zeros((1, 700), dtype=torch.bool, device=dev), 0.7, 100),
         ("clusters (1,3000) t=0.5", dense, valid_of(dense), 0.5, None),
+        ("K=513 t=0.7", main[:, :513].contiguous(), valid_of(main[:, :513]), 0.7, None),
+        ("K=1025 t=0.7 cap=1024", main[:, :1025].contiguous(),
+         valid_of(main[:, :1025]), 0.7, 1024),
+        ("cap 512 reached on the last box of block 0", disjoint,
+         valid_of(disjoint), 0.7, 512),
+        ("cap 1024 reached on the last box of block 1", disjoint,
+         valid_of(disjoint), 0.7, 1024),
+        (f"cap {chain_cap} reached mid-block in dense chains (1,1500) t=0.5",
+         chain, valid_of(chain), 0.5, chain_cap),
+        ("batch 8 of unequal survivor counts (8,1100) t=0.5 cap=300",
+         mixed, mixed_valid, 0.5, 300),
     ]
     for t in (0.7, 0.2, 0.5):
         near = near_threshold_boxes(rng, 2000, t).to(dev)
@@ -261,7 +302,8 @@ def check_nms_kernel(dev) -> dict:
         torch.cuda.synchronize()
         plain = NF.nms_keep_sorted_fused_ref(b, v, t, max_keep=cap)
         bad = keep_prefix_mismatch(kern, plain, cap)
-        log(f"  nms_fused {name}: kept {int(kern.sum())}, prefix mismatches {bad}")
+        log(f"  nms_fused {name}: kept {kern.sum(dim=1).tolist()}, "
+            f"prefix mismatches {bad}")
         if bad:
             raise AssertionError(f"nms_fused disagrees with its plain version: {name}")
         worst = max(worst, bad)
@@ -284,7 +326,7 @@ def check_nms_kernel(dev) -> dict:
                 raise AssertionError("rounding decided no near-threshold pair")
 
     shapes = []
-    for name, b, v, t, cap in cases[:2]:
+    for name, b, v, t, cap in cases[:4]:  # the shapes the default route launches
         ms = cuda_ms(lambda: NF.nms_keep_sorted_fused(b, v, t, max_keep=cap), 20)
         plain_ms = cuda_ms(
             lambda: NF.nms_keep_sorted_fused_ref(b, v, t, max_keep=cap), 3)
@@ -467,10 +509,14 @@ def check_stem_kernel(dev) -> dict:
         return [t(rng.randn(64, 3, 3, 3) * 0.05), t(b1),
                 t(rng.randn(64, 64, 3, 3) * 0.05), t(rng.randn(64) * 0.1)]
 
+    def rand_input(n, h, w):
+        a = rng.uniform(-120, 120, (n, h, w, 3)).astype(np.float32)
+        return torch.from_numpy(a).to(dev).permute(0, 3, 1, 2).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
     data, _ = photo_batch()
-    small = rng.uniform(-120, 120, (2, 40, 72, 3)).astype(np.float32)
-    small_x = torch.from_numpy(small).to(dev).permute(0, 3, 1, 2).to(
-        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    tall, _ = photo_batch(bucket=(912, 608))
+    small_x = rand_input(2, 40, 72)
     zero_x = torch.zeros((1, 3, 32, 48), dtype=torch.bfloat16, device=dev).contiguous(
         memory_format=torch.channels_last)
     ring_w = rand_weights(b1_value=3.0)
@@ -478,11 +524,18 @@ def check_stem_kernel(dev) -> dict:
     cases = [
         ("served (8,3,608,912), demo photos, shipped weights",
          stem_input(data, dev), shipped),
+        ("served (8,3,912,608), demo photos, shipped weights",
+         stem_input(tall, dev), shipped),
         ("odd tiles (2,3,40,72), random", small_x, rand_weights()),
+        ("partial tiles right and bottom (1,3,24,136), random",
+         rand_input(1, 24, 136), rand_weights()),
+        ("smaller than a tile (3,3,8,8), random", rand_input(3, 8, 8), rand_weights()),
         ("zero image, conv1 bias 3.0 (1,3,32,48)", zero_x, ring_w),
     ]
     worst = 0.0
-    for name, x, ws in cases:
+
+    def hold(name, x, ws):
+        nonlocal worst
         kern = SF.fused_stem_block(x, *ws)
         torch.cuda.synchronize()
         plain = SF.fused_stem_block_ref(x, *ws)
@@ -495,6 +548,20 @@ def check_stem_kernel(dev) -> dict:
         if not torch.isfinite(kern.float()).all() or err >= 1e-2:
             raise AssertionError(f"stem_fused disagrees with its plain version: {name}")
         worst = max(worst, err)
+        return kern
+
+    for name, x, ws in cases:
+        hold(name, x, ws)
+    # the packed weights are cached per parameter tensor: new values in the
+    # same tensors, then other tensors, must each be packed anew
+    ws = rand_weights()
+    first = hold("packed-weight cache, first weights (2,3,40,72)", small_x, ws)
+    for t, fresh in zip(ws, rand_weights()):
+        t.copy_(fresh)
+    second = hold("packed-weight cache, same tensors updated in place", small_x, ws)
+    third = hold("packed-weight cache, other tensors", small_x, rand_weights())
+    if torch.equal(first, second) or torch.equal(second, third):
+        raise AssertionError("the packed-weight cache served stale weights")
 
     name, x, ws = cases[0]
     ms = cuda_ms(lambda: SF.fused_stem_block(x, *ws), 20)
@@ -775,7 +842,37 @@ def drive_serving_path(dev, bitmask_entry: dict, stem_entry: dict,
         f"kernel vs plain version {worst['plain_f32']:.3e} (limit 5e-3)")
     if max(worst["plain"], worst["stock"]) > 2e-2 or worst["plain_f32"] > 5e-3:
         raise AssertionError("fused-stem cls_prob out of tolerance")
-    del stock, pred32
+    del pred32
+
+    # One batch of 8 through run_batch on three routes. Both NMS routes are
+    # integer-exact, so with the stock stem the bitmask route must emit the
+    # default route's records: same counts, 0.0 px. What still differs
+    # between the served and the default route is then the stem's.
+    data, infos = photo_batch()
+
+    def batch_records(predictor, nms_fused):
+        cfg.TPU.NMS_FUSED = nms_fused
+        try:
+            _, lines = predictor.run_batch(data, infos)
+            counts = lines.count.cpu().numpy()
+            recs = lines.recs.cpu().numpy()
+        finally:
+            cfg.TPU.NMS_FUSED = False
+        return [recs[i, :int(counts[i])] for i in range(len(counts))]
+
+    default = batch_records(stock, True)
+    bitmask = batch_records(stock, False)
+    served = batch_records(pred, False)
+    worst_px = max(rows_match(a, b, 0.0) for a, b in zip(bitmask, default))
+    n_recs = sum(len(r) for r in default)
+    log(f"  bitmask route against default route, stock stem, one batch of 8: "
+        f"{n_recs} records, counts equal, worst diff {worst_px} px")
+    same = sum(paired_within(a, b, 0.0) for a, b in zip(served, bitmask))
+    near = sum(paired_within(a, b, 0.5) for a, b in zip(served, bitmask))
+    log(f"  fused stem against stock stem, bitmask route, same batch: "
+        f"{sum(len(r) for r in served)} against {n_recs} records, {same} identical, "
+        f"{near} within 0.5 px: the stem moves {n_recs - near}")
+    del stock
 
     for bucket in sorted(set(buckets)):  # build, cuDNN algorithm choice
         pred.warmup(bucket, batch=8)
@@ -918,7 +1015,7 @@ def check_cli() -> None:
         reader.join(timeout=10)
 
 
-def main() -> int:
+def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -934,11 +1031,17 @@ def main() -> int:
     log(f"[2/7] build: {time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
+            # registers, shared memory, spills, and ptxas's performance
+            # notes (C75xx: e.g. wgmma serialized)
+            if any(k in line for k in ("registers", "smem", "spill", "(C75")):
                 log(f"  {name}: {line.strip()}")
 
     log("[3/7] kernels against their plain versions")
     entries = [check_nms_kernel(dev), check_bitmask_kernel(dev), check_stem_kernel(dev)]
+    if "--kernels-only" in argv:
+        print(json.dumps({"kernels": entries}))
+        print(card)
+        return 0
 
     log("[4/7] main path (default config)")
     default_recs = drive_main_path(dev, entries[0])
@@ -964,4 +1067,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

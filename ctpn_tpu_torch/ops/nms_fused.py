@@ -4,10 +4,11 @@ Port of ``ctpn_tpu/ops/nms_fused.py::_fused_kernel`` (the Pallas TPU kernel
 behind ``nms_keep_sorted_fused``, ``pl.pallas_call`` at ``nms_fused.py:212``).
 
 * :func:`nms_keep_sorted_fused` is the wrapper. A CUDA tensor launches the
-  hand-written kernel ``ops/csrc/nms_fused.cu`` (one CTA per image, the
-  block-sequential walk as a loop inside the CTA, an exact warp-level
-  in-block resolve, early exit at ``max_keep``); a CPU tensor runs the plain
-  version. There is no fallback from one to the other.
+  hand-written kernel ``ops/csrc/nms_fused.cu`` (a cluster of eight CTAs
+  per image walks the 512-box blocks: the pair tests of a block are dealt
+  over the cluster, one warp of the leader CTA resolves it exactly 32 boxes
+  at a time in registers, early exit at ``max_keep``); a CPU tensor runs
+  the plain version. There is no fallback from one to the other.
 * :func:`nms_keep_sorted_fused_ref` is the plain PyTorch version: the same
   512-box block walk, vectorised over each block, with the in-block greedy
   solved as the unique fixed point of ``keep = base & ~any(S & keep)``.
@@ -33,8 +34,9 @@ from typing import Optional
 
 import torch
 
-BLOCK = 512  # boxes per block (the kernel's CTA width)
-# caps above this keep the kernel's kept-box list in global scratch
+BLOCK = 512  # boxes per block of the kernel's walk
+CLUSTER = 8  # CTAs per image; each keeps its own copy of the kept-box list
+# caps above this keep the kernel's kept-box lists in global scratch
 # instead of shared memory (16 B per box; 227 KB per CTA)
 SMEM_KEPT_MAX = 8192
 
@@ -160,7 +162,7 @@ def nms_keep_sorted_fused(
     boxes = boxes.contiguous()
     valid = valid.contiguous()
     scratch = (
-        torch.empty((batch, cap, 4), dtype=torch.float32, device=dev)
+        torch.empty((batch, CLUSTER, cap, 4), dtype=torch.float32, device=dev)
         if cap > SMEM_KEPT_MAX
         else None
     )

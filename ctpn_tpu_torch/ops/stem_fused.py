@@ -5,11 +5,15 @@ kernel behind ``fused_stem_block``, ``pl.pallas_call`` at
 ``stem_pallas.py:140``).
 
 * :func:`fused_stem_block` is the wrapper. A CUDA tensor launches the
-  hand-written kernel ``ops/csrc/stem_fused.cu`` (a CTA per 16x16 tile of
-  conv1_2 outputs: conv1_1 on the SIMT cores into a bf16 shared tile with
-  its one-pixel ring, conv1_2 as an implicit GEMM on the tensor cores, the
-  pool in the epilogue); a CPU tensor runs the plain version. There is no
-  fallback from one to the other.
+  hand-written kernel ``ops/csrc/stem_fused.cu`` (a persistent CTA per SM
+  that holds w2 in shared memory; producer warps run conv1_1 on the SIMT
+  cores into one of two swizzled conv1 tiles while two consumer warpgroups
+  run conv1_2 from the other as an implicit GEMM on ``wgmma``, with the
+  pool in their register epilogue); a CPU tensor runs the plain version.
+  There is no fallback from one to the other.
+* :func:`pack_stem_weights` turns the four parameters into the kernel's
+  layouts; :func:`packed_stem_weights` caches that per set of parameter
+  tensors, so a forward pass packs nothing.
 * :func:`fused_stem_block_ref` is the plain PyTorch version: f32 on
   bf16-rounded inputs and weights, rounding to bf16 where the kernel does
   (``tests/test_stem.py::_stock`` computes the same). conv1_2 is
@@ -46,6 +50,9 @@ layout.
 from __future__ import annotations
 
 import ctypes
+import threading
+import weakref
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -104,6 +111,67 @@ def fused_stem_block_ref(
     return y.contiguous(memory_format=torch.channels_last)
 
 
+def pack_stem_weights(
+    w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel's layouts of the block's parameters, on their device.
+
+    * ``w1k`` (27, 64) f32 holding bf16 values: row (ky * 3 + kx) * 3 + ci,
+      column co.
+    * ``w2k`` (9, 64, 8, 8) bf16: ``w2k[tap, co, q, e]`` is
+      ``w2[co, 8 * (q ^ (co & 7)) + e, ky, kx]`` with tap = ky * 3 + kx. A
+      (tap, co) row is the 128 bytes of one output channel's 64 inputs, and
+      its 16-byte chunks are XOR-swizzled by ``co & 7``: the bytes land in
+      shared memory as they are, in the 128-byte-swizzled K-major layout
+      that ``wgmma`` reads as B.
+    * ``b1k``, ``b2k`` (64,) f32.
+    """
+    w1k = _bf16(w1).permute(2, 3, 1, 0).reshape(9 * CIN, CH).contiguous()
+    rows = w2.to(torch.bfloat16).permute(2, 3, 0, 1).reshape(9, CH, CH // 8, 8)
+    co = torch.arange(CH, device=w2.device)
+    chunk = torch.arange(CH // 8, device=w2.device)
+    src = chunk[None, :] ^ (co[:, None] & 7)  # logical chunk at each position
+    w2k = rows[:, co[:, None], src].contiguous()
+    return w1k, b1.float().contiguous(), w2k, b2.float().contiguous()
+
+
+_PACKED_MAX = 8  # sets of parameters kept packed (a process serves few models)
+_packed: dict = {}
+_packed_lock = threading.Lock()
+
+
+def _stamp(t: torch.Tensor) -> tuple:
+    return (t._version, t.data_ptr(), t.device, t.dtype)
+
+
+def packed_stem_weights(w1, b1, w2, b2) -> tuple:
+    """:func:`pack_stem_weights`, cached on the four tensors' identity.
+
+    An entry is reused while the same tensor objects are alive and hold the
+    same version, storage, device and dtype: an in-place update (an
+    optimizer step, ``load_state_dict``) bumps the version, and ``.to()``
+    moves the storage, so either packs anew. Inference tensors track no
+    version and are packed on every call.
+    """
+    params = (w1, b1, w2, b2)
+    if any(t.is_inference() for t in params):
+        return pack_stem_weights(*params)
+    key = tuple(id(t) for t in params)
+    stamps = tuple(_stamp(t) for t in params)
+    with _packed_lock:
+        hit = _packed.get(key)
+        if hit is not None:
+            refs, old_stamps, packed = hit
+            if old_stamps == stamps and all(r() is t for r, t in zip(refs, params)):
+                return packed
+            del _packed[key]
+        packed = pack_stem_weights(*params)
+        while len(_packed) >= _PACKED_MAX:
+            _packed.pop(next(iter(_packed)))
+        _packed[key] = (tuple(weakref.ref(t) for t in params), stamps, packed)
+        return packed
+
+
 def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.ctpn_stem_fused
     p = ctypes.c_void_p
@@ -142,12 +210,7 @@ def fused_stem_block(
     )
     if n == 0:
         return out
-    # kernel layouts: w1 (co, ky, kx, ci) as bf16 values in f32; w2 rows
-    # (ky, kx, ci), columns co, in bf16
-    w1k = _bf16(w1).permute(0, 2, 3, 1).contiguous()
-    w2k = w2.to(torch.bfloat16).permute(2, 3, 1, 0).reshape(9 * CH, CH).contiguous()
-    b1k = b1.float().contiguous()
-    b2k = b2.float().contiguous()
+    w1k, b1k, w2k, b2k = packed_stem_weights(w1, b1, w2, b2)
     with torch.cuda.device(dev):
         err = lib.ctpn_stem_fused(
             x.data_ptr(),

@@ -68,9 +68,10 @@ def _jax(sb, valid, thresh, max_keep=None):
 
 
 @pytest.mark.parametrize("thresh", [0.7, 0.2])
-@pytest.mark.parametrize("n", [33, 700, 1100])
+@pytest.mark.parametrize("n", [33, 700, 1100, 513, 1025])
 def test_ref_matches_jax_kernel_and_oracle(rng, thresh, n):
-    """Whole masks, no cap; 700 and 1100 are not multiples of 512."""
+    """Whole masks, no cap; 700 and 1100 are not multiples of 512, and 513
+    and 1025 leave a single box in the last block of the walk."""
     sb, ss = _sorted_dets(rng, n)
     valid = np.ones((1, n), bool)
     got = _ref(sb[None], valid, thresh)
@@ -139,6 +140,73 @@ def test_ref_dense_chains(rng):
     got = _ref(sb[None], valid, 0.5)
     np.testing.assert_array_equal(got, _jax(sb[None], valid, 0.5))
     np.testing.assert_array_equal(got[0], _oracle_keep(sb, ss, valid[0], 0.5))
+
+
+def _prefix_check(sb, valid, thresh, max_keep):
+    """The first max_keep survivors of every image: plain version against
+    the JAX kernel and the greedy oracle, tolerance 0."""
+    got = _ref(sb, valid, thresh, max_keep)
+    jx = _jax(sb, valid, thresh, max_keep)
+    kept = []
+    for b in range(len(sb)):
+        ss = np.arange(sb.shape[1], 0, -1).astype(np.float32)  # sorted order
+        want = np.flatnonzero(_oracle_keep(sb[b], ss, valid[b], thresh))
+        m = len(want) if max_keep is None else min(max_keep, len(want))
+        gi, ji = np.flatnonzero(got[b]), np.flatnonzero(jx[b])
+        assert len(gi) >= m and len(ji) >= m
+        np.testing.assert_array_equal(gi[:m], want[:m])
+        np.testing.assert_array_equal(ji[:m], want[:m])
+        kept.append(m)
+    return kept
+
+
+def test_ref_cap_reached_on_last_box_of_a_block():
+    """Disjoint boxes all survive, so max_keep = 512 is reached exactly on
+    box 511, the last one of block 0, and 1024 on the last one of block 1."""
+    n = 1100
+    g = np.arange(n, dtype=np.float32)
+    x, y = (g % 40) * 30, (g // 40) * 30
+    sb = np.stack([x, y, x + 20, y + 20], 1)[None]
+    valid = np.ones((1, n), bool)
+    for cap in (512, 1024):
+        assert _prefix_check(sb, valid, 0.7, cap) == [cap]
+        got = np.flatnonzero(_ref(sb, valid, 0.7, cap)[0])
+        assert got[cap - 1] == cap - 1
+
+
+def test_ref_cap_reached_mid_block_in_a_dense_chain(rng):
+    """Deep suppression chains, and a cap that lands in the middle of
+    block 1's survivors."""
+    n = 1500
+    centers = rng.uniform(0, 300, (40, 2))
+    base = np.concatenate([centers, centers + rng.uniform(20, 60, (40, 2))], 1)
+    sb = (base[rng.randint(0, 40, n)] + rng.randn(n, 4) * 5).astype(np.float32)
+    sb[:, 2:] = np.maximum(sb[:, 2:], sb[:, :2] + 1)
+    valid = np.ones((1, n), bool)
+    full = _ref(sb[None], valid, 0.5)[0]
+    in0, in1 = int(full[:512].sum()), int(full[512:1024].sum())
+    assert in1 >= 2
+    cap = in0 + in1 // 2
+    assert _prefix_check(sb[None], valid, 0.5, cap) == [cap]
+
+
+def test_ref_batch_of_eight_with_unequal_survivor_counts(rng):
+    """Images from one tight cluster (a handful of survivors) to disjoint
+    boxes (all survive): the cap is reached in some images only."""
+    n, cap = 700, 300
+    g = np.arange(n, dtype=np.float32)
+    disjoint = np.stack([(g % 30) * 30, (g // 30) * 30,
+                         (g % 30) * 30 + 20, (g // 30) * 30 + 20], 1)
+    sbs = []
+    for i in range(8):
+        spread = 2.0 + 12.0 * i  # wider spread: more survivors
+        boxes = np.array([100.0, 100.0, 180.0, 140.0])[None] + rng.randn(n, 4) * spread
+        boxes[:, 2:] = np.maximum(boxes[:, 2:], boxes[:, :2] + 1)
+        sbs.append(disjoint if i == 7 else boxes.astype(np.float32))
+    sb = np.stack(sbs).astype(np.float32)
+    valid = rng.rand(8, n) > 0.1
+    kept = _prefix_check(sb, valid, 0.5, cap)
+    assert min(kept) < 20 and max(kept) == cap
 
 
 def test_ref_all_invalid(rng):

@@ -23,7 +23,13 @@ from ctpn_tpu_torch.config import cfg as tcfg
 from ctpn_tpu_torch.config import reset_cfg
 from ctpn_tpu_torch.models.ctpn import CTPN
 from ctpn_tpu_torch.models.factory import get_network
-from ctpn_tpu_torch.ops.stem_fused import fused_stem_block, fused_stem_block_ref
+from ctpn_tpu_torch.models.vgg import VGG16Trunk
+from ctpn_tpu_torch.ops.stem_fused import (
+    fused_stem_block,
+    fused_stem_block_ref,
+    pack_stem_weights,
+    packed_stem_weights,
+)
 from ctpn_tpu_torch.utils.weights import params_from_jax
 
 torch.set_num_threads(2)
@@ -63,7 +69,11 @@ def _both(x, w1, b1, w2, b2):
     return got.float().permute(0, 2, 3, 1).numpy(), want
 
 
-@pytest.mark.parametrize("shape", [(2, 64, 96), (1, 32, 48)])
+# the last three: H and W multiples of 8 that the CUDA kernel's 16 x 24 tile
+# does not divide (partial tiles at the right and bottom edges), an image
+# smaller than one tile, and a portrait image like the 912x608 bucket
+@pytest.mark.parametrize(
+    "shape", [(2, 64, 96), (1, 32, 48), (1, 24, 136), (3, 8, 8), (2, 96, 40)])
 def test_plain_stem_matches_pallas(rng, shape):
     n, h, w = shape
     x = rng.randn(n, h, w, 3).astype(np.float32) * 50
@@ -71,6 +81,75 @@ def test_plain_stem_matches_pallas(rng, shape):
     assert got.shape == want.shape == (n, h // 2, w // 2, 64)
     rel = np.abs(got - want) / (np.abs(want) + 1.0)
     assert rel.max() < REL_TOL, rel.max()
+
+
+def _oihw(rng):
+    w1, b1, w2, b2 = (torch.from_numpy(a) for a in _weights(rng))
+    return w1.permute(3, 2, 0, 1).contiguous(), b1, w2.permute(3, 2, 0, 1).contiguous(), b2
+
+
+def test_pack_stem_weights_layout(rng):
+    """The packed layouts against their index formulas: w1k rows in
+    (ky, kx, ci) order; w2k rows (tap, co) of 64 input channels whose
+    16-byte chunks (8 bf16) are XOR-swizzled by co & 7."""
+    w1, b1, w2, b2 = _oihw(rng)
+    w1k, b1k, w2k, b2k = pack_stem_weights(w1, b1, w2, b2)
+    assert w1k.shape == (27, 64) and w1k.dtype == torch.float32
+    assert w2k.shape == (9, 64, 8, 8) and w2k.dtype == torch.bfloat16
+    assert w2k.is_contiguous() and w2k.numel() * 2 == 73728
+    w1r = w1.to(torch.bfloat16).float().numpy()
+    w2r = w2.to(torch.bfloat16).float().numpy()
+    want1 = np.empty((27, 64), np.float32)
+    want2 = np.empty((9, 64, 8, 8), np.float32)
+    for ky in range(3):
+        for kx in range(3):
+            for ci in range(3):
+                want1[(ky * 3 + kx) * 3 + ci] = w1r[:, ci, ky, kx]
+            for co in range(64):
+                for q in range(8):
+                    lo = 8 * (q ^ (co & 7))
+                    want2[ky * 3 + kx, co, q] = w2r[co, lo:lo + 8, ky, kx]
+    np.testing.assert_array_equal(w1k.numpy(), want1)
+    np.testing.assert_array_equal(w2k.float().numpy(), want2)
+    np.testing.assert_array_equal(b1k.numpy(), b1.numpy())
+    np.testing.assert_array_equal(b2k.numpy(), b2.numpy())
+
+
+def test_packed_weights_cache_follows_the_parameters(rng):
+    """Same tensors, same version: one packing. An in-place update or
+    ``load_state_dict`` must not leave stale packed weights."""
+    trunk = VGG16Trunk(stages=NARROW, fused_stem=True)
+    params = (trunk.conv1_1.weight, trunk.conv1_1.bias,
+              trunk.conv1_2.weight, trunk.conv1_2.bias)
+    first = packed_stem_weights(*params)
+    assert packed_stem_weights(*params) is first
+    state = {k: v.clone() for k, v in trunk.state_dict().items()}
+    w1, b1, w2, b2 = _oihw(rng)
+    state.update({"conv1_1.weight": w1, "conv1_1.bias": b1,
+                  "conv1_2.weight": w2, "conv1_2.bias": b2})
+    trunk.load_state_dict(state)
+    second = packed_stem_weights(*params)
+    assert second is not first
+    for got, want in zip(second, pack_stem_weights(w1, b1, w2, b2)):
+        assert torch.equal(got, want)
+    with torch.no_grad():
+        trunk.conv1_2.bias.add_(1.0)
+    assert torch.equal(packed_stem_weights(*params)[3], b2 + 1.0)
+
+
+def test_fused_trunk_output_follows_load_state_dict(rng):
+    x = torch.from_numpy(rng.uniform(-120, 120, (1, 3, 32, 48)).astype(np.float32))
+    trunk = VGG16Trunk(stages=NARROW, fused_stem=True)
+    with torch.no_grad():
+        before = trunk(x)
+        state = {k: v.clone() for k, v in trunk.state_dict().items()}
+        state["conv1_2.weight"] = _oihw(rng)[2]
+        trunk.load_state_dict(state)
+        after = trunk(x)
+        fresh = VGG16Trunk(stages=NARROW, fused_stem=True)
+        fresh.load_state_dict(state)
+        assert not torch.equal(before, after)
+        assert torch.equal(after, fresh(x))
 
 
 def test_plain_stem_border_ring_is_zero_padded(rng):
