@@ -20,9 +20,14 @@ Phases (any failure exits non-zero and prints no result line):
 3. kernels: each kernel against its plain version on the card, at its
    path's shapes and on edge cases (NMS: K one past a block, caps reached
    on a block's last box and mid-chain, a batch of unequal survivor
-   counts, near-threshold pairs; stem: both served buckets, partial and
-   sub-tile images, weights changed between calls). The fused NMS keep mask's prefix and
-   the bitmask words must be identical (tolerance 0: integer outputs); the
+   counts, near-threshold pairs; bitmask: N around the multiples of its
+   words and tiles, an invalid box in a diagonal word, boxes that touch
+   without overlapping; resolve: N around a word, every cluster size, all
+   invalid, all identical, long in-word chains; stem: both served buckets, partial and
+   sub-tile images, weights changed between calls). The fused NMS keep
+   mask's prefix, the bitmask words and the resolve's keep flags must be
+   identical (tolerance 0: integer outputs), and the resolve must also
+   give the fused kernel's uncapped keep mask on the same boxes; the
    stem's max relative error ``|a-b|/(|b|+1)`` must be below 1e-2 (bf16
    resolution, the JAX package's tolerance). Times kernel, plain version,
    and for the stem the stock cuDNN block (``stock_ms``).
@@ -44,15 +49,17 @@ Phases (any failure exits non-zero and prints no result line):
    the fused stem moves are counted; ``DetectionServer``
    in-process answers 8 concurrent POSTs (the photos plus 3 repeats) with
    counts zeroed just before: every response 200 with finite records,
-   fewer batches than requests, exactly 2 bitmask and 1 stem launches per
-   batch and no fused-NMS launch, >= 75 % of the committed reference lines
-   found. Then ``stream_detect`` over the
-   photos with the same accounting, and ``run_batch`` at batch 8 timed with
-   the resolve's sweeps and host syncs per batch.
+   fewer batches than requests, exactly 2 bitmask, 2 resolve and 1 stem
+   launches per batch and no fused-NMS launch, >= 75 % of the committed
+   reference lines found. Then ``stream_detect`` over the photos with the
+   same accounting; ``nms_keep_sorted`` on the bitmask route at (8,12000)
+   and (8,1000) with device-to-host syncs made an error; and ``run_batch``
+   at batch 8 timed with its resolve launches and host syncs per batch
+   (the plain resolve's sweep count must not move).
 6. CLI: ``python3 -m ctpn_tpu_torch.cli.serve ... --set TPU.NMS_FUSED False
    TPU.FUSED_STEM True`` as a subprocess answers one POST with 200 and
    ``count > 0``.
-7. prints one ``{"kernels": [...]}`` line, the card line, and last
+7. prints one ``{"kernels": [...]}`` line (four kernels), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package ``ctpn_tpu``.
@@ -86,6 +93,9 @@ PHOTOS = [REPO / "docs" / "demo_results" / "H" / n
 # dense bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# the f32 peak counts a fused multiply-add as two operations; the NMS
+# kernels are built without FMAs, so no instruction of theirs counts twice
+F32_ISSUE_OPS_PER_S = F32_OPS_PER_S / 2
 BF16_TENSOR_OPS_PER_S = 989e12
 # least float ops of one IoU pair test with per-box areas precomputed:
 # 2 min + 2 max + 4 add/sub (sides), 2 max + 1 mul (inter), 2 add/sub +
@@ -206,6 +216,45 @@ def clusters(rng, n: int, centers: int) -> torch.Tensor:
     return torch.tensor(boxes.astype(np.float32))[None]
 
 
+def touching_boxes(rng, n: int) -> torch.Tensor:
+    """(1, n, 4) boxes 2 px wide on integer x positions of one band: pairs
+    are identical, overlap in one pixel column (iw = 1), touch without
+    overlapping (iw = 0) or lie apart (iw < 0)."""
+    x = rng.randint(0, 60, n).astype(np.float32)
+    y = rng.randint(0, 4, n).astype(np.float32)
+    return torch.tensor(np.stack([x, y, x + 1, y + 20], 1))[None]
+
+
+def bitmask_route_cases(rng, dev) -> list:
+    """(name, boxes, valid, thresh) of the four calls the bitmask route
+    makes: the proposal NMS over 12000 boxes and the detector's over each
+    image's first 1000 proposal survivors, for one image and for a served
+    batch of 8."""
+    from ctpn_tpu_torch.ops import nms_fused as NF
+
+    def valid_of(b):
+        return torch.ones(b.shape[:2], dtype=torch.bool, device=dev)
+
+    main = proposal_like_boxes(rng, 1, 12000).to(dev)
+    batch8 = proposal_like_boxes(rng, 8, 12000).to(dev)
+    kept = NF.nms_keep_sorted_fused_ref(batch8, valid_of(batch8), 0.7, max_keep=1000)
+    det8 = torch.stack([batch8[i, kept[i]][:1000] for i in range(8)]).contiguous()
+    det = det8[:1].contiguous()
+    return [
+        ("proposal (1,12000) t=0.7", main, valid_of(main), 0.7),
+        ("detector (1,1000) t=0.2", det, valid_of(det), 0.2),
+        ("served proposal (8,12000) t=0.7", batch8, valid_of(batch8), 0.7),
+        ("served detector (8,1000) t=0.2", det8, valid_of(det8), 0.2),
+    ]
+
+
+def disjoint_boxes(dev, n: int = 1100) -> torch.Tensor:
+    """(1, n, 4) boxes of a 30-px grid that do not touch: all survive."""
+    g = torch.arange(n, dtype=torch.float32, device=dev)
+    gx, gy = (g % 40) * 30, torch.div(g, 40, rounding_mode="floor") * 30
+    return torch.stack([gx, gy, gx + 20, gy + 20], 1)[None].contiguous()
+
+
 def keep_prefix_mismatch(kern: torch.Tensor, plain: torch.Tensor, cap) -> int:
     """Rows that differ within each image's first ``cap`` survivors (the
     kernel must stop at exactly min(cap, survivors))."""
@@ -257,9 +306,7 @@ def check_nms_kernel(dev) -> dict:
     det8 = torch.stack([batch8[i, kept8[i]][:1000] for i in range(8)]).contiguous()
     # disjoint boxes all survive: a cap of 512 is reached on the last box of
     # block 0, one of 1024 on the last box of block 1
-    g = torch.arange(1100, dtype=torch.float32, device=dev)
-    gx, gy = (g % 40) * 30, torch.div(g, 40, rounding_mode="floor") * 30
-    disjoint = torch.stack([gx, gy, gx + 20, gy + 20], 1)[None].contiguous()
+    disjoint = disjoint_boxes(dev)
     # deep chains, with the cap in the middle of block 1's survivors
     chain = clusters(rng, 1500, 40).to(dev)
     full = NF.nms_keep_sorted_fused_ref(chain, valid_of(chain), 0.5)[0]
@@ -339,6 +386,7 @@ def check_nms_kernel(dev) -> dict:
             "call": name, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "issue_bound_ms": n_ops / F32_ISSUE_OPS_PER_S * 1e3,
             "bytes": n_bytes, "operations": n_ops,
         })
         log(f"  nms_fused {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
@@ -363,29 +411,37 @@ def check_nms_kernel(dev) -> dict:
 
 def check_bitmask_kernel(dev) -> dict:
     from ctpn_tpu_torch.ops import nms_bitmask as NB
-    from ctpn_tpu_torch.ops import nms_fused as NF
 
     def valid_of(b):
         return torch.ones(b.shape[:2], dtype=torch.bool, device=dev)
 
     rng = np.random.RandomState(1)
-    main = proposal_like_boxes(rng, 1, 12000).to(dev)
-    batch8 = proposal_like_boxes(rng, 8, 12000).to(dev)
-    ones8 = valid_of(batch8)
-    # the detector's input: each image's first 1000 proposal survivors
-    kept = NF.nms_keep_sorted_fused_ref(batch8, ones8, 0.7, max_keep=1000)
-    det8 = torch.stack([batch8[i, kept[i]][:1000] for i in range(8)]).contiguous()
+    cases = bitmask_route_cases(rng, dev)
     odd = proposal_like_boxes(rng, 1, 1300).to(dev)
     odd_valid = torch.from_numpy(rng.rand(1, 1300) > 0.3).to(dev)
-    cases = [
-        ("proposal (1,12000) t=0.7", main, valid_of(main), 0.7),
-        ("detector (1,1000) t=0.2", det8[:1].contiguous(), valid_of(det8[:1]), 0.2),
-        ("served proposal (8,12000) t=0.7", batch8, ones8, 0.7),
-        ("served detector (8,1000) t=0.2", det8, valid_of(det8), 0.2),
+    cases += [
         ("N=1300, 30% invalid, t=0.5", odd, odd_valid, 0.5),
         ("all invalid (1,700) t=0.7", odd[:, :700].contiguous(),
          torch.zeros((1, 700), dtype=torch.bool, device=dev), 0.7),
     ]
+    mid = proposal_like_boxes(rng, 3, 5000).to(dev)
+    cases.append(("(3,5000), 20% invalid, t=0.5", mid,
+                  torch.from_numpy(rng.rand(3, 5000) > 0.2).to(dev), 0.5))
+    # N one below, at and one above a multiple of a word (32), of a CTA's
+    # rows (64), of a warp's columns (128) and of a tile's columns (1024)
+    dense = clusters(rng, 1025, 30).to(dev)
+    for n in (1, 31, 32, 33, 63, 64, 65, 127, 128, 129, 1023, 1024, 1025):
+        b = dense[:, :n].contiguous()
+        cases.append((f"clusters N={n} t=0.5", b, valid_of(b), 0.5))
+    # an invalid box inside a diagonal word, among boxes that all overlap
+    same = torch.tensor([[10.0, 20.0, 80.0, 60.0]], device=dev).repeat(1, 200, 1)
+    holes = valid_of(same)
+    holes[0, [0, 37, 64, 95, 127, 128, 199]] = False
+    cases.append(("identical boxes (1,200), 7 invalid, t=0.5", same, holes, 0.5))
+    touch = touching_boxes(rng, 300).to(dev)
+    cases.append(("touching boxes (1,300) t=0.2", touch, valid_of(touch), 0.2))
+    cases.append(("touching boxes (1,300) t=0.0, no early reject", touch,
+                  valid_of(touch), 0.0))
     for t in (0.7, 0.2, 0.5):
         near = near_threshold_boxes(rng, 2000, t).to(dev)
         cases.append((f"near-threshold pairs (1,4000) t={t}", near, valid_of(near), t))
@@ -433,11 +489,19 @@ def check_bitmask_kernel(dev) -> dict:
             "call": name, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "issue_bound_ms": n_ops / F32_ISSUE_OPS_PER_S * 1e3,
             "bytes": n_bytes, "operations": n_ops,
         })
         log(f"  nms_bitmask {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
             f"bound {max(bytes_ms, ops_ms) * 1e3:.3f} us "
             f"({n_ops} ops, {n_bytes} bytes)")
+    # the kernel tests only pairs whose extents overlap, so its time depends
+    # on the data: identical boxes, where every pair overlaps, are its worst
+    same8 = same[:, :1].repeat(8, 12000, 1)
+    ones8 = valid_of(same8)
+    worst_ms = cuda_ms(lambda: NB.suppression_bitmask(same8, ones8, 0.5), 5)
+    log(f"  nms_bitmask worst case, identical boxes (8,12000) t=0.5: kernel "
+        f"{worst_ms:.4f} ms")
     head = shapes[2]  # the served path's proposal call: batch 8
     return {
         "name": "nms_bitmask",
@@ -451,6 +515,105 @@ def check_bitmask_kernel(dev) -> dict:
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
         "library_ms": None,  # no PyTorch call computes a packed suppression mask
+        "worst_case": {"call": "identical boxes (8,12000) t=0.5", "ms": worst_ms},
+        "shapes": shapes,
+    }
+
+
+def check_resolve_kernel(dev) -> dict:
+    """The resolve kernel on masks from the bitmask kernel: its keep flags
+    against the plain resolve and against the fused kernel's uncapped keep
+    mask on the same boxes (tolerance 0)."""
+    from ctpn_tpu_torch.ops import nms_bitmask as NB
+    from ctpn_tpu_torch.ops import nms_fused as NF
+    from ctpn_tpu_torch.ops import nms_resolve as NR
+
+    def valid_of(b):
+        return torch.ones(b.shape[:2], dtype=torch.bool, device=dev)
+
+    rng = np.random.RandomState(3)
+    cases = bitmask_route_cases(rng, dev)
+    odd = proposal_like_boxes(rng, 1, 1300).to(dev)
+    for n in (1, 31, 32, 33):
+        b = odd[:, :n].contiguous()
+        cases.append((f"N={n} t=0.7", b, valid_of(b), 0.7))
+    # the cluster sizes between the route's 1 and 8 CTAs per image, and more
+    # word columns (532) than eight CTAs' fold threads hold
+    wide = proposal_like_boxes(rng, 2, 17000).to(dev)
+    for n in (2048, 2049, 6000, 17000):
+        b = wide[:, :n].contiguous()
+        cases.append((f"(2,{n}), 10% invalid, t=0.7", b,
+                      torch.from_numpy(rng.rand(2, n) > 0.1).to(dev), 0.7))
+    cases.append(("N=1300, 30% invalid, t=0.5", odd,
+                  torch.from_numpy(rng.rand(1, 1300) > 0.3).to(dev), 0.5))
+    cases.append(("all invalid (1,700) t=0.7", odd[:, :700].contiguous(),
+                  torch.zeros((1, 700), dtype=torch.bool, device=dev), 0.7))
+    # one survivor, and every later word folded away by row 0
+    same = torch.tensor([[10.0, 20.0, 80.0, 60.0]], device=dev).repeat(1, 3000, 1)
+    cases.append(("identical boxes (1,3000) t=0.5", same, valid_of(same), 0.5))
+    dense = clusters(rng, 3000, 12).to(dev)  # long chains inside a word
+    cases.append(("clusters (1,3000) t=0.5", dense, valid_of(dense), 0.5))
+    disjoint = disjoint_boxes(dev)
+    mixed = torch.cat([clusters(rng, 1100, c).to(dev) for c in (1, 2, 6, 20, 60, 200, 600)]
+                      + [disjoint])
+    cases.append(("batch 8 of unequal survivor counts (8,1100) t=0.5", mixed,
+                  torch.from_numpy(rng.rand(8, 1100) > 0.1).to(dev), 0.5))
+
+    worst = 0
+    masks = []
+    for name, b, v, t in cases:
+        mask = NB.suppression_bitmask(b, v, t)
+        kern = NR.nms_resolve(mask, v)
+        torch.cuda.synchronize()
+        plain = NR.nms_fixed_point_blocked(mask, v)
+        fused = NF.nms_keep_sorted_fused(b, v, t, max_keep=None)
+        bad = int((kern != plain).sum())
+        bad_fused = int((kern != fused).sum())
+        log(f"  nms_resolve {name}: kept {kern.sum(dim=1).tolist()}, flags differing "
+            f"from the plain resolve {bad}, from the fused kernel {bad_fused}")
+        if kern.dtype != torch.bool or kern.shape != v.shape:
+            raise AssertionError(f"nms_resolve: bad output {kern.dtype} {tuple(kern.shape)}")
+        if bad or bad_fused:
+            raise AssertionError(f"nms_resolve disagrees: {name}")
+        worst = max(worst, bad)
+        if len(masks) < 4:  # the route's shapes are timed below
+            masks.append(mask)
+    empty = NR.nms_resolve(torch.empty((0, 40, 2), dtype=torch.int32, device=dev),
+                           torch.empty((0, 40), dtype=torch.bool, device=dev))
+    none = NR.nms_resolve(torch.empty((2, 0, 0), dtype=torch.int32, device=dev),
+                          torch.empty((2, 0), dtype=torch.bool, device=dev))
+    if empty.shape != (0, 40) or none.shape != (2, 0):
+        raise AssertionError("nms_resolve: empty inputs must give empty outputs")
+
+    shapes = []
+    for (name, b, v, t), mask in zip(cases[:4], masks):
+        ms = cuda_ms(lambda: NR.nms_resolve(mask, v), 20)
+        plain_ms = cuda_ms(lambda: NR.nms_fixed_point_blocked(mask, v), 3)
+        batch, n = v.shape
+        words = NB.num_words(n)
+        # each row's words at or right of its diagonal word, the flags in,
+        # the flags out
+        read_words = sum(words - i // 32 for i in range(n))
+        n_bytes = batch * (read_words * 4 + 2 * n)
+        bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        shapes.append({"call": name, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bound_ms, "bound_by": "bytes",
+                       "bytes": n_bytes, "operations": 0})
+        log(f"  nms_resolve {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {bound_ms * 1e3:.3f} us ({n_bytes} bytes)")
+    head = shapes[2]  # the served path's proposal call: batch 8
+    return {
+        "name": "nms_resolve",
+        "route": "cuda",
+        "source": "ctpn_tpu_torch/ops/csrc/nms_resolve.cu",
+        "replaces": "ctpn_tpu/ops/nms.py:136 (jnp, not Pallas)",
+        "launches": None,  # filled from the serving path's run
+        "max_abs_err": float(worst),
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": None,  # no PyTorch call resolves a suppression bitmask
         "shapes": shapes,
     }
 
@@ -673,7 +836,7 @@ def drive_main_path(dev, kernel_entry: dict) -> list:
     pred.warmup((608, 912))
     images = [load_image_bgr(str(p)) for p in PHOTOS]
 
-    NF.nms_keep_sorted_fused.LAUNCHES = 0  # counts of the main path only
+    zero_launch_counts()  # counts of the main path only
     results = []
     for photo, im in zip(PHOTOS, images):
         before = NF.nms_keep_sorted_fused.LAUNCHES
@@ -697,6 +860,9 @@ def drive_main_path(dev, kernel_entry: dict) -> list:
         raise AssertionError("no text lines on the demo photos")
     if launches == 0:
         raise AssertionError("nms_fused was never launched on the main path")
+    others = {k: v for k, v in launch_counts().items() if k != "nms_fused"}
+    if any(others.values()):
+        raise AssertionError(f"the default route launched other kernels: {others}")
     if hits < 0.75 * n_ref:
         raise AssertionError(f"only {hits}/{n_ref} committed reference lines found")
     log(f"  main path: {total} lines on {len(PHOTOS)} photos, "
@@ -763,9 +929,10 @@ def post(url: str, body: bytes) -> tuple:
 
 def counted_wrappers() -> dict:
     """Each kernel's wrapper, whose ``LAUNCHES`` counts its launches."""
-    from ctpn_tpu_torch.ops import nms_bitmask, nms_fused, stem_fused
+    from ctpn_tpu_torch.ops import nms_bitmask, nms_fused, nms_resolve, stem_fused
 
     return {"nms_bitmask": nms_bitmask.suppression_bitmask,
+            "nms_resolve": nms_resolve.nms_resolve,
             "stem_fused": stem_fused.fused_stem_block,
             "nms_fused": nms_fused.nms_keep_sorted_fused}
 
@@ -780,14 +947,15 @@ def zero_launch_counts() -> None:
 
 
 def check_route_launches(counts: dict, batches: int, what: str) -> None:
-    want = {"nms_bitmask": 2 * batches, "stem_fused": batches, "nms_fused": 0}
+    want = {"nms_bitmask": 2 * batches, "nms_resolve": 2 * batches,
+            "stem_fused": batches, "nms_fused": 0}
     if counts != want:
         raise AssertionError(f"{what}: launches {counts}, expected {want} "
                              f"for {batches} batches")
 
 
-def drive_serving_path(dev, bitmask_entry: dict, stem_entry: dict,
-                       default_recs: list) -> None:
+def drive_serving_path(dev, bitmask_entry: dict, resolve_entry: dict,
+                       stem_entry: dict, default_recs: list) -> None:
     from ctpn_tpu_torch.config import cfg
     from ctpn_tpu_torch.inference.pipeline import CTPNPredictor, forward_features
     from ctpn_tpu_torch.inference.streaming import stream_detect
@@ -930,6 +1098,7 @@ def drive_serving_path(dev, bitmask_entry: dict, stem_entry: dict,
     if hits < 0.75 * n_ref:
         raise AssertionError(f"only {hits}/{n_ref} committed reference lines found")
     bitmask_entry["launches"] = counts["nms_bitmask"]
+    resolve_entry["launches"] = counts["nms_resolve"]
     stem_entry["launches"] = counts["stem_fused"]
     log(f"  served path: reference recall {hits}/{n_ref}")
 
@@ -947,8 +1116,25 @@ def drive_serving_path(dev, bitmask_entry: dict, stem_entry: dict,
             f"{paired_within(recs, http, 0.5)} paired with HTTP within 0.5 px")
     log(f"  stream_detect: {n_batches} batches, launches {launch_counts()}")
 
+    # the bitmask route's NMS at the served shapes, with any device-to-host
+    # sync made an error: both phases must stay on the card
+    boxes = proposal_like_boxes(np.random.RandomState(4), 8, 12000).to(dev)
+    ones = torch.ones(boxes.shape[:2], dtype=torch.bool, device=dev)
+    small = boxes[:, :1000].contiguous()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        keeps = [nms.nms_keep_sorted(boxes, ones, 0.7),
+                 nms.nms_keep_sorted(small, ones[:, :1000], 0.2)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log(f"  nms_keep_sorted on the bitmask route at (8,12000) and (8,1000) with "
+        f"syncs made an error: no sync, kept {keeps[0].sum(dim=1).tolist()} and "
+        f"{keeps[1].sum(dim=1).tolist()}")
+
     data, infos = photo_batch()
     sweeps = nms.nms_fixed_point_blocked.SWEEPS
+    zero_launch_counts()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -957,14 +1143,16 @@ def drive_serving_path(dev, bitmask_entry: dict, stem_entry: dict,
             lines.count.cpu()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    n_sweeps = nms.nms_fixed_point_blocked.SWEEPS - sweeps
+    n_resolves = launch_counts()["nms_resolve"]
+    if nms.nms_fixed_point_blocked.SWEEPS != sweeps:
+        raise AssertionError("the served batch ran the plain resolve's sweeps")
     n_syncs = sum("synchroniz" in str(w.message) for w in caught)
     sec = time_run_batch(pred, data, infos)
     log("  e2e " + json.dumps({
         "route": "NMS_FUSED False, FUSED_STEM True",
         "run_batch": "8x608x912 uint8", "ms_per_batch": sec * 1e3,
         "img_per_s": 8 / sec, "iters": 10,
-        "resolve_sweeps_per_batch": n_sweeps,
+        "resolve_launches_per_batch": n_resolves,
         "host_syncs_per_batch": n_syncs}))
 
 
@@ -1026,8 +1214,12 @@ def main(argv=()) -> int:
     log(f"[1/7] device: {torch.cuda.get_device_name(0)} | {card} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
+    # a checkout from before the resolve kernel (timed with --kernels-only
+    # beside the current tree) has three kernels
+    has_resolve = (_build.CSRC / "nms_resolve.cu").exists()
     t0 = time.perf_counter()
-    logs = _build.build(["nms_fused", "nms_bitmask", "stem_fused"])
+    logs = _build.build(["nms_fused", "nms_bitmask", "stem_fused"]
+                        + ["nms_resolve"] * has_resolve)
     log(f"[2/7] build: {time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -1038,16 +1230,22 @@ def main(argv=()) -> int:
 
     log("[3/7] kernels against their plain versions")
     entries = [check_nms_kernel(dev), check_bitmask_kernel(dev), check_stem_kernel(dev)]
+    if has_resolve:
+        entries.append(check_resolve_kernel(dev))
     if "--kernels-only" in argv:
+        if not has_resolve:
+            log("  nms_resolve: this checkout has no resolve kernel; entry left out")
         print(json.dumps({"kernels": entries}))
         print(card)
         return 0
+    if not has_resolve:
+        raise AssertionError("ctpn_tpu_torch/ops/csrc/nms_resolve.cu is missing")
 
     log("[4/7] main path (default config)")
     default_recs = drive_main_path(dev, entries[0])
 
     log("[5/7] serving path (TPU.NMS_FUSED False, TPU.FUSED_STEM True)")
-    drive_serving_path(dev, entries[1], entries[2], default_recs)
+    drive_serving_path(dev, entries[1], entries[3], entries[2], default_recs)
     for entry in entries:
         if not entry["launches"]:
             raise AssertionError(f"{entry['name']} was never launched on its path")

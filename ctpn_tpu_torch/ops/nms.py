@@ -12,15 +12,15 @@ survive nor suppress.
   resolve in one launch with an early exit at ``max_keep``;
 * False: two phases, as the JAX package runs them on the TPU. The
   suppression bitmask kernel (``ops/nms_bitmask.py``) builds the (N, N/32)
-  words; :func:`nms_fixed_point_blocked` resolves the greedy keep set from
-  them in plain PyTorch (it is jnp in the JAX package, not Pallas).
+  words; the resolve kernel (``ops/nms_resolve.py``) finds the greedy keep
+  set from them, the unique solution of ``keep[i] = valid[i] and not
+  any(keep[j] and bit(j, i) for j < i)``. Both phases stay on the device:
+  two launches and no device-to-host sync.
 
-Greedy keep is the unique solution of ``keep[i] = valid[i] and not
-any(keep[j] and bit(j, i) for j < i)``. The resolve iterates it from
-"all valid" until nothing changes. Each sweep asks the host once, for the
-whole batch, whether anything changed: that is one device-to-host sync per
-sweep, counted in ``nms_fixed_point.SWEEPS`` and
-``nms_fixed_point_blocked.SWEEPS``.
+The resolve's plain versions, :func:`nms_fixed_point` and
+:func:`nms_fixed_point_blocked` (fixed-point sweeps with one host sync
+each, counted in their ``SWEEPS``), live in ``ops/nms_resolve.py`` and are
+re-exported here; only CPU tensors reach them.
 """
 
 from __future__ import annotations
@@ -31,93 +31,12 @@ import torch
 
 from ctpn_tpu_torch.config import cfg
 from ctpn_tpu_torch.ops import nms_bitmask, nms_fused
-
-BITS = nms_bitmask.BITS
-
-
-def or_reduce(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Bitwise OR of ``x`` over ``dim`` (PyTorch has no OR reduction): a
-    halving tree of ``bitwise_or``. ``x.shape[dim]`` must be positive."""
-    while x.shape[dim] > 1:
-        n = x.shape[dim]
-        half = n // 2
-        y = x.narrow(dim, 0, half) | x.narrow(dim, half, half)
-        if n % 2:
-            y = torch.cat([y, x.narrow(dim, n - 1, 1)], dim)
-        x = y
-    return x.squeeze(dim)
-
-
-def _bits(words: torch.Tensor, n: int) -> torch.Tensor:
-    """(B, W) int32 words -> (B, n) bool, bit k of word w = column 32w+k."""
-    idx = torch.arange(n, device=words.device)
-    shift = (idx % BITS).to(torch.int32)
-    return ((words[:, idx // BITS] >> shift) & 1) != 0
-
-
-def nms_fixed_point(mask: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Resolve the greedy keep set from a suppression bitmask.
-
-    mask: (B, N, W) int32, row i's bits = boxes i suppresses (all j > i);
-    valid: (B, N) bool. Returns keep (B, N) bool in the same (sorted)
-    order. Every sweep ORs the whole mask under the active rows.
-    """
-    n = mask.shape[1]
-    active = valid
-    for _ in range(n):
-        supp = or_reduce(torch.where(active[..., None], mask, 0), 1)
-        new = valid & ~_bits(supp, n)
-        nms_fixed_point.SWEEPS += 1
-        changed = bool((new != active).any())  # one host sync per sweep
-        active = new
-        if not changed:
-            break
-    return active
-
-
-nms_fixed_point.SWEEPS = 0
-
-
-def nms_fixed_point_blocked(
-    mask: torch.Tensor, valid: torch.Tensor, block: int = 1024
-) -> torch.Tensor:
-    """Block-sequential greedy resolve: each mask row is read once.
-
-    Boxes are taken in score-ordered blocks. A small fixed point over the
-    block's own columns resolves it exactly (suppression from earlier blocks
-    arrives through the accumulated word vector); then the kept rows' masks
-    fold into that vector. Same output as :func:`nms_fixed_point`.
-    """
-    if block % BITS or block < BITS:
-        raise ValueError(f"block must be a positive multiple of {BITS}, got {block}")
-    batch, n, words = mask.shape
-    supp = mask.new_zeros((batch, words))
-    keep = torch.zeros_like(valid)
-    bw = block // BITS
-    for r0 in range(0, n, block):
-        rows = mask[:, r0:r0 + block]  # (B, r, W)
-        r = rows.shape[1]
-        w0, lw = r0 // BITS, nms_bitmask.num_words(r)
-        base = valid[:, r0:r0 + r] & ~_bits(supp[:, w0:w0 + lw], r)
-        local = rows[:, :, w0:w0 + lw]
-        active = base
-        for _ in range(r):
-            sw = or_reduce(torch.where(active[..., None], local, 0), 1)
-            new = base & ~_bits(sw, r)
-            nms_fixed_point_blocked.SWEEPS += 1
-            changed = bool((new != active).any())  # one host sync per sweep
-            active = new
-            if not changed:
-                break
-        keep[:, r0:r0 + r] = active
-        if r0 + block < n:  # later blocks read columns from w0 + bw on
-            fold = or_reduce(torch.where(active[..., None], rows[:, :, w0 + bw:], 0), 1)
-            supp[:, w0 + bw:] |= fold
-    return keep
-
-
-nms_fixed_point_blocked.SWEEPS = 0
-
+from ctpn_tpu_torch.ops.nms_resolve import (  # noqa: F401  (re-exported)
+    nms_fixed_point,
+    nms_fixed_point_blocked,
+    nms_resolve,
+    or_reduce,
+)
 
 def nms_keep_sorted(
     boxes: torch.Tensor,
@@ -135,7 +54,7 @@ def nms_keep_sorted(
     if cfg.TPU.NMS_FUSED:
         return nms_fused.nms_keep_sorted_fused(boxes, valid, thresh, max_keep)
     mask = nms_bitmask.suppression_bitmask(boxes, valid, thresh)
-    return nms_fixed_point_blocked(mask, valid)
+    return nms_resolve(mask, valid)
 
 
 def _score_order(scores: torch.Tensor) -> torch.Tensor:

@@ -6,10 +6,12 @@ kernel behind ``suppression_bitmask_pallas``, ``pl.pallas_call`` at
 suppression_bitmask_jnp``.
 
 * :func:`suppression_bitmask` is the wrapper. A CUDA tensor launches the
-  hand-written kernel ``ops/csrc/nms_bitmask.cu`` (a CTA per 128 rows x
-  512 columns, one thread per row and 32-column word, the column boxes in
-  shared memory, zero-only tiles below the diagonal); a CPU tensor runs
-  the plain version. There is no fallback from one to the other.
+  hand-written kernel ``ops/csrc/nms_bitmask.cu`` (a CTA per 64 rows walks
+  tiles of 1024 columns, lanes over columns: four compares per pair drop
+  the pairs whose extents do not overlap, each lane runs the exact test on
+  the pairs it has left, ballots transpose the bits into words; tiles
+  below the diagonal are only zero-filled); a CPU tensor runs the plain
+  version. There is no fallback from one to the other.
 * :func:`suppression_bitmask_ref` is the plain PyTorch version: the pair
   test of ``suppression_bitmask_jnp``, blocked over rows and batched over
   images, packed into words.

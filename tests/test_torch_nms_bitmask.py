@@ -88,6 +88,65 @@ def test_plain_bitmask_batched_thresholds(rng):
         assert not got[:, (first_col + 31) <= rows].any()
 
 
+@pytest.mark.parametrize(
+    "n", [31, 32, 33, 63, 64, 65, 127, 128, 129, 1023, 1024, 1025])
+def test_plain_bitmask_at_kernel_tile_edges(rng, n):
+    """N one below, at and one above a multiple of a word (32), of the CUDA
+    kernel's rows per CTA (64), of a warp's columns (128) and of a tile's
+    columns (1024): dense clusters, a tenth of the boxes invalid."""
+    c = rng.uniform(0, 500, (8, 2))
+    base = np.concatenate([c, c + rng.uniform(30, 100, (8, 2))], 1)
+    boxes = base[rng.randint(0, 8, n)] + rng.normal(0, 4, (n, 4))
+    boxes[:, 2:] = np.maximum(boxes[:, 2:], boxes[:, :2] + 1)
+    boxes = boxes.astype(np.float32)
+    valid = rng.rand(n) > 0.1
+    got = suppression_bitmask_ref(_t(boxes)[None], _t(valid)[None], 0.5).numpy()[0]
+    want = _words(J.suppression_bitmask_jnp(jnp.asarray(boxes), jnp.asarray(valid), 0.5))
+    assert want.any()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_plain_bitmask_invalid_box_in_diagonal_word():
+    """Identical boxes all suppress each other: row i's bits are exactly the
+    later valid columns, so an invalid box leaves a hole in every earlier
+    row's word and an empty row of its own, the diagonal words included."""
+    n = 200
+    boxes = np.tile(np.float32([[10, 20, 80, 60]]), (n, 1))
+    valid = np.ones(n, bool)
+    valid[[0, 37, 64, 95, 127, 128, 199]] = False
+    got = suppression_bitmask_ref(_t(boxes)[None], _t(valid)[None], 0.5).numpy()[0]
+    want = _words(J.suppression_bitmask_jnp(jnp.asarray(boxes), jnp.asarray(valid), 0.5))
+    np.testing.assert_array_equal(got, want)
+    bits = (got.view(np.uint32)[:, np.arange(n) // 32] >> (np.arange(n) % 32)) & 1
+    later = np.arange(n)[None, :] > np.arange(n)[:, None]
+    np.testing.assert_array_equal(bits.astype(bool), later & valid[:, None] & valid[None, :])
+
+
+@pytest.mark.parametrize("thresh", [0.2, 0.0])
+def test_plain_bitmask_touching_boxes(rng, thresh):
+    """Boxes 2 px wide on integer x positions: pairs are identical, share one
+    pixel column (iw = 1), touch without overlapping (iw = 0) or lie apart.
+    Pins what a kernel that skips pairs without x overlap must produce; at
+    t = 0 every ordered valid pair suppresses, overlap or not."""
+    n = 300
+    x = rng.randint(0, 60, n).astype(np.float32)
+    y = rng.randint(0, 4, n).astype(np.float32)
+    boxes = np.stack([x, y, x + 1, y + 20], 1)
+    valid = np.ones(n, bool)
+    got = suppression_bitmask_ref(_t(boxes)[None], _t(valid)[None], thresh).numpy()[0]
+    want = _words(J.suppression_bitmask_jnp(jnp.asarray(boxes), jnp.asarray(valid), thresh))
+    np.testing.assert_array_equal(got, want)
+    bits = ((got.view(np.uint32)[:, np.arange(n) // 32] >> (np.arange(n) % 32)) & 1).astype(bool)
+    later = np.arange(n)[None, :] > np.arange(n)[:, None]
+    dx = np.abs(x[:, None] - x[None, :])
+    if thresh == 0.0:
+        np.testing.assert_array_equal(bits, later)
+    else:
+        assert not bits[later & (dx >= 2)].any()  # touching or apart: never
+        assert bits[later & (dx == 0)].all()      # at most 3 px apart in y: IoU >= 3/4
+        assert bits[later & (dx == 1)].any()      # one shared column: IoU up to 1/3
+
+
 def test_pack_bits_sets_bit_31():
     bits = torch.zeros((2, 64), dtype=torch.bool)
     bits[0, 31] = bits[0, 0] = bits[1, 63] = True
