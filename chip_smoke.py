@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: builds the kernels,
-holds each against its plain PyTorch version, drives the main path and the
-serving path, and checks what comes out.
+holds each against its plain PyTorch version, drives every inference path
+(the default and served routes, O mode, host post-processing, frozen
+artifacts, the CLIs), and checks what comes out.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only
@@ -29,8 +30,10 @@ Phases (any failure exits non-zero and prints no result line):
    identical (tolerance 0: integer outputs), and the resolve must also
    give the fused kernel's uncapped keep mask on the same boxes; the
    stem's max relative error ``|a-b|/(|b|+1)`` must be below 1e-2 (bf16
-   resolution, the JAX package's tolerance). Times kernel, plain version,
-   and for the stem the stock cuDNN block (``stock_ms``).
+   resolution, the JAX package's tolerance). Times the wrapper (the
+   ``torch.library`` op), the launcher alone (``launch_ms``: the op
+   dispatch is the difference), the plain version, and for the stem the
+   stock cuDNN block (``stock_ms``).
 4. main path: ``CTPNPredictor(device="cuda")`` with the shipped weights
    (``data/artifacts/ctpn_synth_f16.npz``), default config, runs
    ``detect_image`` on the five committed demo photos with launch counts
@@ -56,11 +59,33 @@ Phases (any failure exits non-zero and prints no result line):
    and (8,1000) with device-to-host syncs made an error; and ``run_batch``
    at batch 8 timed with its resolve launches and host syncs per batch
    (the plain resolve's sweep count must not move).
-6. CLI: ``python3 -m ctpn_tpu_torch.cli.serve ... --set TPU.NMS_FUSED False
-   TPU.FUSED_STEM True`` as a subprocess answers one POST with 200 and
-   ``count > 0``.
-7. prints one ``{"kernels": [...]}`` line (four kernels), the card line, and last
-   ``{"ok": true, "device": {...}}``.
+6. serve CLI: ``python3 -m ctpn_tpu_torch.cli.serve ... --set
+   TPU.NMS_FUSED False TPU.FUSED_STEM True`` as a subprocess answers one
+   POST with 200 and ``count > 0``.
+7. O mode: ``CTPNPredictor(mode="O")`` runs a batch of 8 with exactly 2
+   fused-NMS launches and no other kernel (timed), then ``detect_image``
+   on the photos: >= 75 % of ``docs/demo_results/O/res_*.txt``.
+8. host post-processing: ``detect_image_host`` in H and O on the photos,
+   no kernel launch, >= 75 % of ``H_host`` and ``O_host``; host ms per
+   image.
+9. frozen artifacts: ``export_frozen`` on the card, the default route at
+   1x608x912, 1x912x608, 8x608x912, 8x912x608 and the served route at
+   8x608x912; a subprocess that cannot import ``ctpn_tpu_torch.models``
+   loads both and runs the batch of 8: 2 fused-NMS launches (default) and
+   2 bitmask, 2 resolve, 1 stem launches (served) from inside the
+   programs, counts equal to the live pipeline's, records paired within
+   0.5 px (the largest float difference is printed); then the default
+   artifact's ``detect_image`` on the photos: >= 75 % of ``H``.
+10. CLIs as subprocesses: ``ctpn-torch-demo`` on the photos, scored by
+    ``ctpn-torch-eval`` (recall >= 0.75 against ``H``); ``ctpn-torch-export
+    --frozen`` (batch-1 programs) then ``ctpn-torch-demo --frozen``, scored
+    the same; ``ctpn-torch-serve`` on phase 9's default artifact answers
+    one POST per bucket.
+11. prints one ``{"kernels": [...]}`` line (four kernels), the card line,
+    and last ``{"ok": true, "device": {...}}``.
+
+Every recall gate counts lines as ``ctpn-torch-eval`` does
+(``eval.match_boxes``: one-to-one, IoU >= 0.5, integer corner boxes).
 
 Imports nothing of JAX and nothing of the JAX package ``ctpn_tpu``.
 """
@@ -71,6 +96,7 @@ import contextlib
 import json
 import os
 import queue
+import shutil
 import signal
 import subprocess
 import sys
@@ -115,6 +141,14 @@ def card_line() -> str:
     if not out:
         raise RuntimeError("nvidia-smi printed no card")
     return out[0]
+
+
+def launch_ms(module, *args):
+    """Device time of the kernel's launcher (``module._launch``) called
+    directly, without the ``torch.library`` op dispatch that the wrapper
+    adds; None for a checkout whose wrappers have no op."""
+    launch = getattr(module, "_launch", None)
+    return None if launch is None else cuda_ms(lambda: launch(*args), 20)
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -375,6 +409,7 @@ def check_nms_kernel(dev) -> dict:
     shapes = []
     for name, b, v, t, cap in cases[:4]:  # the shapes the default route launches
         ms = cuda_ms(lambda: NF.nms_keep_sorted_fused(b, v, t, max_keep=cap), 20)
+        direct_ms = launch_ms(NF, b, v, t, cap)
         plain_ms = cuda_ms(
             lambda: NF.nms_keep_sorted_fused_ref(b, v, t, max_keep=cap), 3)
         plain = NF.nms_keep_sorted_fused_ref(b, v, t, max_keep=cap)
@@ -383,13 +418,14 @@ def check_nms_kernel(dev) -> dict:
         bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
         ops_ms = n_ops / F32_OPS_PER_S * 1e3
         shapes.append({
-            "call": name, "ms": ms, "plain_ms": plain_ms,
+            "call": name, "ms": ms, "launch_ms": direct_ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "issue_bound_ms": n_ops / F32_ISSUE_OPS_PER_S * 1e3,
             "bytes": n_bytes, "operations": n_ops,
         })
-        log(f"  nms_fused {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+        log(f"  nms_fused {name}: kernel {ms:.4f} ms (launcher alone {direct_ms} ms), "
+            f"plain {plain_ms:.3f} ms, "
             f"bound {max(bytes_ms, ops_ms) * 1e3:.3f} us "
             f"({n_ops} ops, {n_bytes} bytes)")
     head = shapes[0]
@@ -478,6 +514,7 @@ def check_bitmask_kernel(dev) -> dict:
     shapes = []
     for name, b, v, t in cases[:4]:
         ms = cuda_ms(lambda: NB.suppression_bitmask(b, v, t), 20)
+        direct_ms = launch_ms(NB, b, v, t)
         plain_ms = cuda_ms(lambda: NB.suppression_bitmask_ref(b, v, t), 3)
         batch, n = v.shape
         nv = v.sum(dim=1).cpu().numpy().astype(np.int64)
@@ -486,13 +523,14 @@ def check_bitmask_kernel(dev) -> dict:
         bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
         ops_ms = n_ops / F32_OPS_PER_S * 1e3
         shapes.append({
-            "call": name, "ms": ms, "plain_ms": plain_ms,
+            "call": name, "ms": ms, "launch_ms": direct_ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "issue_bound_ms": n_ops / F32_ISSUE_OPS_PER_S * 1e3,
             "bytes": n_bytes, "operations": n_ops,
         })
-        log(f"  nms_bitmask {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+        log(f"  nms_bitmask {name}: kernel {ms:.4f} ms (launcher alone {direct_ms} ms), "
+            f"plain {plain_ms:.3f} ms, "
             f"bound {max(bytes_ms, ops_ms) * 1e3:.3f} us "
             f"({n_ops} ops, {n_bytes} bytes)")
     # the kernel tests only pairs whose extents overlap, so its time depends
@@ -588,6 +626,7 @@ def check_resolve_kernel(dev) -> dict:
     shapes = []
     for (name, b, v, t), mask in zip(cases[:4], masks):
         ms = cuda_ms(lambda: NR.nms_resolve(mask, v), 20)
+        direct_ms = launch_ms(NR, mask, v)
         plain_ms = cuda_ms(lambda: NR.nms_fixed_point_blocked(mask, v), 3)
         batch, n = v.shape
         words = NB.num_words(n)
@@ -596,10 +635,11 @@ def check_resolve_kernel(dev) -> dict:
         read_words = sum(words - i // 32 for i in range(n))
         n_bytes = batch * (read_words * 4 + 2 * n)
         bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-        shapes.append({"call": name, "ms": ms, "plain_ms": plain_ms,
-                       "bound_ms": bound_ms, "bound_by": "bytes",
+        shapes.append({"call": name, "ms": ms, "launch_ms": direct_ms,
+                       "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
                        "bytes": n_bytes, "operations": 0})
-        log(f"  nms_resolve {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+        log(f"  nms_resolve {name}: kernel {ms:.4f} ms (launcher alone {direct_ms} ms), "
+            f"plain {plain_ms:.3f} ms, "
             f"bound {bound_ms * 1e3:.3f} us ({n_bytes} bytes)")
     head = shapes[2]  # the served path's proposal call: batch 8
     return {
@@ -728,6 +768,7 @@ def check_stem_kernel(dev) -> dict:
 
     name, x, ws = cases[0]
     ms = cuda_ms(lambda: SF.fused_stem_block(x, *ws), 20)
+    direct_ms = launch_ms(SF, x, *ws)
     plain_ms = cuda_ms(lambda: SF.fused_stem_block_ref(x, *ws), 3)
     stock_ms = cuda_ms(lambda: stock_block(x, *ws), 20)
     n, _, h, w = x.shape
@@ -736,7 +777,8 @@ def check_stem_kernel(dev) -> dict:
                + sum(t.numel() * 2 for t in (ws[0], ws[2])) + 2 * 64 * 4)
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n_ops / BF16_TENSOR_OPS_PER_S * 1e3
-    log(f"  stem_fused {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+    log(f"  stem_fused {name}: kernel {ms:.4f} ms (launcher alone {direct_ms} ms), "
+        f"plain {plain_ms:.3f} ms, "
         f"stock cuDNN block {stock_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
         f"({n_ops} ops, {n_bytes} bytes)")
     return {
@@ -752,7 +794,7 @@ def check_stem_kernel(dev) -> dict:
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,  # no single PyTorch call computes the fused block
         "stock_ms": stock_ms,
-        "shapes": [{"call": name, "ms": ms, "plain_ms": plain_ms,
+        "shapes": [{"call": name, "ms": ms, "launch_ms": direct_ms, "plain_ms": plain_ms,
                     "stock_ms": stock_ms, "bytes": n_bytes, "operations": n_ops}],
     }
 
@@ -803,24 +845,17 @@ def rows_match(a: np.ndarray, b: np.ndarray, atol: float) -> float:
     return worst
 
 
-def iou_matrix(a: np.ndarray, b: np.ndarray) -> np.ndarray:
-    ix = np.minimum(a[:, None, 2], b[None, :, 2]) - np.maximum(a[:, None, 0], b[None, :, 0])
-    iy = np.minimum(a[:, None, 3], b[None, :, 3]) - np.maximum(a[:, None, 1], b[None, :, 1])
-    inter = np.clip(ix, 0, None) * np.clip(iy, 0, None)
-    area = lambda x: (x[:, 2] - x[:, 0]) * (x[:, 3] - x[:, 1])  # noqa: E731
-    return inter / np.maximum(area(a)[:, None] + area(b)[None] - inter, 1e-9)
+def recall_vs_committed(recs: np.ndarray, photo: Path, ref_dir: Path = None) -> tuple:
+    """Committed reference lines (``res_<stem>.txt`` in ``ref_dir``, default
+    the photo's own directory) matched one-to-one at IoU >= 0.5, counted as
+    ``ctpn-torch-eval`` counts them: the records' corner boxes truncated to
+    integers, as the demo writes them, then ``eval.match_boxes``."""
+    from ctpn_tpu_torch.eval import match_boxes, read_res_txt
 
-
-def recall_vs_committed(recs: np.ndarray, photo: Path) -> tuple:
-    """Reference lines (committed res_*.txt) matched at IoU >= 0.5."""
-    ref = np.loadtxt(photo.parent / f"res_{photo.stem}.txt", delimiter=",",
-                     ndmin=2).astype(np.float64)
-    if len(recs) == 0:
-        return 0, len(ref)
+    ref = read_res_txt(str((ref_dir or photo.parent) / f"res_{photo.stem}.txt"))
     xs, ys = recs[:, 0:8:2], recs[:, 1:8:2]
-    boxes = np.stack([xs.min(1), ys.min(1), xs.max(1), ys.max(1)], 1)
-    iou = iou_matrix(ref, boxes)
-    return int((iou.max(axis=1) >= 0.5).sum()), len(ref)
+    boxes = np.trunc(np.stack([xs.min(1), ys.min(1), xs.max(1), ys.max(1)], 1))
+    return match_boxes(boxes.reshape(-1, 4), ref, 0.5), len(ref)
 
 
 def drive_main_path(dev, kernel_entry: dict) -> list:
@@ -1158,9 +1193,305 @@ def drive_serving_path(dev, bitmask_entry: dict, resolve_entry: dict,
 
 def check_cli() -> None:
     """The serve CLI as a subprocess: one POST, 200 and count > 0."""
-    cmd = [sys.executable, "-m", "ctpn_tpu_torch.cli.serve", "--artifact",
-           str(ARTIFACT), "--port", "0", "--no-warmup",
-           "--set", "TPU.NMS_FUSED", "False", "TPU.FUSED_STEM", "True"]
+    def one_post(port):
+        status, out = post(f"http://127.0.0.1:{port}/detect", PHOTOS[-1].read_bytes())
+        if status != 200 or out.get("count", 0) <= 0:
+            raise AssertionError(f"serve CLI answered {status}: {out}")
+        log(f"  serve CLI on port {port}: HTTP {status}, {out['count']} lines "
+            f"for {PHOTOS[-1].name}")
+
+    serve_subprocess(["--artifact", str(ARTIFACT), "--no-warmup", "--set", *SERVED_ROUTE],
+                     one_post)
+
+
+# ---------------------------------------------------------------- the rest of inference
+
+COMMITTED = REPO / "docs" / "demo_results"
+OUT = REPO / "output" / "chip_smoke"  # git-ignored; removed at the end
+FROZEN_SHAPES = [(1, 608, 912), (1, 912, 608), (8, 608, 912), (8, 912, 608)]
+SERVED_SHAPES = [(8, 608, 912)]
+SERVED_ROUTE = ["TPU.NMS_FUSED", "False", "TPU.FUSED_STEM", "True"]
+
+
+def recall_over_photos(detect, ref_dir: Path, what: str) -> tuple:
+    """``detect(photo) -> records`` over the five photos against the committed
+    lines in ``ref_dir``; fails below 75 %. Returns (hits, n_ref, lines)."""
+    hits = n_ref = lines = 0
+    for photo in PHOTOS:
+        recs = detect(photo)
+        if recs.ndim != 2 or recs.shape[1] != 9 or not np.isfinite(recs).all():
+            raise AssertionError(f"{what} {photo.name}: bad records {recs.shape}")
+        hit, n = recall_vs_committed(recs, photo, ref_dir)
+        hits, n_ref, lines = hits + hit, n_ref + n, lines + len(recs)
+        log(f"  {what} {photo.name}: {len(recs)} lines, committed lines matched "
+            f"{hit}/{n}")
+    if hits < 0.75 * n_ref:
+        raise AssertionError(f"{what}: only {hits}/{n_ref} committed lines found")
+    log(f"  {what}: {lines} lines, {hits}/{n_ref} of {ref_dir.relative_to(REPO)} found")
+    return hits, n_ref, lines
+
+
+def expect_launches(counts: dict, want: dict, what: str) -> None:
+    full = {name: want.get(name, 0) for name in counts}
+    if counts != full:
+        raise AssertionError(f"{what}: launches {counts}, expected {full}")
+
+
+def drive_o_mode(dev) -> None:
+    """O mode at batch 8 (two fused-NMS launches, no other kernel), then the
+    five photos against the committed O-mode lines."""
+    from ctpn_tpu_torch.config import reset_cfg
+    from ctpn_tpu_torch.inference.pipeline import CTPNPredictor
+    from ctpn_tpu_torch.utils.image import load_image_bgr
+    from ctpn_tpu_torch.utils.weights import load_params
+
+    reset_cfg()
+    pred = CTPNPredictor(load_params(str(ARTIFACT), device=dev), mode="O", device=dev)
+    data, infos = photo_batch()
+    pred.warmup(data.shape[1:3], batch=len(data))
+    zero_launch_counts()
+    _, lines = pred.run_batch(data, infos)
+    counts = lines.count.cpu().tolist()
+    expect_launches(launch_counts(), {"nms_fused": 2}, "O mode, one batch of 8")
+    sec = time_run_batch(pred, data, infos)
+    zero_launch_counts()
+    hits, n_ref, _ = recall_over_photos(
+        lambda p: pred.detect_image(load_image_bgr(str(p))), COMMITTED / "O", "O mode")
+    expect_launches(launch_counts(), {"nms_fused": 2 * len(PHOTOS)}, "O mode photos")
+    log("  e2e " + json.dumps({
+        "mode": "O", "run_batch": "x".join(map(str, data.shape[:3])) + " uint8",
+        "line_counts": counts,
+        "ms_per_batch": sec * 1e3, "img_per_s": 8 / sec, "iters": 10,
+        "committed_recall": f"{hits}/{n_ref}"}))
+
+
+def drive_host_path(dev) -> None:
+    """``detect_image_host`` in H and O: the card runs the network only, the
+    proposal decode and connector run on the host; no NMS kernel launches."""
+    from ctpn_tpu_torch.config import reset_cfg
+    from ctpn_tpu_torch.inference.pipeline import CTPNPredictor
+    from ctpn_tpu_torch.utils.image import load_image_bgr
+    from ctpn_tpu_torch.utils.weights import load_params
+
+    reset_cfg()
+    params = load_params(str(ARTIFACT), device=dev)
+    images = {p: load_image_bgr(str(p)) for p in PHOTOS}
+    for mode in ("H", "O"):
+        pred = CTPNPredictor(params, mode=mode, device=dev)
+        pred.detect_image_host(images[PHOTOS[-1]])  # cuDNN algorithm choice
+        laps = []
+
+        def detect(photo):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            recs = pred.detect_image_host(images[photo])
+            laps.append(time.perf_counter() - t0)
+            return recs
+
+        zero_launch_counts()
+        recall_over_photos(detect, COMMITTED / f"{mode}_host", f"host path {mode}")
+        expect_launches(launch_counts(), {}, f"host path {mode}")
+        log("  e2e " + json.dumps({
+            "host_postprocess": mode, "ms_per_image": [t * 1e3 for t in laps],
+            "mean_ms": float(np.mean(laps)) * 1e3}))
+
+
+FROZEN_PROBE = r"""
+import json, sys
+import numpy as np
+sys.modules["ctpn_tpu_torch.models"] = None  # the loader must not need model code
+import torch
+from ctpn_tpu_torch.inference.frozen import FrozenCTPN
+from ctpn_tpu_torch.ops import nms_bitmask, nms_fused, nms_resolve, stem_fused
+
+wrappers = {"nms_bitmask": nms_bitmask.suppression_bitmask,
+            "nms_resolve": nms_resolve.nms_resolve,
+            "stem_fused": stem_fused.fused_stem_block,
+            "nms_fused": nms_fused.nms_keep_sorted_fused}
+batch = np.load(sys.argv[1])
+report, arrays = {}, {}
+for name, path in zip(sys.argv[3::2], sys.argv[4::2]):
+    art = FrozenCTPN(path)
+    art.run_batch(batch["data"], batch["infos"])  # load the program, warm up
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.LAUNCHES = 0
+    out = art.run_batch(batch["data"], batch["infos"])
+    out = [t.cpu().numpy() for t in out]
+    report[name] = {"launches": {k: fn.LAUNCHES for k, fn in wrappers.items()},
+                    "shapes": art.shapes, "meta": art.meta}
+    for key, value in zip(art.meta["abi"], out):
+        arrays[f"{name}/{key}"] = value
+    if name == "default":
+        for photo in batch["photos"]:
+            arrays[f"photo/{photo}"] = art.detect_path(str(photo))
+report["models_imported"] = any(m.startswith("ctpn_tpu_torch.models.")
+                                for m in sys.modules)
+np.savez(sys.argv[2], **arrays)
+print(json.dumps(report))
+"""
+
+
+def run_frozen_probe(batch_file: Path, artifacts: dict) -> tuple:
+    """Load and run the artifacts in a subprocess that cannot import
+    ``ctpn_tpu_torch.models``; returns (report, arrays)."""
+    out_file = OUT / "probe_out.npz"
+    cmd = [sys.executable, "-c", FROZEN_PROBE, str(batch_file), str(out_file)]
+    for name, path in artifacts.items():
+        cmd += [name, str(path)]
+    proc = subprocess.run(cmd, cwd=str(REPO), capture_output=True, text=True,
+                          timeout=600, env=dict(os.environ, PYTHONPATH=str(REPO)))
+    if proc.returncode != 0:
+        raise AssertionError(f"frozen probe failed:\n{proc.stdout}\n{proc.stderr}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    if report["models_imported"]:
+        raise AssertionError("the frozen loader imported ctpn_tpu_torch.models")
+    with np.load(out_file) as z:
+        return report, {k: z[k] for k in z.files}
+
+
+def compare_frozen(arrays: dict, name: str, live: tuple, what: str) -> float:
+    """Frozen outputs against the live pipeline's on the same batch: counts
+    equal, records paired within 0.5 px; returns the largest float
+    difference of rois and records."""
+    from ctpn_tpu_torch.inference.frozen import ABI
+
+    got = [arrays[f"{name}/{key}"] for key in ABI]
+    rois, _, roi_count, recs, _, line_count = got
+    if not (np.array_equal(roi_count, live[2]) and np.array_equal(line_count, live[5])):
+        raise AssertionError(f"{what}: counts differ from the live pipeline: rois "
+                             f"{roi_count.tolist()} vs {live[2].tolist()}, lines "
+                             f"{line_count.tolist()} vs {live[5].tolist()}")
+    worst_px = max(rows_match(recs[i, :c], live[3][i, :c], 0.5)
+                   for i, c in enumerate(line_count))
+    diff = max(float(np.abs(rois - live[0]).max()), float(np.abs(recs - live[3]).max()))
+    log(f"  {what}: roi counts {roi_count.tolist()}, line counts "
+        f"{line_count.tolist()} equal to the live pipeline's; records paired, worst "
+        f"{worst_px} px; largest float difference (rois, records) {diff}")
+    return diff
+
+
+def live_outputs(pred, data, infos) -> tuple:
+    props, lines = pred.run_batch(data, infos)
+    return tuple(t.cpu().numpy() for t in (*props, *lines))
+
+
+def drive_frozen(dev) -> Path:
+    """Export both routes on the card, then load and run them in a
+    subprocess without model code: kernels launch from inside the programs,
+    outputs equal the live pipeline's. Returns the default route's
+    artifact."""
+    from ctpn_tpu_torch.config import cfg, cfg_from_list, reset_cfg
+    from ctpn_tpu_torch.inference.frozen import export_frozen
+    from ctpn_tpu_torch.inference.pipeline import CTPNPredictor
+    from ctpn_tpu_torch.utils.weights import load_params
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    data, infos = photo_batch()
+    batch_file = OUT / "batch.npz"
+    np.savez(batch_file, data=data, infos=infos,
+             photos=np.array([str(p) for p in PHOTOS]))
+    params = load_params(str(ARTIFACT), device=dev)
+    routes = {}
+    for name, sets, shapes in (("default", [], FROZEN_SHAPES),
+                               ("served", SERVED_ROUTE, SERVED_SHAPES)):
+        reset_cfg()
+        cfg_from_list(sets)
+        pred = CTPNPredictor(params, device=dev)
+        live = live_outputs(pred, data, infos)
+        path = OUT / f"frozen_{name}.npz"
+        t0 = time.perf_counter()
+        export_frozen(params, str(path), shapes=shapes, device=dev)
+        log(f"  export_frozen {name} route (NMS_FUSED {cfg.TPU.NMS_FUSED}, FUSED_STEM "
+            f"{cfg.TPU.FUSED_STEM}), shapes {shapes}: {time.perf_counter() - t0:.1f} s, "
+            f"{path.stat().st_size / 2**20:.1f} MiB")
+        routes[name] = (path, live)
+        del pred
+    reset_cfg()
+    t0 = time.perf_counter()
+    report, arrays = run_frozen_probe(batch_file, {k: v[0] for k, v in routes.items()})
+    log(f"  subprocess without ctpn_tpu_torch.models: loaded and ran both artifacts "
+        f"in {time.perf_counter() - t0:.1f} s")
+    expect_launches(report["default"]["launches"], {"nms_fused": 2},
+                    "frozen default route, batch 8")
+    expect_launches(report["served"]["launches"],
+                    {"nms_bitmask": 2, "nms_resolve": 2, "stem_fused": 1},
+                    "frozen served route, batch 8")
+    log(f"  launches from inside the programs, one batch of 8: default "
+        f"{report['default']['launches']}, served {report['served']['launches']}")
+    diffs = {name: compare_frozen(arrays, name, routes[name][1], f"frozen {name} route")
+             for name in routes}
+    recall_over_photos(lambda p: arrays[f"photo/{p}"], COMMITTED / "H",
+                       "frozen detect_image")
+    log("  e2e " + json.dumps({"frozen_max_float_diff": diffs,
+                               "meta_device": report["default"]["meta"].get("device_name")}))
+    return routes["default"][0]
+
+
+def run_cli(args: list, timeout: int = 600) -> str:
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=str(REPO),
+                          capture_output=True, text=True, timeout=timeout,
+                          env=dict(os.environ, PYTHONPATH=str(REPO)))
+    if proc.returncode != 0:
+        raise AssertionError(f"{args[0]} failed:\n{proc.stdout}\n{proc.stderr}")
+    return proc.stdout
+
+
+def eval_dir(out_dir: Path, ref_dir: Path, what: str) -> dict:
+    """``ctpn-torch-eval`` on a result directory: recall >= 0.75."""
+    score = json.loads(run_cli(["ctpn_tpu_torch.eval", str(out_dir), str(ref_dir)]))
+    log(f"  ctpn-torch-eval {what} against {ref_dir.relative_to(REPO)}: " + json.dumps(score))
+    if score["recall"] < 0.75:
+        raise AssertionError(f"{what}: recall {score['recall']} < 0.75")
+    return score
+
+
+def check_clis(served_artifact: Path) -> None:
+    """demo, eval, export --frozen and demo --frozen as subprocesses, then
+    the serve CLI on ``served_artifact`` (phase 9's default route, which
+    has the batch-8 programs of both buckets)."""
+    images = str(COMMITTED / "H")
+    t0 = time.perf_counter()
+    run_cli(["ctpn_tpu_torch.cli.demo", "--artifact", str(ARTIFACT),
+             "--images", images, "--output", str(OUT / "demo")])
+    written = sorted(p.name for p in (OUT / "demo").iterdir())
+    if len([n for n in written if n.startswith("res_")]) != len(PHOTOS) or \
+            len(written) != 2 * len(PHOTOS):
+        raise AssertionError(f"ctpn-torch-demo wrote {written}")
+    log(f"  ctpn-torch-demo: {len(written)} files in {time.perf_counter() - t0:.1f} s")
+    eval_dir(OUT / "demo", COMMITTED / "H", "ctpn-torch-demo")
+
+    frozen = OUT / "cli_frozen.npz"
+    t0 = time.perf_counter()
+    run_cli(["ctpn_tpu_torch.cli.export_model", "--artifact", str(ARTIFACT),
+             "--out", str(frozen), "--frozen", "--frozen-shapes",
+             ",".join("x".join(map(str, s)) for s in FROZEN_SHAPES if s[0] == 1)])
+    log(f"  ctpn-torch-export --frozen (batch-1 programs): "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    run_cli(["ctpn_tpu_torch.cli.demo", "--frozen", str(frozen),
+             "--images", images, "--output", str(OUT / "demo_frozen")])
+    log(f"  ctpn-torch-demo --frozen: {time.perf_counter() - t0:.1f} s")
+    eval_dir(OUT / "demo_frozen", COMMITTED / "H", "ctpn-torch-demo --frozen")
+
+    def post_each_bucket(port):
+        for photo in (PHOTOS[1], PHOTOS[0]):  # 608x912 (007), 912x608 (006)
+            status, out = post(f"http://127.0.0.1:{port}/detect", photo.read_bytes())
+            if status != 200 or out.get("count", 0) <= 0:
+                raise AssertionError(f"serve on the frozen artifact: {status} {out}")
+            log(f"  ctpn-torch-serve (frozen) {photo.name}: HTTP {status}, "
+                f"{out['count']} lines, image {out['image_shape']}")
+
+    t0 = time.perf_counter()
+    serve_subprocess(["--artifact", str(served_artifact), "--max-batch", "8"],
+                     post_each_bucket)
+    log(f"  ctpn-torch-serve on the frozen artifact: {time.perf_counter() - t0:.1f} s")
+
+
+def serve_subprocess(args: list, client) -> None:
+    """Start the serve CLI on port 0 with ``args``, call ``client(port)``
+    once it listens, then stop it."""
+    cmd = [sys.executable, "-m", "ctpn_tpu_torch.cli.serve", "--port", "0", *args]
     proc = subprocess.Popen(cmd, cwd=str(REPO), stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True,
                             env=dict(os.environ, PYTHONPATH=str(REPO)))
@@ -1188,11 +1519,7 @@ def check_cli() -> None:
                 port = int(line.split("listening on ")[1].split()[0].rsplit(":", 1)[1])
         if port is None:
             raise AssertionError("the serve CLI printed no listening line:\n" + "".join(seen))
-        status, out = post(f"http://127.0.0.1:{port}/detect", PHOTOS[-1].read_bytes())
-        if status != 200 or out.get("count", 0) <= 0:
-            raise AssertionError(f"serve CLI answered {status}: {out}")
-        log(f"  serve CLI on port {port}: HTTP {status}, {out['count']} lines "
-            f"for {PHOTOS[-1].name}")
+        client(port)
     finally:
         proc.send_signal(signal.SIGINT)
         try:
@@ -1209,9 +1536,10 @@ def main(argv=()) -> int:
         return 2
     from ctpn_tpu_torch.ops import _build
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()
-    log(f"[1/7] device: {torch.cuda.get_device_name(0)} | {card} | "
+    log(f"[1/11] device: {torch.cuda.get_device_name(0)} | {card} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     # a checkout from before the resolve kernel (timed with --kernels-only
@@ -1220,7 +1548,7 @@ def main(argv=()) -> int:
     t0 = time.perf_counter()
     logs = _build.build(["nms_fused", "nms_bitmask", "stem_fused"]
                         + ["nms_resolve"] * has_resolve)
-    log(f"[2/7] build: {time.perf_counter() - t0:.2f} s")
+    log(f"[2/11] build: {time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
         for line in text.splitlines():
             # registers, shared memory, spills, and ptxas's performance
@@ -1228,7 +1556,7 @@ def main(argv=()) -> int:
             if any(k in line for k in ("registers", "smem", "spill", "(C75")):
                 log(f"  {name}: {line.strip()}")
 
-    log("[3/7] kernels against their plain versions")
+    log("[3/11] kernels against their plain versions")
     entries = [check_nms_kernel(dev), check_bitmask_kernel(dev), check_stem_kernel(dev)]
     if has_resolve:
         entries.append(check_resolve_kernel(dev))
@@ -1241,19 +1569,35 @@ def main(argv=()) -> int:
     if not has_resolve:
         raise AssertionError("ctpn_tpu_torch/ops/csrc/nms_resolve.cu is missing")
 
-    log("[4/7] main path (default config)")
+    log("[4/11] main path (default config)")
     default_recs = drive_main_path(dev, entries[0])
 
-    log("[5/7] serving path (TPU.NMS_FUSED False, TPU.FUSED_STEM True)")
+    log("[5/11] serving path (TPU.NMS_FUSED False, TPU.FUSED_STEM True)")
     drive_serving_path(dev, entries[1], entries[3], entries[2], default_recs)
     for entry in entries:
         if not entry["launches"]:
             raise AssertionError(f"{entry['name']} was never launched on its path")
 
-    log("[6/7] serve CLI")
+    log("[6/11] serve CLI")
     check_cli()
 
-    log("[7/7] result")
+    shutil.rmtree(OUT, ignore_errors=True)
+    try:
+        log("[7/11] O mode")
+        drive_o_mode(dev)
+
+        log("[8/11] host post-processing (detect_image_host, H and O)")
+        drive_host_path(dev)
+
+        log("[9/11] frozen artifacts (default and served routes)")
+        frozen = drive_frozen(dev)
+
+        log("[10/11] CLIs: demo, eval, export --frozen, demo --frozen, serve frozen")
+        check_clis(frozen)
+    finally:
+        shutil.rmtree(OUT, ignore_errors=True)
+
+    log(f"[11/11] result (all phases {time.perf_counter() - t_start:.1f} s)")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,12 +9,18 @@ nor any module of ``ctpn_tpu``.
     ops/          anchors, box decode, greedy NMS (fused kernel, or the
                   suppression bitmask kernel and its resolve), the fused
                   VGG block 1, proposals; hand-written CUDA kernels under
-                  ops/csrc/, each beside its plain PyTorch version
+                  ops/csrc/, each a ``torch.library`` op (``ctpn_torch::``)
+                  beside its plain PyTorch version
     models/       VGG16 trunk + BiLSTM + CTPN heads (nn.Module)
-    postprocess/  H-mode text-line connector, detector, line-union pass
-    inference/    end-to-end predictor, stream_detect, stage breakdown
+    postprocess/  text-line connector (H and O modes), detector, line-union
+                  pass, the host oracle of the connector
+    inference/    end-to-end predictor (device or host post-processing),
+                  stream_detect, the frozen artifact, stage breakdown
     serving.py    HTTP server with micro-batching (cli/serve.py runs it)
-    utils/        image preprocessing, weight loading, device selection
+    cli/          serve, demo and export
+    eval.py       res_*.txt scoring (ctpn-torch-eval)
+    utils/        image preprocessing, weights (load, export, converters),
+                  host oracles, timer, device selection
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU; without a CUDA device they raise rather than fall back.

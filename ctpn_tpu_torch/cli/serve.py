@@ -16,7 +16,9 @@ import argparse
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--artifact", required=True, help=".npz weights artifact")
+    p.add_argument("--artifact", required=True,
+                   help=".npz weights artifact, or a frozen artifact "
+                        "(ctpn-torch-export --frozen)")
     p.add_argument("--host", default="127.0.0.1",
                    help="bind address (pass 0.0.0.0 to expose externally)")
     p.add_argument("--port", type=int, default=8000)

@@ -1,0 +1,331 @@
+"""Frozen inference artifact: exported detect programs + weights in ONE file
+(port of ``ctpn_tpu.inference.frozen``).
+
+The reference freezes its graph into `data/ctpn.pb`, which `demo_pb.py:66-75`
+runs without the model-building code. Here the whole detect program of
+``inference/pipeline.py::detect_program`` (uint8 batch -> mean subtract ->
+VGG16 -> BiLSTM -> heads -> proposal decode with its NMS -> NMS 0.2 ->
+connector) is traced by ``torch.export.export`` and stored as the bytes of
+``torch.export.save``, one program per exported (batch, height, width),
+with the weights stored once beside them in the same ``.npz``. The output
+ABI is a flat tuple of tensors, as in the JAX artifact:
+
+    (rois, roi_valid, roi_count, recs, line_valid, line_count)
+
+The weights are an input of every program (a dict of tensors in the
+order ``meta["param_names"]``), not state saved inside it, so three
+programs of VGG16 cost one copy of the weights.
+
+Loading needs ``torch``, ``numpy`` and ``ctpn_tpu_torch.ops``: no model
+code and no cfg. That is the one difference from the JAX artifact, whose
+Pallas kernel is inlined into its StableHLO. The hand-written kernels are
+``torch.library`` ops (``ctpn_torch::nms_keep_sorted_fused``,
+``suppression_bitmask``, ``nms_resolve``, ``fused_stem_block``): the
+program holds each as one node, and the op's registration in
+``ctpn_tpu_torch.ops`` gives it its kernel where the program runs, so an
+artifact exported on the card launches the same kernels as the live
+pipeline (and counts them in the same ``LAUNCHES``).
+
+The loader refuses an artifact exported for another device type (it never
+moves a program to the CPU quietly), a CUDA artifact without a CUDA device,
+an artifact of another torch major.minor version (``torch.export``'s
+format is tied to the version that wrote it), and the JAX package's
+StableHLO artifact. It runs the programs with TF32 matmuls off: the
+connector's least-squares sums need full f32, and a program does not carry
+the global precision flags that the live connector sets around itself.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+# the op registrations: a loaded program resolves its kernel nodes here
+from ctpn_tpu_torch.ops import nms_bitmask, nms_fused, nms_resolve, stem_fused  # noqa: F401
+from ctpn_tpu_torch.ops.proposal import Proposals
+from ctpn_tpu_torch.postprocess.connector import TextLines, full_f32_matmul
+from ctpn_tpu_torch.utils.device import resolve_device
+
+FORMAT = "ctpn-torch-frozen-v1"
+JAX_FORMAT = "ctpn-frozen-v1"  # ctpn_tpu's StableHLO artifact
+ABI = ("rois", "roi_valid", "roi_count", "recs", "line_valid", "line_count")
+
+
+def is_frozen(path: str) -> bool:
+    """True if ``path`` is a frozen artifact (an ``.npz`` with a ``__meta__``
+    entry, of either package) rather than a weights-only ``.npz``."""
+    if not path.endswith(".npz"):
+        return False
+    try:
+        with np.load(path) as z:
+            return "__meta__" in z.files
+    except (OSError, ValueError):
+        return False
+
+
+def _major_minor(version: str) -> Tuple[str, ...]:
+    return tuple(version.split("+")[0].split(".")[:2])
+
+
+class _DetectProgram(torch.nn.Module):
+    """The flat-ABI detect program over a parameter dict.
+
+    The model is held out of the module's state (in a list), so the
+    exported program takes the weights as its first input and saves none.
+    """
+
+    def __init__(self, model: torch.nn.Module, props_kw, lines_kw):
+        super().__init__()
+        self._model = [model]
+        self.props_kw = dict(props_kw)
+        self.lines_kw = dict(lines_kw)
+
+    def forward(self, params: Dict[str, torch.Tensor], images: torch.Tensor,
+                im_info: torch.Tensor):
+        from ctpn_tpu_torch.inference.pipeline import detect_program
+
+        model = self._model[0]
+
+        def net(x):
+            return torch.func.functional_call(model, params, (x,))
+
+        props, lines = detect_program(net, images, im_info, self.props_kw,
+                                      self.lines_kw)
+        return (props.rois, props.valid, props.count,
+                lines.recs, lines.valid, lines.count)
+
+
+def export_frozen(
+    params: Mapping[str, Any],
+    out_path: str,
+    shapes: Optional[Sequence[Tuple[int, int, int]]] = None,
+    mode: Optional[str] = None,
+    model: Optional[torch.nn.Module] = None,
+    dp_devices: Optional[int] = None,
+    device: Union[str, torch.device] = "cuda",
+) -> str:
+    """Export the full detect program + weights into ``out_path`` (.npz).
+
+    ``params`` is a JAX-layout parameter tree (as ``CTPNPredictor`` takes).
+    ``shapes``: (batch, bucket_h, bucket_w) triples; defaults to every
+    cfg.TPU.BUCKETS shape at batch 1 (the demo contract). The programs are
+    traced on ``device`` and run only on a device of its type. The cfg at
+    export time fixes the route (``TPU.NMS_FUSED``, ``TPU.FUSED_STEM``),
+    the compute dtype and every threshold inside the programs.
+    """
+    dev = resolve_device(device)
+    if dp_devices and dp_devices > 1:
+        raise NotImplementedError(
+            f"dp_devices={dp_devices}: the port runs on one card; data-"
+            "parallel programs wait for DDP (ROADMAP A9)"
+        )
+    from ctpn_tpu_torch.config import cfg
+    from ctpn_tpu_torch.inference.pipeline import lines_kwargs, proposal_kwargs
+    from ctpn_tpu_torch.models.factory import get_network
+    from ctpn_tpu_torch.utils.weights import params_from_jax
+
+    model = (model or get_network("VGGnet_test", dev)).to(dev).eval()
+    state = {k: v.to(dev) for k, v in params_from_jax(params).items()}
+    model.load_state_dict(state)  # checks names and shapes
+    mode = mode or cfg.TEST.DETECT_MODE
+    if shapes is None:
+        shapes = [(1, bh, bw) for bh, bw in cfg.TPU.BUCKETS]
+    program = _DetectProgram(model, proposal_kwargs(), lines_kwargs(mode))
+
+    blobs: Dict[str, np.ndarray] = {}
+    for n, bh, bw in shapes:
+        images = torch.zeros((n, bh, bw, 3), dtype=torch.uint8, device=dev)
+        info = torch.tensor([[bh, bw, 1.0]] * n, dtype=torch.float32, device=dev)
+        with torch.no_grad():
+            exported = torch.export.export(program, (state, images, info), strict=False)
+        exported.example_inputs = None  # else the archive keeps the weights too
+        buf = io.BytesIO()
+        torch.export.save(exported, buf)
+        blobs[f"program/{n}x{bh}x{bw}"] = np.frombuffer(buf.getvalue(), np.uint8)
+
+    meta = {
+        "format": FORMAT,
+        "abi": list(ABI),
+        "mode": mode,
+        "shapes": [list(s) for s in shapes],
+        "device": dev.type,
+        "param_names": list(state),
+        # the loader's detect_image applies the demo's double resize
+        # (`demo.py:21-25` then `test.py:18-24`) from these stored values:
+        # the artifact does not depend on the consumer's config
+        "text_scale": int(cfg.TEXT.SCALE),
+        "text_max_scale": int(cfg.TEXT.MAX_SCALE),
+        "test_scale": int(cfg.TEST.SCALES[0]),
+        "test_max_size": int(cfg.TEST.MAX_SIZE),
+        "torch_version": torch.__version__,
+    }
+    if dev.type == "cuda":
+        meta["device_name"] = torch.cuda.get_device_name(dev)
+        meta["compute_capability"] = list(torch.cuda.get_device_capability(dev))
+    arrays = {f"param/{k}": v.detach().cpu().numpy() for k, v in state.items()}
+    if not out_path.endswith(".npz"):
+        out_path += ".npz"
+    np.savez(out_path, __meta__=np.frombuffer(json.dumps(meta).encode(), np.uint8),
+             **blobs, **arrays)
+    return out_path
+
+
+class FrozenCTPN:
+    """Loader and runner of a frozen artifact, on ``device`` (default the
+    card; the artifact must have been exported for that device type)."""
+
+    def __init__(self, path: str, device: Union[str, torch.device] = "cuda"):
+        self.device = resolve_device(device)
+        with np.load(path) as z:
+            if "__meta__" not in z.files:
+                raise ValueError(f"{path}: not a frozen artifact (no __meta__)")
+            self.meta = json.loads(bytes(z["__meta__"]).decode())
+            fmt = self.meta.get("format")
+            if fmt == JAX_FORMAT:
+                raise ValueError(
+                    f"{path} is a frozen artifact of the JAX package (StableHLO "
+                    "programs), which the PyTorch port cannot run: re-export "
+                    "the weights with `ctpn-torch-export --frozen`"
+                )
+            if fmt != FORMAT:
+                raise ValueError(f"{path}: not a {FORMAT} artifact (format {fmt!r})")
+            wrote = self.meta["torch_version"]
+            if _major_minor(wrote) != _major_minor(torch.__version__):
+                raise RuntimeError(
+                    f"{path} was exported by torch {wrote}; this is torch "
+                    f"{torch.__version__}: re-export with this version "
+                    "(`ctpn-torch-export --frozen`)"
+                )
+            if self.meta["device"] != self.device.type:
+                raise RuntimeError(
+                    f"{path} was exported for device type "
+                    f"{self.meta['device']!r}, asked to run on "
+                    f"{self.device.type!r}: re-export on this device "
+                    "(`ctpn-torch-export --frozen --device ...`)"
+                )
+            self._params = {
+                name: torch.from_numpy(z[f"param/{name}"]).to(self.device)
+                for name in self.meta["param_names"]
+            }
+            self._blobs = {
+                tuple(int(d) for d in k.split("/")[1].split("x")): bytes(z[k])
+                for k in z.files if k.startswith("program/")
+            }
+        self._programs: Dict[Tuple[int, int, int], Any] = {}
+
+    @property
+    def shapes(self):
+        """Exported (batch, bucket_h, bucket_w) triples."""
+        return sorted(self._blobs)
+
+    def _program(self, key):
+        if key not in self._programs:
+            loaded = torch.export.load(io.BytesIO(self._blobs[key]))
+            self._programs[key] = loaded.module()
+        return self._programs[key]
+
+    def run_batch(self, images: np.ndarray, im_info: np.ndarray):
+        """(N, bh, bw, 3) uint8 BGR + (N, 3) im_info -> the flat ABI tuple
+        of tensors on the artifact's device (queued; fetch with ``.cpu()``)."""
+        key = (int(images.shape[0]), int(images.shape[1]), int(images.shape[2]))
+        if key not in self._blobs:
+            raise ValueError(
+                f"no exported program for shape {key}; artifact has "
+                f"{self.shapes}"
+            )
+        program = self._program(key)
+        x = torch.as_tensor(np.ascontiguousarray(images, np.uint8)).to(self.device)
+        info = torch.as_tensor(np.asarray(im_info, np.float32)).to(self.device)
+        with torch.inference_mode(), full_f32_matmul():
+            return tuple(program(self._params, x, info))
+
+    def detect_image(self, im_bgr: np.ndarray) -> np.ndarray:
+        """One uint8 BGR image -> (M, 9) line records in ORIGINAL coords.
+
+        Same double-resize + unscale contract as CTPNPredictor.detect_image
+        (`demo.py:47-60`), with the artifact's stored scales, padded into
+        one of its exported batch-1 buckets.
+        """
+        from ctpn_tpu_torch.inference.records import unscale_records
+        from ctpn_tpu_torch.utils.image import (pick_bucket, prep_image,
+                                                resize_factor, resize_im)
+
+        m = self.meta
+        resized, f1 = resize_im(im_bgr, m["text_scale"], m["text_max_scale"])
+        buckets = [(h, w) for n, h, w in self.shapes if n == 1]
+        if not buckets:
+            raise ValueError("artifact has no batch-1 program")
+        f2 = resize_factor(resized.shape[0], resized.shape[1],
+                           m["test_scale"], m["test_max_size"])
+        data, info, pad = prep_image(
+            resized, scale=m["test_scale"], max_scale=m["test_max_size"],
+            bucket=pick_bucket(int(resized.shape[0] * f2),
+                               int(resized.shape[1] * f2), buckets),
+        )
+        out = self.run_batch(data[None], info[None])
+        recs, count = out[3], out[5]
+        return unscale_records(recs[0].cpu().numpy(), int(count[0]), f1, info,
+                               y_off=pad)
+
+    def detect_path(self, path: str) -> np.ndarray:
+        from ctpn_tpu_torch.utils.image import load_image_bgr
+
+        return self.detect_image(load_image_bgr(path))
+
+
+class FrozenPredictor:
+    """CTPNPredictor-compatible facade over a frozen artifact.
+
+    Exposes the ``mode`` / ``device`` / ``run_batch`` / ``run_padded`` /
+    ``detect_image`` / ``warmup`` / ``buckets_run`` surface that
+    ``serving.py`` and ``inference/streaming.py`` drive, so a frozen file
+    deploys interchangeably with live weights. It runs only the exported
+    shapes: a max_batch-8 server needs ``--frozen-shapes 8x608x912,...``.
+    """
+
+    def __init__(self, frozen: FrozenCTPN, mode: Optional[str] = None):
+        self.frozen = frozen
+        if mode and mode != frozen.meta["mode"]:
+            raise ValueError(
+                f"artifact was frozen in mode {frozen.meta['mode']!r}; "
+                f"cannot serve mode {mode!r}: re-export"
+            )
+        self.mode = frozen.meta["mode"]
+        self.device = frozen.device
+        self.buckets_run: Dict[Tuple[int, int], None] = {}
+
+    def run_batch(self, images: np.ndarray, im_info: np.ndarray):
+        out = self.frozen.run_batch(images, im_info)
+        self.buckets_run.setdefault((int(images.shape[1]), int(images.shape[2])))
+        return Proposals(*out[:3]), TextLines(*out[3:])
+
+    def run_padded(self, images, infos, batch_size: int):
+        pad = batch_size - len(images)
+        stacked = np.stack(list(images) + [images[0]] * pad)
+        stacked_i = np.stack(list(infos) + [infos[0]] * pad)
+        return self.run_batch(stacked, stacked_i)
+
+    def detect_image(self, im_bgr: np.ndarray) -> np.ndarray:
+        return self.frozen.detect_image(im_bgr)
+
+    def warmup(self, bucket: Optional[Tuple[int, int]] = None, batch: int = 1):
+        """Run the exported programs once (all shapes at ``batch``, or one
+        bucket)."""
+        shapes = [s for s in self.frozen.shapes if s[0] == batch]
+        if bucket is not None:
+            shapes = [s for s in shapes if (s[1], s[2]) == tuple(bucket)]
+        if not shapes:
+            raise ValueError(
+                f"artifact has no batch-{batch} program"
+                + (f" for bucket {tuple(bucket)}" if bucket else "")
+                + f"; exported shapes: {self.frozen.shapes}"
+            )
+        for n, bh, bw in shapes:
+            img = np.full((n, bh, bw, 3), 128, np.uint8)
+            info = np.tile(np.array([bh, bw, 1.0], np.float32), (n, 1))
+            _, lines = self.run_batch(img, info)
+            lines.count.cpu()

@@ -3,9 +3,15 @@
 
 One batched pass per padded bucket: mean-subtract (on the device) -> VGG16
 -> BiLSTM -> heads -> proposal decode (fused NMS kernel) -> NMS 0.2 ->
-H-mode connector. Only the final padded line records go back to the host,
-where ``unscale_records`` trims them, applies the line-union pass and maps
-them to original image coordinates.
+connector (H or O mode). Only the final padded line records go back to the
+host, where ``unscale_records`` trims them, applies the line-union pass and
+maps them to original image coordinates. The same program
+(:func:`detect_program`) is what ``inference/frozen.py`` exports.
+
+``CTPNPredictor.detect_image_host`` is the other split, the reference's
+``demo_pb.py``: the card runs the network only, and the proposal decode and
+the connector run on the host (``utils/host_ref.py``,
+``postprocess/oracle.py``).
 """
 
 from __future__ import annotations
@@ -16,39 +22,23 @@ import numpy as np
 import torch
 
 from ctpn_tpu_torch.config import cfg
+from ctpn_tpu_torch.inference.records import unscale_records
 from ctpn_tpu_torch.models.ctpn import CTPN, CTPNOutputs
 from ctpn_tpu_torch.ops.proposal import Proposals, proposal_layer
 from ctpn_tpu_torch.postprocess.connector import TextLines
 from ctpn_tpu_torch.postprocess.detector import detect_lines
-from ctpn_tpu_torch.postprocess.merge import maybe_merge_line_records
 from ctpn_tpu_torch.utils.device import resolve_device
 from ctpn_tpu_torch.utils.image import load_image_bgr, prep_image, resize_im
 from ctpn_tpu_torch.utils.weights import params_from_jax
 
 
-def unscale_records(
-    recs: np.ndarray, count: int, f1: float, info, y_off: float = 0.0
-) -> np.ndarray:
-    """Trim padded line records, apply the (config-gated) scale-aware
-    line-union pass, and map boxes back to ORIGINAL image coords (the
-    demo's double-resize contract, `demo.py:47-51`).
-
-    ``y_off`` undoes prep_image's TOP_PAD shift (resized-frame pixels):
-    boxes move back up and clip at the true top edge."""
-    out = np.asarray(recs)[:count].astype(np.float64)
-    out = maybe_merge_line_records(out)
-    if y_off and len(out):
-        out[:, 1:8:2] = np.maximum(out[:, 1:8:2] - y_off, 0.0)
-    total_scale = f1 * float(info[2])
-    if len(out):
-        out[:, :8] /= total_scale
-    return out
-
-
-def forward_features(model: CTPN, images: torch.Tensor) -> CTPNOutputs:
+def forward_features(
+    model: Callable[[torch.Tensor], CTPNOutputs], images: torch.Tensor
+) -> CTPNOutputs:
     """Mean-subtract on the model's device, then the model forward.
 
     ``images``: (N, H, W, 3) uint8 (the wire format) or float32, BGR.
+    ``model`` is a ``CTPN`` or any callable with its forward's contract.
     """
     means = torch.tensor(cfg.PIXEL_MEANS, dtype=torch.float32, device=images.device)
     return model(images.float() - means)
@@ -68,10 +58,8 @@ def proposal_kwargs(
 
 def lines_kwargs(mode: str = "H", max_lines: Optional[int] = None) -> Dict[str, Any]:
     """``detect_lines`` settings from the cfg (TEXT connector constants)."""
-    if mode != "H":
-        raise NotImplementedError(
-            f"detect mode {mode!r}: only 'H' is ported (O mode is ROADMAP A7)"
-        )
+    if mode not in ("H", "O"):
+        raise ValueError(f"detect mode must be 'H' or 'O', got {mode!r}")
     t = cfg.TEXT
     return dict(
         mode=mode,
@@ -85,6 +73,34 @@ def lines_kwargs(mode: str = "H", max_lines: Optional[int] = None) -> Dict[str, 
         line_min_score=t.LINE_MIN_SCORE,
         min_width=float(t.TEXT_PROPOSALS_WIDTH * t.MIN_NUM_PROPOSALS),
     )
+
+
+def detect_program(
+    model: Callable[[torch.Tensor], CTPNOutputs],
+    images: torch.Tensor,
+    im_info: torch.Tensor,
+    props_kw: Mapping[str, Any],
+    lines_kw: Mapping[str, Any],
+    on_stage: Optional[Callable[[str], None]] = None,
+) -> Tuple[Proposals, TextLines]:
+    """The detect program: mean subtract, forward, proposals, lines.
+
+    Plain tensor code and the kernels' ops, with no host sync of its own,
+    so ``torch.export`` can trace it (``inference/frozen.py``).
+    """
+    mark = on_stage or (lambda name: None)
+    outs = forward_features(model, images)
+    mark("forward")
+    props = proposal_layer(outs.cls_prob, outs.bbox_pred, im_info, **props_kw)
+    mark("proposal_layer")
+    # chains advance >= 1 column per edge: the bucket's 16-px column
+    # count bounds path length (fewer closure squarings)
+    lines = detect_lines(
+        props.rois, props.valid, im_info,
+        max_chain_len=outs.cls_prob.shape[2], **lines_kw,
+    )
+    mark("detect_lines")
+    return props, lines
 
 
 def build_detect_fn(
@@ -104,22 +120,10 @@ def build_detect_fn(
     """
     props_kw = proposal_kwargs(pre_nms_top_n, post_nms_top_n)
     lines_kw = lines_kwargs(mode, max_lines)
-    mark = on_stage or (lambda name: None)
 
     @torch.inference_mode()
     def detect(images: torch.Tensor, im_info: torch.Tensor):
-        outs = forward_features(model, images)
-        mark("forward")
-        props = proposal_layer(outs.cls_prob, outs.bbox_pred, im_info, **props_kw)
-        mark("proposal_layer")
-        # chains advance >= 1 column per edge: the bucket's 16-px column
-        # count bounds path length (fewer closure squarings)
-        lines = detect_lines(
-            props.rois, props.valid, im_info,
-            max_chain_len=outs.cls_prob.shape[2], **lines_kw,
-        )
-        mark("detect_lines")
-        return props, lines
+        return detect_program(model, images, im_info, props_kw, lines_kw, on_stage)
 
     return detect
 
@@ -185,6 +189,38 @@ class CTPNPredictor:
 
     def detect_path(self, path: str) -> np.ndarray:
         return self.detect_image(load_image_bgr(path))
+
+    def detect_image_host(self, im_bgr: np.ndarray) -> np.ndarray:
+        """demo_pb.py parity mode: the card runs only the network up to the
+        head tensors; the proposal decode and the text connector run on the
+        host (NumPy oracles), like the reference's frozen-graph flow
+        (`demo_pb.py:73-98`). No NMS kernel launches."""
+        from ctpn_tpu_torch.ops.anchors import shifted_anchors
+        from ctpn_tpu_torch.postprocess.oracle import detect_np
+        from ctpn_tpu_torch.utils.host_ref import proposal_layer_np
+
+        resized, f1 = resize_im(im_bgr, cfg.TEXT.SCALE, cfg.TEXT.MAX_SCALE)
+        data, info, pad = prep_image(resized)
+        x = torch.as_tensor(data[None]).to(self.device)
+        with torch.inference_mode():
+            outs = forward_features(self.model, x)
+        th, tw = int(info[0]) // 16, int(info[1]) // 16
+        prob = outs.cls_prob[0, :th, :tw].cpu().numpy()
+        pred = outs.bbox_pred[0, :th, :tw].cpu().numpy()
+        blob = proposal_layer_np(
+            prob, pred, info, shifted_anchors(th, tw),
+            pre_nms_top_n=cfg.TEST.RPN_PRE_NMS_TOP_N,
+            post_nms_top_n=cfg.TEST.RPN_POST_NMS_TOP_N,
+            nms_thresh=cfg.TEST.RPN_NMS_THRESH,
+            min_size=cfg.TEST.RPN_MIN_SIZE,
+        )
+        recs = detect_np(
+            blob[:, 1:5].astype(np.float64),
+            blob[:, 0].astype(np.float64),
+            info,
+            mode=self.mode,
+        ).astype(np.float64)
+        return unscale_records(recs, len(recs), f1, info, y_off=pad)
 
     def warmup(self, bucket: Optional[Tuple[int, int]] = None, batch: int = 1):
         """Run once on a gray dummy batch (reference `demo.py:95-97`):

@@ -31,3 +31,30 @@ def get_network(name: str, device: Union[str, torch.device] = "cuda") -> CTPN:
         fused_stem=bool(cfg.TPU.FUSED_STEM) and name == "VGGnet_test",
     )
     return model.to(dev).eval()
+
+
+def init_params(seed: int = 0) -> dict:
+    """Random weights of ``VGGnet_test`` as a JAX-layout parameter tree
+    (nested numpy), drawn on the CPU from a ``torch.Generator`` seeded
+    ``seed``, so every device gets the same weights: kernels by PyTorch's
+    default ``kaiming_uniform_(a=sqrt(5))``, the recurrent weights
+    orthogonal, biases zero (flax's default)."""
+    import math
+
+    import torch.nn as nn
+
+    from ctpn_tpu_torch.utils.weights import params_to_jax
+
+    with torch.device("meta"):  # no draw from the global generator
+        model = CTPN(dtype=DTYPES[cfg.TPU.COMPUTE_DTYPE])
+    model = model.to_empty(device="cpu")
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(("w_h_fw", "w_h_bw")):
+                nn.init.orthogonal_(p, generator=gen)
+            elif p.ndim > 1:
+                nn.init.kaiming_uniform_(p, a=math.sqrt(5), generator=gen)
+            else:
+                p.zero_()
+    return params_to_jax(model.state_dict())

@@ -5,7 +5,8 @@ kernel behind ``suppression_bitmask_pallas``, ``pl.pallas_call`` at
 ``nms_pallas.py:129``), whose contract is ``ctpn_tpu/ops/nms.py::
 suppression_bitmask_jnp``.
 
-* :func:`suppression_bitmask` is the wrapper. A CUDA tensor launches the
+* :func:`suppression_bitmask` is the wrapper around the op
+  ``torch.ops.ctpn_torch.suppression_bitmask``. A CUDA tensor launches the
   hand-written kernel ``ops/csrc/nms_bitmask.cu`` (a CTA per 64 rows walks
   tiles of 1024 columns, lanes over columns: four compares per pair drop
   the pairs whose extents do not overlap, each lane runs the exact test on
@@ -89,25 +90,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn.restype = ctypes.c_int
 
 
-def suppression_bitmask(
-    boxes: torch.Tensor, valid: torch.Tensor, thresh: float
-) -> torch.Tensor:
-    """(B, N, ceil(N/32)) int32 suppression bitmask of score-sorted boxes.
-
-    boxes: (B, N, 4) f32; valid: (B, N) bool. CPU tensors run
-    :func:`suppression_bitmask_ref`; CUDA tensors launch the kernel (adding
-    one to ``suppression_bitmask.LAUNCHES``) or raise.
-    """
+def _launch(boxes: torch.Tensor, valid: torch.Tensor, thresh: float) -> torch.Tensor:
+    """The op's CUDA implementation: launch the kernel or raise."""
     _check(boxes, valid)
-    dev = boxes.device
-    if dev.type == "cpu":
-        return suppression_bitmask_ref(boxes, valid, thresh)
-    if dev.type != "cuda":
-        raise ValueError(f"suppression_bitmask: unsupported device {dev}")
     from ctpn_tpu_torch.ops import _build
 
     lib = _build.load("nms_bitmask")
     _declare(lib)
+    dev = boxes.device
     batch, n = valid.shape
     mask = torch.empty((batch, n, num_words(n)), dtype=torch.int32, device=dev)
     if batch == 0 or n == 0:
@@ -128,6 +118,37 @@ def suppression_bitmask(
         raise RuntimeError(f"nms_bitmask kernel launch failed: CUDA error {err}")
     suppression_bitmask.LAUNCHES += 1
     return mask
+
+
+# the op: one node in an exported program; the CPU kernel is the plain
+# version, the CUDA kernel launches the hand-written kernel or raises
+_lib = torch.library.Library("ctpn_torch", "FRAGMENT")
+_lib.define("suppression_bitmask(Tensor boxes, Tensor valid, float thresh) -> Tensor")
+_lib.impl("suppression_bitmask", suppression_bitmask_ref, "CPU")
+_lib.impl("suppression_bitmask", _launch, "CUDA")
+
+
+@torch.library.register_fake("ctpn_torch::suppression_bitmask", lib=_lib)
+def _fake(boxes, valid, thresh):
+    _check(boxes, valid)
+    batch, n = valid.shape
+    return boxes.new_empty((batch, n, num_words(n)), dtype=torch.int32)
+
+
+def suppression_bitmask(
+    boxes: torch.Tensor, valid: torch.Tensor, thresh: float
+) -> torch.Tensor:
+    """(B, N, ceil(N/32)) int32 suppression bitmask of score-sorted boxes.
+
+    boxes: (B, N, 4) f32; valid: (B, N) bool. Calls the op
+    ``torch.ops.ctpn_torch.suppression_bitmask``: CPU tensors run
+    :func:`suppression_bitmask_ref`; CUDA tensors launch the kernel (adding
+    one to ``suppression_bitmask.LAUNCHES``) or raise.
+    """
+    _check(boxes, valid)
+    if boxes.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"suppression_bitmask: unsupported device {boxes.device}")
+    return torch.ops.ctpn_torch.suppression_bitmask(boxes, valid, float(thresh))
 
 
 suppression_bitmask.LAUNCHES = 0

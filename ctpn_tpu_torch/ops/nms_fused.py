@@ -3,7 +3,9 @@
 Port of ``ctpn_tpu/ops/nms_fused.py::_fused_kernel`` (the Pallas TPU kernel
 behind ``nms_keep_sorted_fused``, ``pl.pallas_call`` at ``nms_fused.py:212``).
 
-* :func:`nms_keep_sorted_fused` is the wrapper. A CUDA tensor launches the
+* :func:`nms_keep_sorted_fused` is the wrapper around the op
+  ``torch.ops.ctpn_torch.nms_keep_sorted_fused`` (registered here, so that
+  ``torch.export`` keeps it as one node). A CUDA tensor launches the
   hand-written kernel ``ops/csrc/nms_fused.cu`` (a cluster of eight CTAs
   per image walks the 512-box blocks: the pair tests of a block are dealt
   over the cluster, one warp of the leader CTA resolves it exactly 32 boxes
@@ -132,28 +134,19 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn.restype = ctypes.c_int
 
 
-def nms_keep_sorted_fused(
+def _launch(
     boxes: torch.Tensor,
     valid: torch.Tensor,
     thresh: float,
-    max_keep: Optional[int] = None,
+    max_keep: Optional[int],
 ) -> torch.Tensor:
-    """Batched greedy-NMS keep mask, boxes pre-sorted by score descending.
-
-    boxes: (B, K, 4) f32; valid: (B, K) bool -> keep (B, K) bool. CPU
-    tensors run :func:`nms_keep_sorted_fused_ref`; CUDA tensors launch the
-    kernel (adding one to ``nms_keep_sorted_fused.LAUNCHES``) or raise.
-    """
+    """The op's CUDA implementation: launch the kernel or raise."""
     _check(boxes, valid)
-    dev = boxes.device
-    if dev.type == "cpu":
-        return nms_keep_sorted_fused_ref(boxes, valid, thresh, max_keep)
-    if dev.type != "cuda":
-        raise ValueError(f"nms_keep_sorted_fused: unsupported device {dev}")
     from ctpn_tpu_torch.ops import _build
 
     lib = _build.load("nms_fused")
     _declare(lib)
+    dev = boxes.device
     batch, k = valid.shape
     keep = torch.zeros((batch, k), dtype=torch.bool, device=dev)
     if batch == 0 or k == 0:
@@ -182,6 +175,44 @@ def nms_keep_sorted_fused(
         raise RuntimeError(f"nms_fused kernel launch failed: CUDA error {err}")
     nms_keep_sorted_fused.LAUNCHES += 1
     return keep
+
+
+# the op: one node in an exported program; the CPU kernel is the plain
+# version, the CUDA kernel launches the hand-written kernel or raises
+_lib = torch.library.Library("ctpn_torch", "FRAGMENT")
+_lib.define(
+    "nms_keep_sorted_fused(Tensor boxes, Tensor valid, float thresh, int? max_keep)"
+    " -> Tensor"
+)
+_lib.impl("nms_keep_sorted_fused", nms_keep_sorted_fused_ref, "CPU")
+_lib.impl("nms_keep_sorted_fused", _launch, "CUDA")
+
+
+@torch.library.register_fake("ctpn_torch::nms_keep_sorted_fused", lib=_lib)
+def _fake(boxes, valid, thresh, max_keep):
+    _check(boxes, valid)
+    return torch.empty_like(valid)
+
+
+def nms_keep_sorted_fused(
+    boxes: torch.Tensor,
+    valid: torch.Tensor,
+    thresh: float,
+    max_keep: Optional[int] = None,
+) -> torch.Tensor:
+    """Batched greedy-NMS keep mask, boxes pre-sorted by score descending.
+
+    boxes: (B, K, 4) f32; valid: (B, K) bool -> keep (B, K) bool. Calls the
+    op ``torch.ops.ctpn_torch.nms_keep_sorted_fused``: CPU tensors run
+    :func:`nms_keep_sorted_fused_ref`; CUDA tensors launch the kernel
+    (adding one to ``nms_keep_sorted_fused.LAUNCHES``) or raise.
+    """
+    _check(boxes, valid)
+    if boxes.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"nms_keep_sorted_fused: unsupported device {boxes.device}")
+    return torch.ops.ctpn_torch.nms_keep_sorted_fused(
+        boxes, valid, float(thresh), None if max_keep is None else int(max_keep)
+    )
 
 
 nms_keep_sorted_fused.LAUNCHES = 0

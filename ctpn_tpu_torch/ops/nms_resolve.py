@@ -6,7 +6,8 @@ Counterpart of ``ctpn_tpu/ops/nms.py::nms_fixed_point_blocked`` (lines
 inside), not a Pallas kernel: the JAX package resolves on the device in one
 program, and so does the port.
 
-* :func:`nms_resolve` is the wrapper. A CUDA tensor launches the
+* :func:`nms_resolve` is the wrapper around the op
+  ``torch.ops.ctpn_torch.nms_resolve``. A CUDA tensor launches the
   hand-written kernel ``ops/csrc/nms_resolve.cu`` (a thread-block cluster of
   up to eight CTAs per image walks the rows 32 at a time: each CTA owns a
   slice of the word columns, one warp of the slice's owner resolves a group
@@ -142,22 +143,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn.restype = ctypes.c_int
 
 
-def nms_resolve(mask: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """(B, N) bool greedy keep flags of a (B, N, ceil(N/32)) int32 bitmask.
-
-    CPU tensors run :func:`nms_fixed_point_blocked`; CUDA tensors launch the
-    kernel (adding one to ``nms_resolve.LAUNCHES``) or raise.
-    """
+def _launch(mask: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The op's CUDA implementation: launch the kernel or raise."""
     _check(mask, valid)
-    dev = mask.device
-    if dev.type == "cpu":
-        return nms_fixed_point_blocked(mask, valid)
-    if dev.type != "cuda":
-        raise ValueError(f"nms_resolve: unsupported device {dev}")
     from ctpn_tpu_torch.ops import _build
 
     lib = _build.load("nms_resolve")
     _declare(lib)
+    dev = mask.device
     batch, n = valid.shape
     keep = torch.empty((batch, n), dtype=torch.bool, device=dev)
     if batch == 0 or n == 0:
@@ -177,6 +170,33 @@ def nms_resolve(mask: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"nms_resolve kernel launch failed: CUDA error {err}")
     nms_resolve.LAUNCHES += 1
     return keep
+
+
+# the op: one node in an exported program; the CPU kernel is the plain
+# version, the CUDA kernel launches the hand-written kernel or raises
+_lib = torch.library.Library("ctpn_torch", "FRAGMENT")
+_lib.define("nms_resolve(Tensor mask, Tensor valid) -> Tensor")
+_lib.impl("nms_resolve", nms_fixed_point_blocked, "CPU")
+_lib.impl("nms_resolve", _launch, "CUDA")
+
+
+@torch.library.register_fake("ctpn_torch::nms_resolve", lib=_lib)
+def _fake(mask, valid):
+    _check(mask, valid)
+    return torch.empty_like(valid)
+
+
+def nms_resolve(mask: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """(B, N) bool greedy keep flags of a (B, N, ceil(N/32)) int32 bitmask.
+
+    Calls the op ``torch.ops.ctpn_torch.nms_resolve``: CPU tensors run
+    :func:`nms_fixed_point_blocked`; CUDA tensors launch the kernel (adding
+    one to ``nms_resolve.LAUNCHES``) or raise.
+    """
+    _check(mask, valid)
+    if mask.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"nms_resolve: unsupported device {mask.device}")
+    return torch.ops.ctpn_torch.nms_resolve(mask, valid)
 
 
 nms_resolve.LAUNCHES = 0

@@ -4,7 +4,8 @@ Port of ``ctpn_tpu/ops/stem_pallas.py::_stem_kernel`` (the Pallas TPU
 kernel behind ``fused_stem_block``, ``pl.pallas_call`` at
 ``stem_pallas.py:140``).
 
-* :func:`fused_stem_block` is the wrapper. A CUDA tensor launches the
+* :func:`fused_stem_block` is the wrapper around the op
+  ``torch.ops.ctpn_torch.fused_stem_block``. A CUDA tensor launches the
   hand-written kernel ``ops/csrc/stem_fused.cu`` (a persistent CTA per SM
   that holds w2 in shared memory; producer warps run conv1_1 on the SIMT
   cores into one of two swizzled conv1 tiles while two consumer warpgroups
@@ -13,7 +14,9 @@ kernel behind ``fused_stem_block``, ``pl.pallas_call`` at
   There is no fallback from one to the other.
 * :func:`pack_stem_weights` turns the four parameters into the kernel's
   layouts; :func:`packed_stem_weights` caches that per set of parameter
-  tensors, so a forward pass packs nothing.
+  tensors, so a forward pass packs nothing. The packing runs inside the
+  op's CUDA implementation, so an exported program carries the raw
+  parameters and packs them (once) where it runs.
 * :func:`fused_stem_block_ref` is the plain PyTorch version: f32 on
   bf16-rounded inputs and weights, rounding to bf16 where the kernel does
   (``tests/test_stem.py::_stock`` computes the same). conv1_2 is
@@ -179,24 +182,24 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn.restype = ctypes.c_int
 
 
-def fused_stem_block(
+def _out_like(x: torch.Tensor) -> torch.Tensor:
+    n, _, h, w = x.shape
+    return torch.empty(
+        (n, CH, h // 2, w // 2), dtype=torch.bfloat16, device=x.device,
+        memory_format=torch.channels_last,
+    )
+
+
+def _launch(
     x: torch.Tensor,
     w1: torch.Tensor,
     b1: torch.Tensor,
     w2: torch.Tensor,
     b2: torch.Tensor,
 ) -> torch.Tensor:
-    """VGG block 1, (N, 3, H, W) bf16 -> (N, 64, H/2, W/2) bf16 channels_last.
-
-    CPU tensors run :func:`fused_stem_block_ref`; CUDA tensors launch the
-    kernel (adding one to ``fused_stem_block.LAUNCHES``) or raise.
-    """
+    """The op's CUDA implementation: pack the weights (cached), launch the
+    kernel or raise."""
     _check(x, w1, b1, w2, b2)
-    dev = x.device
-    if dev.type == "cpu":
-        return fused_stem_block_ref(x, w1, b1, w2, b2)
-    if dev.type != "cuda":
-        raise ValueError(f"fused_stem_block: unsupported device {dev}")
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("fused_stem_block: x must be channels_last on CUDA")
     from ctpn_tpu_torch.ops import _build
@@ -204,14 +207,11 @@ def fused_stem_block(
     lib = _build.load("stem_fused")
     _declare(lib)
     n, _, h, w = x.shape
-    out = torch.empty(
-        (n, CH, h // 2, w // 2), dtype=torch.bfloat16, device=dev,
-        memory_format=torch.channels_last,
-    )
+    out = _out_like(x)
     if n == 0:
         return out
     w1k, b1k, w2k, b2k = packed_stem_weights(w1, b1, w2, b2)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(x.device):
         err = lib.ctpn_stem_fused(
             x.data_ptr(),
             w1k.data_ptr(),
@@ -222,12 +222,47 @@ def fused_stem_block(
             n,
             h,
             w,
-            torch.cuda.current_stream(dev).cuda_stream,
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"stem_fused kernel launch failed: CUDA error {err}")
     fused_stem_block.LAUNCHES += 1
     return out
+
+
+# the op: one node in an exported program; the CPU kernel is the plain
+# version, the CUDA kernel launches the hand-written kernel or raises
+_lib = torch.library.Library("ctpn_torch", "FRAGMENT")
+_lib.define(
+    "fused_stem_block(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2) -> Tensor"
+)
+_lib.impl("fused_stem_block", fused_stem_block_ref, "CPU")
+_lib.impl("fused_stem_block", _launch, "CUDA")
+
+
+@torch.library.register_fake("ctpn_torch::fused_stem_block", lib=_lib)
+def _fake(x, w1, b1, w2, b2):
+    _check(x, w1, b1, w2, b2)
+    return _out_like(x)
+
+
+def fused_stem_block(
+    x: torch.Tensor,
+    w1: torch.Tensor,
+    b1: torch.Tensor,
+    w2: torch.Tensor,
+    b2: torch.Tensor,
+) -> torch.Tensor:
+    """VGG block 1, (N, 3, H, W) bf16 -> (N, 64, H/2, W/2) bf16 channels_last.
+
+    Calls the op ``torch.ops.ctpn_torch.fused_stem_block``: CPU tensors run
+    :func:`fused_stem_block_ref`; CUDA tensors launch the kernel (adding one
+    to ``fused_stem_block.LAUNCHES``) or raise.
+    """
+    _check(x, w1, b1, w2, b2)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_stem_block: unsupported device {x.device}")
+    return torch.ops.ctpn_torch.fused_stem_block(x, w1, b1, w2, b2)
 
 
 fused_stem_block.LAUNCHES = 0

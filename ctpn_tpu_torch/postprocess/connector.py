@@ -1,4 +1,4 @@
-"""Vectorized text-line connector, H mode (port of
+"""Vectorized text-line connector, H and O modes (port of
 ``ctpn_tpu.postprocess.connector``), batched over images.
 
 The reference walks per-column Python lists
@@ -19,8 +19,11 @@ whole pipeline is fixed-shape tensor ops over the padded proposal set:
 5. **Per-chain least squares** — chain sums are rows of ``R @ F``; x is
    centered on the image before squaring. These matmuls run in true f32
    (TF32 off): the covariance form cancels leading digits.
-
-The oriented (``mode="O"``) connector is not ported yet (ROADMAP A7).
+6. **Records** — H mode: the axis-aligned box of the top and bottom fits,
+   clipped to the image. O mode: a quadrilateral around the fitted centre
+   line (half the mean proposal height + 1.25 on each side), its short
+   edges shifted along the line by the slope compensation; not clipped,
+   as in the reference.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ class TextLines(NamedTuple):
 
 
 @contextlib.contextmanager
-def _full_f32_matmul():
+def full_f32_matmul():
     """Float32 matmuls in full precision on the card (no TF32), restored
     on exit."""
     prev = torch.backends.cuda.matmul.allow_tf32
@@ -175,17 +178,15 @@ def connect_text_lines(
     """Group proposals into text lines and emit 9-float records.
 
     boxes: (N, P, 4), scores/valid: (N, P), im_info: (N, 3) [h, w, scale].
-    Records are [x0, y0, x1, y0, x0, y1, x1, y1, score], compacted in
-    ascending head index (the reference's emission order).
+    Records are [x0, y0, x1, y0, x0, y1, x1, y1, score] in H mode and the
+    quadrilateral [xa, ya, xb, yb, xc, yc, xd, yd, score] in O mode,
+    compacted in ascending head index (the reference's emission order).
     """
-    if mode != "H":
-        raise NotImplementedError(
-            f"connector mode {mode!r}: only 'H' is ported (O mode is "
-            "ROADMAP A7)"
-        )
+    if mode not in ("H", "O"):
+        raise ValueError(f"mode must be 'H' or 'O', got {mode!r}")
     n, p = scores.shape
     dev = boxes.device
-    with _full_f32_matmul():
+    with full_f32_matmul():
         succ = build_successors(
             boxes, scores, valid, max_gap, min_v_overlaps, min_size_sim
         )
@@ -195,32 +196,63 @@ def connect_text_lines(
         im_h, im_w = im_info[:, 0:1], im_info[:, 1:2]
         cnt = torch.clamp(r.sum(dim=2), min=1.0)
         xbar = im_w * 0.5
-        x1c = x1 - xbar
         member = r > 0.0
         inf = torch.tensor(float("inf"), device=dev)
         min_x1 = torch.where(member, x1[:, None, :], inf).min(dim=2).values
         max_x2 = torch.where(member, x2[:, None, :], -inf).max(dim=2).values
         mean_score = _rowdot(r, scores) / cnt
 
+        if mode == "H":
+            x1c = x1 - xbar
+            slope_t, mx_t, my_t, deg_t = _fit(r, cnt, x1c, y1)
+            slope_b, mx_b, my_b, deg_b = _fit(r, cnt, x1c, y2)
+        else:
+            cx = (x1 + x2) * 0.5
+            cy = (y1 + y2) * 0.5
+            k, mx_c, my_c, deg_c = _fit(r, cnt, cx - xbar, cy)
+            height = _rowdot(r, y2 - y1) / cnt + 2.5
+
+    if mode == "H":
         offset = (x2 - x1) * 0.5  # head proposal half width
-        slope_t, mx_t, my_t, deg_t = _fit(r, cnt, x1c, y1)
-        slope_b, mx_b, my_b, deg_b = _fit(r, cnt, x1c, y2)
+        x_left_c = min_x1 + offset - xbar
+        x_right_c = max_x2 - offset - xbar
+        lt_y = torch.where(deg_t, y1, my_t + slope_t * (x_left_c - mx_t))
+        rt_y = torch.where(deg_t, y1, my_t + slope_t * (x_right_c - mx_t))
+        lb_y = torch.where(deg_b, y2, my_b + slope_b * (x_left_c - mx_b))
+        rb_y = torch.where(deg_b, y2, my_b + slope_b * (x_right_c - mx_b))
 
-    x_left_c = min_x1 + offset - xbar
-    x_right_c = max_x2 - offset - xbar
-    lt_y = torch.where(deg_t, y1, my_t + slope_t * (x_left_c - mx_t))
-    rt_y = torch.where(deg_t, y1, my_t + slope_t * (x_right_c - mx_t))
-    lb_y = torch.where(deg_b, y2, my_b + slope_b * (x_left_c - mx_b))
-    rb_y = torch.where(deg_b, y2, my_b + slope_b * (x_right_c - mx_b))
+        # reference clips through other.clip_boxes before record assembly
+        lx0 = torch.minimum(torch.clamp(min_x1, min=0.0), im_w - 1.0)
+        lx1 = torch.minimum(torch.clamp(max_x2, min=0.0), im_w - 1.0)
+        ly0 = torch.minimum(torch.clamp(torch.minimum(lt_y, rt_y), min=0.0), im_h - 1.0)
+        ly1 = torch.minimum(torch.clamp(torch.maximum(lb_y, rb_y), min=0.0), im_h - 1.0)
+        recs = torch.stack(
+            [lx0, ly0, lx1, ly0, lx0, ly1, lx1, ly1, mean_score], dim=-1
+        )
+    else:
+        def center_y(x):  # degenerate chains take the node's own centre
+            return torch.where(deg_c, cy, my_c + k * (x - xbar - mx_c))
 
-    # reference clips through other.clip_boxes before record assembly
-    lx0 = torch.minimum(torch.clamp(min_x1, min=0.0), im_w - 1.0)
-    lx1 = torch.minimum(torch.clamp(max_x2, min=0.0), im_w - 1.0)
-    ly0 = torch.minimum(torch.clamp(torch.minimum(lt_y, rt_y), min=0.0), im_h - 1.0)
-    ly1 = torch.minimum(torch.clamp(torch.maximum(lb_y, rb_y), min=0.0), im_h - 1.0)
-    recs = torch.stack(
-        [lx0, ly0, lx1, ly0, lx0, ly1, lx1, ly1, mean_score], dim=-1
-    )
+        xa, ya = min_x1, center_y(min_x1) - height / 2
+        xb, yb = max_x2, center_y(max_x2) - height / 2
+        xc, yc = min_x1, center_y(min_x1) + height / 2
+        xd, yd = max_x2, center_y(max_x2) + height / 2
+        # slope compensation: the vertical half-height projected onto the
+        # centre line's direction shifts the short edges
+        dis_x = xb - xa
+        dis_y = yb - ya
+        width = torch.clamp(torch.sqrt(dis_x * dis_x + dis_y * dis_y), min=1e-6)
+        f1 = (yc - ya) * dis_y / width
+        ddx = torch.abs(f1 * dis_x / width)
+        ddy = torch.abs(f1 * dis_y / width)
+        neg = k < 0
+        recs = torch.stack([
+            torch.where(neg, xa - ddx, xa), torch.where(neg, ya + ddy, ya),
+            torch.where(neg, xb, xb + ddx), torch.where(neg, yb, yb + ddy),
+            torch.where(neg, xc, xc - ddx), torch.where(neg, yc, yc - ddy),
+            torch.where(neg, xd + ddx, xd), torch.where(neg, yd - ddy, yd),
+            mean_score,
+        ], dim=-1)
 
     # final filter (reference detectors.py:37-49)
     heights_f = (

@@ -39,20 +39,9 @@ import numpy as np
 import torch
 
 from ctpn_tpu_torch.config import cfg
+from ctpn_tpu_torch.inference.frozen import FrozenCTPN, FrozenPredictor, is_frozen
 from ctpn_tpu_torch.inference.pipeline import CTPNPredictor, unscale_records
 from ctpn_tpu_torch.utils.image import prep_image, resize_im, rgb_to_bgr
-
-
-def is_frozen(path: str) -> bool:
-    """True if ``path`` is a frozen artifact of the JAX package (an ``.npz``
-    with a ``__meta__`` entry) rather than a weights-only ``.npz``."""
-    if not path.endswith(".npz"):
-        return False
-    try:
-        with np.load(path) as z:
-            return "__meta__" in z.files
-    except Exception:
-        return False
 
 
 def _host(x) -> np.ndarray:
@@ -360,25 +349,32 @@ def serve(artifact: str, host: str = "127.0.0.1", port: int = 8000,
           window_ms: float = 5.0, warmup_buckets: bool = True,
           request_timeout_s: float = 120.0, verbose: bool = True,
           device: Union[str, torch.device] = "cuda") -> None:
-    """Build the predictor on ``device``, optionally warm every cfg bucket
-    at ``max_batch``, and serve until interrupted.
+    """Build the predictor on ``device``, optionally warm up at
+    ``max_batch``, and serve until interrupted.
 
-    ``artifact`` is a weights ``.npz`` (``utils.weights.load_params``).
+    ``artifact`` is a weights ``.npz`` (``utils.weights.load_params``) or a
+    frozen artifact of the port (``ctpn-torch-export --frozen``), which
+    needs a program per served shape (``--frozen-shapes
+    {max_batch}x<bucket>,...``); its warm-up runs every exported
+    ``max_batch`` program.
     """
     from ctpn_tpu_torch.utils.weights import load_params
 
     if is_frozen(artifact):
-        raise NotImplementedError(
-            f"{artifact} is a frozen artifact; the port serves weights "
-            "artifacts only (frozen artifacts are ROADMAP A8)"
-        )
-    predictor = CTPNPredictor(load_params(artifact, device=device), mode=mode,
-                              device=device)
+        predictor = FrozenPredictor(FrozenCTPN(artifact, device=device), mode=mode)
+        if verbose:
+            print(f"ctpn-torch-serve: frozen artifact, programs "
+                  f"{predictor.frozen.shapes}", flush=True)
+    else:
+        predictor = CTPNPredictor(load_params(artifact, device=device),
+                                  mode=mode, device=device)
     server = DetectionServer(
         predictor, host, port, max_batch, window_ms,
         request_timeout_s=request_timeout_s, verbose=verbose,
     )
-    if warmup_buckets:
+    if warmup_buckets and isinstance(predictor, FrozenPredictor):
+        predictor.warmup(batch=max_batch)  # all exported max_batch programs
+    elif warmup_buckets:
         for bh, bw in cfg.TPU.BUCKETS:
             if verbose:
                 print(f"warming bucket ({bh}, {bw}) at batch {max_batch}...",

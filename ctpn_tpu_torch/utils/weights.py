@@ -8,11 +8,21 @@ such a tree into this package's ``state_dict``: conv HWIO -> OIHW, Dense
 input projection as one ``(8*hidden, C)`` weight (forward gates are rows
 ``[0, 4*hidden)``, backward ``[4*hidden, 8*hidden)``) and its recurrent
 weights ``w_h_fw``/``w_h_bw`` in the ``h @ w_h`` layout ``(hidden, 4*hidden)``.
+:func:`params_to_jax` is the inverse.
+
+The pretrained-format converters are NumPy copies of the JAX package's
+(``ctpn_tpu/utils/weights.py``), on the JAX-layout tree as nested dicts of
+numpy arrays, so that ``--npy`` and ``--tf-vars`` give the same tree in
+both packages: :func:`load_pretrained_into` (``VGG_imagenet.npy`` or an
+``.npz`` artifact) and :func:`convert_tf_vars` (a ``{tf_name: array}``
+dump of the reference's TF1 checkpoint). :func:`export_params_npz` writes
+the shipped f16 ``.npz`` format that both packages' ``load_params`` read.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Tuple, Union
+import os.path as osp
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -76,3 +86,205 @@ def params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                 raise ValueError(f"unexpected kernel rank {t.ndim} at {key}")
         state[".".join(path)] = t.contiguous()
     return state
+
+
+def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """This package's ``CTPN`` ``state_dict`` -> the JAX parameter tree, a
+    nested dict of float32 numpy arrays (the inverse of
+    :func:`params_from_jax`): conv OIHW -> HWIO, ``Linear`` ``(out, in)``
+    -> Dense ``(in, out)``, ``trunk`` -> ``VGG16Trunk_0``."""
+    tree: Dict[str, Any] = {}
+    for name, t in state_dict.items():
+        path = name.split(".")
+        if path[0] == "trunk":
+            path[0] = _TRUNK_SCOPE
+        a = t.detach().to(torch.float32).cpu().numpy()
+        if path[-1] == "weight":
+            path[-1] = "kernel"
+            if a.ndim == 4:  # OIHW -> HWIO
+                a = a.transpose(2, 3, 1, 0)
+            elif a.ndim == 2:  # Linear (out, in) -> Dense (in, out)
+                a = a.T
+            else:
+                raise ValueError(f"unexpected weight rank {a.ndim} at {name}")
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(a)
+    return tree
+
+
+def export_params_npz(params: Mapping[str, Any], out_file: str,
+                      dtype=np.float16) -> str:
+    """Single-file compressed artifact (half precision by default), flat
+    ``a/b/c`` keys: the format of ``data/artifacts/ctpn_synth_f16.npz``,
+    read by :func:`load_params` and by the JAX package's ``load_params``.
+    ``params`` is a JAX-layout tree, nested or flat."""
+    flat = {
+        k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+            else np.asarray(v)).astype(dtype)
+        for k, v in _flatten(params)
+    }
+    bad = [k for k, v in flat.items()
+           if v.size and not np.all(np.isfinite(v.astype(np.float32)))]
+    if bad:
+        raise ValueError(
+            f"non-finite values after {np.dtype(dtype).name} cast "
+            f"(overflow past the format's range?) in: {bad[:5]}"
+        )
+    np.savez_compressed(out_file, **flat)
+    return osp.abspath(out_file)
+
+
+def _tree_copy(params: Mapping[str, Any]) -> Dict[str, Any]:
+    """Nested-dict copy of a JAX-layout tree with numpy leaves."""
+    out: Dict[str, Any] = {}
+    for k, v in params.items():
+        out[k] = _tree_copy(v) if isinstance(v, Mapping) else np.array(v)
+    return out
+
+
+def _set_in(params: Dict, path, value) -> bool:
+    """Set params[path...] = value if the leaf exists and shapes match."""
+    node = params
+    for p in path[:-1]:
+        if p not in node:
+            return False
+        node = node[p]
+    leaf = path[-1]
+    if leaf not in node:
+        return False
+    if tuple(node[leaf].shape) != tuple(value.shape):
+        raise ValueError(
+            f"shape mismatch for {'/'.join(path)}: "
+            f"{node[leaf].shape} vs {value.shape}"
+        )
+    node[leaf] = np.asarray(value, dtype=node[leaf].dtype)
+    return True
+
+
+def _trunk_scope(params: Mapping[str, Any]) -> Optional[str]:
+    for k in params:
+        if k.startswith("VGG16Trunk"):
+            return k
+    return None
+
+
+def load_pretrained_into(params: Mapping[str, Any], npy_path: str,
+                         ignore_missing: bool = True) -> Dict[str, Any]:
+    """Assign ``VGG_imagenet.npy``-style weights into the nested JAX-layout
+    tree; returns a new tree.
+
+    The .npy holds ``{layer: {"weights": w, "biases": b}}`` with HWIO conv
+    kernels. Layers that do not exist in the model (fc6/fc7/fc8 classifier
+    heads) are skipped, mirroring ``ignore_missing=True``. An ``.npz``
+    artifact is also accepted: its leaves share the tree's paths, so the
+    overlay is exact. Orbax directories need the solver of ROADMAP A9.
+    """
+    if osp.isdir(npy_path):
+        raise ValueError(
+            f"{npy_path}: orbax artifact directories are not read by the port "
+            "yet (ROADMAP A9); pass an .npz artifact"
+        )
+    if npy_path.endswith(".npz"):
+        target = _tree_copy(params)
+        applied = 0
+        with np.load(npy_path) as donor:
+            for key in donor.files:
+                value = donor[key].astype(np.float32)
+                if _set_in(target, tuple(key.split("/")), value):
+                    applied += 1
+                elif not ignore_missing:
+                    raise KeyError(f"artifact leaf {key} not found in model")
+        if applied == 0:
+            raise ValueError(
+                f"artifact {npy_path} applied zero leaves to the model tree "
+                "(structure mismatch?)"
+            )
+        return target
+    params = _tree_copy(params)
+    data = np.load(npy_path, allow_pickle=True, encoding="latin1").item()
+    trunk = _trunk_scope(params)
+    loaded = []
+    for layer, vars_ in data.items():
+        w = vars_.get("weights")
+        b = vars_.get("biases")
+        targets = []
+        if trunk and layer in params.get(trunk, {}):
+            targets = [(trunk, layer)]
+        elif layer in params:
+            targets = [(layer,)]
+        if not targets:
+            if not ignore_missing:
+                raise KeyError(f"layer {layer} not found in model")
+            continue
+        scope = targets[0]
+        if w is not None and w.ndim in (2, 4):
+            _set_in(params, (*scope, "kernel"), w)
+        if b is not None:
+            _set_in(params, (*scope, "bias"), b)
+        loaded.append(layer)
+    if not loaded and not ignore_missing:
+        raise ValueError("no layers loaded")
+    return params
+
+
+def convert_tf_vars(params: Mapping[str, Any], tf_vars: Mapping[str, np.ndarray],
+                    hidden: int = 128) -> Dict[str, Any]:
+    """Map reference TF1 CTPN variables onto the nested JAX-layout tree;
+    returns a new tree.
+
+    Expected names (as found in the reference graph/checkpoint):
+      ``conv*_*/weights|biases``, ``rpn_conv/3x3/weights|biases``,
+      ``lstm_o/bidirectional_rnn/fw/lstm_cell/kernel|bias`` (and ``bw``),
+      ``lstm_o/weights|biases`` (the 256->512 projection),
+      ``rpn_bbox_pred/weights|biases``, ``rpn_cls_score/weights|biases``.
+    """
+    params = _tree_copy(params)
+    trunk = _trunk_scope(params)
+
+    def get(name):
+        return tf_vars.get(name)
+
+    for layer in list(params.get(trunk, {})):
+        w, b = get(f"{layer}/weights"), get(f"{layer}/biases")
+        if w is not None:
+            _set_in(params, (trunk, layer, "kernel"), w)
+        if b is not None:
+            _set_in(params, (trunk, layer, "bias"), b)
+
+    w = get("rpn_conv/3x3/weights")
+    b = get("rpn_conv/3x3/biases")
+    if w is not None:
+        _set_in(params, ("rpn_conv", "kernel"), w)
+    if b is not None:
+        _set_in(params, ("rpn_conv", "bias"), b)
+
+    fw_k = get("lstm_o/bidirectional_rnn/fw/lstm_cell/kernel")
+    bw_k = get("lstm_o/bidirectional_rnn/bw/lstm_cell/kernel")
+    fw_b = get("lstm_o/bidirectional_rnn/fw/lstm_cell/bias")
+    bw_b = get("lstm_o/bidirectional_rnn/bw/lstm_cell/bias")
+    if fw_k is not None and bw_k is not None:
+        c = fw_k.shape[0] - hidden
+        in_proj = np.concatenate([fw_k[:c], bw_k[:c]], axis=1)  # (C, 8H)
+        _set_in(params, ("bilstm", "input_proj", "kernel"), in_proj)
+        _set_in(
+            params, ("bilstm", "input_proj", "bias"),
+            np.concatenate([fw_b, bw_b]),
+        )
+        _set_in(params, ("bilstm", "w_h_fw"), fw_k[c:])
+        _set_in(params, ("bilstm", "w_h_bw"), bw_k[c:])
+
+    w, b = get("lstm_o/weights"), get("lstm_o/biases")
+    if w is not None:
+        _set_in(params, ("bilstm", "out_proj", "kernel"), w)
+    if b is not None:
+        _set_in(params, ("bilstm", "out_proj", "bias"), b)
+
+    for head in ("rpn_bbox_pred", "rpn_cls_score"):
+        w, b = get(f"{head}/weights"), get(f"{head}/biases")
+        if w is not None:
+            _set_in(params, (head, "kernel"), w)
+        if b is not None:
+            _set_in(params, (head, "bias"), b)
+    return params

@@ -157,9 +157,17 @@ def test_detect_lines_matches_jax():
 
 
 def test_o_mode_not_ported():
-    with pytest.raises(NotImplementedError, match="A7"):
-        TC.connect_text_lines(
-            torch.zeros((1, 4, 4)), torch.zeros((1, 4)),
-            torch.zeros((1, 4), dtype=torch.bool),
-            torch.tensor([[64.0, 64.0, 1.0]]), mode="O",
-        )
+    """O mode is ported now: ``mode="O"`` runs and matches the JAX
+    connector on a small case (the O-mode cases are in
+    tests/test_torch_connector_o.py)."""
+    _, (b, s, v) = _batch([6, 7], slope=0.08)
+    info = np.tile(np.array([600, 900, 1.0], np.float32), (2, 1))
+    got = TC.connect_text_lines(
+        torch.from_numpy(b), torch.from_numpy(s), torch.from_numpy(v),
+        torch.from_numpy(info), mode="O", max_lines=32,
+    )
+    want = jax.vmap(lambda bb, ss, vv, ii: JC.connect_text_lines(
+        bb, ss, vv, ii, mode="O", max_lines=32))(
+        jnp.asarray(b), jnp.asarray(s), jnp.asarray(v), jnp.asarray(info))
+    np.testing.assert_array_equal(got.count.numpy(), np.asarray(want.count))
+    np.testing.assert_allclose(got.recs.numpy(), np.asarray(want.recs), atol=1e-3, rtol=1e-5)

@@ -45,11 +45,15 @@ def test_package_imports_no_jax_and_no_ctpn_tpu():
     ).stdout.splitlines()
     assert int(out[0]) == len(_module_names()) >= 15
     assert out[1] == "", f"forbidden modules imported: {out[1]}"
-    # the walk covers the serving slice's modules
+    # the walk covers the serving slice's modules and the rest of inference
     assert {
         "ctpn_tpu_torch.serving", "ctpn_tpu_torch.cli.serve",
         "ctpn_tpu_torch.inference.streaming", "ctpn_tpu_torch.ops.nms_bitmask",
-        "ctpn_tpu_torch.ops.stem_fused",
+        "ctpn_tpu_torch.ops.stem_fused", "ctpn_tpu_torch.inference.frozen",
+        "ctpn_tpu_torch.inference.records", "ctpn_tpu_torch.cli.demo",
+        "ctpn_tpu_torch.cli.export_model", "ctpn_tpu_torch.eval",
+        "ctpn_tpu_torch.utils.host_ref", "ctpn_tpu_torch.utils.timer",
+        "ctpn_tpu_torch.postprocess.oracle",
     } <= set(_module_names())
 
 
@@ -78,16 +82,26 @@ def test_sources_name_no_forbidden_import():
 
 
 _NO_CUDA = """
+import contextlib, io
 import torch
 assert not torch.cuda.is_available()
 from ctpn_tpu_torch.utils.weights import load_params
 from ctpn_tpu_torch.inference.pipeline import CTPNPredictor
 from ctpn_tpu_torch.models.factory import get_network
-params = load_params("data/artifacts/ctpn_synth_f16.npz", device="cpu")
+from ctpn_tpu_torch.inference.frozen import FrozenCTPN, export_frozen
+from ctpn_tpu_torch.cli import demo, export_model
+art = "data/artifacts/ctpn_synth_f16.npz"
+params = load_params(art, device="cpu")
 for call in (lambda: CTPNPredictor(params), lambda: get_network("VGGnet_test"),
-             lambda: load_params("data/artifacts/ctpn_synth_f16.npz")):
+             lambda: load_params(art), lambda: FrozenCTPN("unused.npz"),
+             lambda: export_frozen(params, "unused.npz"),
+             lambda: demo.main(["--artifact", art, "--output", "unused"]),
+             lambda: demo.main(["--frozen", "unused.npz", "--output", "unused"]),
+             lambda: export_model.main(["--artifact", art, "--out", "unused.npz",
+                                        "--frozen"])):
     try:
-        call()
+        with contextlib.redirect_stdout(io.StringIO()):  # the CLIs' progress lines
+            call()
     except RuntimeError as e:
         assert "device='cpu'" in str(e), e
     else:

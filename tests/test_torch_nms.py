@@ -234,7 +234,7 @@ def test_wrapper_rejects_bad_inputs(rng):
         nms_keep_sorted_fused(b[0], torch.ones((10,), dtype=torch.bool), 0.5)
 
 
-def test_bitmask_nms_not_ported_raises(rng):
+def test_bitmask_route_matches_fused_route(rng):
     """The bitmask route is ported now and no longer raises: ``TPU.NMS_FUSED
     = False`` selects the bitmask kernel and the blocked resolve, which give
     the same keep mask as the fused route when nothing is capped."""

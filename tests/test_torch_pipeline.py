@@ -63,9 +63,9 @@ def rows_match(a, b, atol):
         used[j] = True
 
 
-def _compare(images):
-    jax_pred = JaxPredictor(jax_load_params(ARTIFACT), mode="H")
-    pred = CTPNPredictor(load_params(ARTIFACT, device="cpu"), device="cpu")
+def _compare(images, mode="H"):
+    jax_pred = JaxPredictor(jax_load_params(ARTIFACT), mode=mode)
+    pred = CTPNPredictor(load_params(ARTIFACT, device="cpu"), mode=mode, device="cpu")
     total = 0
     for im in images:
         want = jax_pred.detect_image(im)
@@ -92,5 +92,12 @@ def test_detect_image_matches_jax_full_bucket():
 
 
 def test_o_mode_not_ported():
-    with pytest.raises(NotImplementedError, match="A7"):
-        CTPNPredictor(load_params(ARTIFACT, device="cpu"), mode="O", device="cpu")
+    """O mode is ported now: ``CTPNPredictor(mode="O").detect_image``
+    matches the JAX package's O-mode ``detect_image`` on a small render."""
+    _set_both({
+        "TPU.COMPUTE_DTYPE": "float32",
+        "TPU.BUCKETS": [[192, 288]],
+        "TEXT.SCALE": 192, "TEXT.MAX_SCALE": 288,
+        "TEST.SCALES": (192,), "TEST.MAX_SIZE": 288,
+    })
+    _compare(_renders(11, 2, 432, 288), mode="O")

@@ -291,14 +291,44 @@ def test_bad_requests(server):
     assert ei.value.code == 404
 
 
-def test_serve_refuses_frozen_artifact(tmp_path):
-    from ctpn_tpu_torch.serving import is_frozen, serve
+def test_serve_refuses_frozen_artifact(tmp_path, rng, monkeypatch):
+    """``serve`` refuses the JAX package's frozen artifact (StableHLO, with
+    a pointer to ``ctpn-torch-export --frozen``) and serves the port's: a
+    ``FrozenPredictor`` warmed on its max-batch program answers a POST."""
+    from ctpn_tpu_torch import serving
+    from ctpn_tpu_torch.inference.frozen import FrozenPredictor, export_frozen
+    from ctpn_tpu_torch.utils.weights import load_params
 
-    frozen = tmp_path / "frozen.npz"
-    np.savez(frozen, __meta__=np.zeros(1))
-    assert is_frozen(str(frozen)) and not is_frozen(ARTIFACT)
-    with pytest.raises(NotImplementedError, match="A8"):
-        serve(str(frozen), device="cpu")
+    jax_frozen = tmp_path / "jax_frozen.npz"
+    meta = json.dumps({"format": "ctpn-frozen-v1", "platforms": ["cpu"]})
+    np.savez(jax_frozen, __meta__=np.frombuffer(meta.encode(), np.uint8))
+    assert serving.is_frozen(str(jax_frozen)) and not serving.is_frozen(ARTIFACT)
+    with pytest.raises(ValueError, match="ctpn-torch-export --frozen"):
+        serving.serve(str(jax_frozen), device="cpu", verbose=False)
+
+    port_frozen = export_frozen(load_params(ARTIFACT, device="cpu"),
+                                str(tmp_path / "frozen.npz"),
+                                shapes=[(2, 64, 96)], device="cpu")
+    seen = {}
+
+    class OnePost(serving.DetectionServer):
+        """Serves one POST on a thread, then returns: ``serve`` shuts down."""
+
+        def serve_forever(self):
+            t = threading.Thread(target=super(OnePost, self).serve_forever, daemon=True)
+            t.start()
+            seen["predictor"] = self.predictor
+            seen["warm"] = dict(self.predictor.buckets_run)
+            seen["post"] = _post(_url(self, "/detect"), _jpeg_bytes(rng))
+
+    monkeypatch.setattr(serving, "DetectionServer", OnePost)
+    serving.serve(port_frozen, port=0, max_batch=2, device="cpu", verbose=False)
+    assert isinstance(seen["predictor"], FrozenPredictor)
+    assert seen["warm"] == {(64, 96): None}  # the batch-2 program ran at warm-up
+    status, out = seen["post"]
+    assert status == 200 and out["count"] == len(out["boxes"])
+    with pytest.raises(ValueError, match="mode"):
+        serving.serve(port_frozen, mode="O", device="cpu", verbose=False)
 
 
 def test_cli_serves_on_cpu(rng):
