@@ -2,7 +2,9 @@
 """Smoke run of the PyTorch port on one CUDA card: builds the kernels,
 holds each against its plain PyTorch version, drives every inference path
 (the default and served routes, O mode, host post-processing, frozen
-artifacts, the CLIs), and checks what comes out.
+artifacts, the CLIs) and the training path (the train step against the
+CPU, full-width steps, the solver, the data, train and export CLIs), and
+checks what comes out.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only
@@ -81,7 +83,26 @@ Phases (any failure exits non-zero and prints no result line):
     --frozen`` (batch-1 programs) then ``ctpn-torch-demo --frozen``, scored
     the same; ``ctpn-torch-serve`` on phase 9's default artifact answers
     one POST per bucket.
-11. prints one ``{"kernels": [...]}`` line (four kernels), the card line,
+11. training parity: one Adam step at full VGG16 width on 2x256x384, f32
+    compute with TF32 off, on the card and on the CPU from the same
+    parameters (``init_params``), batch and anchor-target draws:
+    anchor-target labels identical, ``bbox_targets`` within 1e-5, total
+    loss and raw gradient norm within 1e-4 relative, the update within
+    1e-3 * lr wherever the CPU gradient exceeds 1e-6 (2 * lr below it,
+    where rounding decides the sign Adam steps by).
+12. full-size steps: 608x912, bf16, Adam, batch 1 and 2, ``TPU.REMAT``
+    off and on: ms per step and peak ``max_memory_allocated``; REMAT must
+    give plain's loss and update (as in phase 11) at a lower peak. Phases
+    11-12 launch none of the four kernels.
+13. training entry points, in a temporary ``ROOT_DIR``: the port's
+    ``synth.generate_dataset``, ``ctpn-torch-prepare --link``, 30 steps of
+    ``SolverWrapper`` on one image (the mean model loss of the last 5 below
+    that of the first 5), ``ctpn-torch-train`` for 10 steps with a snapshot
+    at 5, ``--restore`` to 20 (first logged iteration 11), ``ctpn-torch-export
+    --ckpt``, ``ctpn-torch-demo`` on the export: 2 fused-NMS launches per
+    photo plus 2 for its warm-up, no other kernel; the training runs launch
+    none.
+14. prints one ``{"kernels": [...]}`` line (four kernels), the card line,
     and last ``{"ok": true, "device": {...}}``.
 
 Every recall gate counts lines as ``ctpn-torch-eval`` does
@@ -1530,6 +1551,387 @@ def serve_subprocess(args: list, client) -> None:
         reader.join(timeout=10)
 
 
+# ---------------------------------------------------------------- training
+
+TRAIN_PARITY_BUCKET = (256, 384)
+TRAIN_BUCKET = (608, 912)
+TRAIN_OUT = REPO / "output" / "chip_smoke_train"  # git-ignored; removed at the end
+
+
+def train_arrays(seed: int, n: int, bucket: tuple) -> list:
+    """``n`` scenes of the port's synthetic renderer filling ``bucket``, with
+    their ground truth cut into 16-px strips as ``ctpn-torch-prepare`` cuts
+    it: the seven arrays of a training ``Batch``."""
+    from ctpn_tpu_torch.config import cfg
+    from ctpn_tpu_torch.data.prepare import split_polygon_to_strips
+    from ctpn_tpu_torch.data.synth import render_image
+
+    rng = np.random.RandomState(seed)
+    h, w = bucket
+    max_gt, max_dc = cfg.TPU.MAX_GT, cfg.TPU.MAX_DONTCARE
+    images = np.zeros((n, h, w, 3), np.uint8)
+    gt = np.zeros((n, max_gt, 4), np.float32)
+    valid = np.zeros((n, max_gt), bool)
+    for i in range(n):
+        strips = []
+        while not strips:  # a scene may come out without text: draw again
+            rgb, polys = render_image(rng, width=w, height=h)
+            strips = [s for p in polys
+                      for s in split_polygon_to_strips([int(v) for v in p], h, w)]
+        images[i] = rgb[..., ::-1]  # BGR, as load_image_bgr gives
+        strips = strips[:max_gt]
+        gt[i, :len(strips)] = strips
+        valid[i, :len(strips)] = True
+    return [images, np.tile(np.array([h, w, 1.0], np.float32), (n, 1)), gt, valid,
+            np.zeros((n, max_gt), bool), np.zeros((n, max_dc, 4), np.float32),
+            np.zeros((n, max_dc), bool)]
+
+
+def fresh_train_model(dev, state_dict: dict):
+    """The training network (``get_network("VGGnet_train")``) on ``dev``
+    with ``state_dict`` loaded, in train mode."""
+    from ctpn_tpu_torch.models.factory import get_network
+
+    model = get_network("VGGnet_train", device=dev)
+    model.load_state_dict(state_dict)
+    return model.train()
+
+
+def step_record(model, before: list, metrics: dict) -> dict:
+    """What a compared step leaves: its metrics, the update and the raw
+    gradients, flattened on the CPU."""
+    return dict(metrics={k: float(v) for k, v in metrics.items()},
+                delta=torch.cat([(p.detach() - b).flatten().cpu()
+                                 for p, b in zip(model.parameters(), before)]),
+                grad=torch.cat([p.grad.flatten().cpu() for p in model.parameters()]))
+
+
+def compare_updates(ref: dict, other: dict, lr: float, what: str) -> tuple:
+    """Adam's first step moves each parameter by about lr * sign(g): the
+    updates must agree within 1e-3 * lr wherever the reference gradient
+    exceeds 1e-6, and within 2 * lr (any sign) where rounding noise decides
+    it. Returns (worst difference, worst among the noisy, noisy count)."""
+    noisy = ref["grad"].abs() <= 1e-6
+    diff = (ref["delta"] - other["delta"]).abs()
+    worst = float(diff[~noisy].max())
+    worst_noisy = float(diff[noisy].max()) if noisy.any() else 0.0
+    if worst > 1e-3 * lr or worst_noisy > 2 * lr:
+        raise AssertionError(f"{what}: updates differ by {worst} (|g| > 1e-6), "
+                             f"{worst_noisy} (|g| <= 1e-6), lr {lr}")
+    return worst, worst_noisy, int(noisy.sum())
+
+
+def check_train_parity(dev) -> dict:
+    """One full-width Adam step on the card and on the CPU from the same
+    parameters (``init_params``), batch and draws, float32 compute with
+    TF32 off: anchor-target labels identical, targets within 1e-5, total
+    loss and raw gradient norm within 1e-4 relative; the update within
+    1e-3 * lr on every element whose CPU gradient exceeds 1e-6 (below that,
+    rounding noise decides the sign Adam steps by; those are held to
+    2 * lr and counted)."""
+    from ctpn_tpu_torch.config import cfg, reset_cfg
+    from ctpn_tpu_torch.models.factory import init_params
+    from ctpn_tpu_torch.ops.anchor_target import anchor_target_layer, num_anchors
+    from ctpn_tpu_torch.training.train_step import (
+        Batch,
+        build_train_step,
+        create_train_state,
+        target_kwargs,
+    )
+    from ctpn_tpu_torch.utils.weights import params_from_jax
+
+    reset_cfg()
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.TRAIN.SOLVER, cfg.TRAIN.LEARNING_RATE = "Adam", 1e-4
+    lr = cfg.TRAIN.LEARNING_RATE
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    h, w = TRAIN_PARITY_BUCKET
+    fh, fw = h // 16, w // 16
+    arrays = train_arrays(11, 2, (h, w))
+    state_dict = params_from_jax(init_params(cfg.RNG_SEED))
+    draws = torch.rand((2, 2, num_anchors(fh, fw)),
+                       generator=torch.Generator().manual_seed(5))
+    out = []
+    try:
+        for d in (torch.device("cpu"), dev):
+            batch = Batch.from_numpy(arrays).to(d)
+            with torch.no_grad():
+                targets = anchor_target_layer(
+                    batch.gt_boxes, batch.gt_valid, batch.gt_ishard, batch.dontcare,
+                    batch.dontcare_valid, batch.im_info, draws[0].to(d), draws[1].to(d),
+                    fh, fw, **target_kwargs())
+            model = fresh_train_model(d, state_dict)
+            before = [p.detach().clone() for p in model.parameters()]
+            t0 = time.perf_counter()
+            metrics = build_train_step(model, fh, fw)(create_train_state(model), batch, draws)
+            out.append(dict(step_record(model, before, metrics),
+                            sec=time.perf_counter() - t0, labels=targets.labels.cpu(),
+                            bbox_targets=targets.bbox_targets.cpu()))
+            del model, before
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    cpu, card = out
+    if not torch.equal(cpu["labels"], card["labels"]):
+        raise AssertionError(f"anchor-target labels differ on "
+                             f"{int((cpu['labels'] != card['labels']).sum())} anchors")
+    tgt_err = float((cpu["bbox_targets"] - card["bbox_targets"]).abs().max())
+    if tgt_err > 1e-5:
+        raise AssertionError(f"bbox_targets differ by {tgt_err}")
+    rel = {k: abs(card["metrics"][k] - cpu["metrics"][k]) / abs(cpu["metrics"][k])
+           for k in ("total_loss", "model_loss", "grad_norm")}
+    if max(rel.values()) > 1e-4:
+        raise AssertionError(f"card against CPU, relative differences {rel}")
+    worst, worst_noisy, n_noisy = compare_updates(cpu, card, lr, "card against CPU")
+    report = {
+        "bucket": f"2x{h}x{w}", "dtype": "float32, TF32 off",
+        "labels_equal": True, "fg": int((card["labels"] == 1).sum()),
+        "bg": int((card["labels"] == 0).sum()), "bbox_targets_max_abs_diff": tgt_err,
+        "rel_diff": rel, "update_max_abs_diff": worst,
+        "elements_grad_le_1e-6": n_noisy, "their_update_max_abs_diff": worst_noisy,
+        "total_loss": card["metrics"]["total_loss"], "grad_norm": card["metrics"]["grad_norm"],
+        "cpu_step_s": cpu["sec"]}
+    log("  train parity " + json.dumps(report))
+    return report
+
+
+def profile_steps(step, state, batch, n: int = 2) -> dict:
+    """``n`` steps under ``torch.profiler``: the card's busy share (summed
+    kernel time over the window's wall time), kernels per step and the top
+    kernels by device time."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            m = step(state, batch)
+        float(m["total_loss"])
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    dev_ms = lambda e: e.self_device_time_total / 1e3  # noqa: E731
+    top = sorted(events, key=dev_ms, reverse=True)[:6]
+    return {"device_ms_per_step": sum(dev_ms(e) for e in events) / n,
+            "device_busy_share": sum(dev_ms(e) for e in events) / window_ms,
+            "kernels_per_step": sum(e.count for e in events) / n,
+            "top_kernels": [{"name": e.key[:70], "device_ms_per_step": dev_ms(e) / n,
+                             "calls_per_step": e.count / n} for e in top]}
+
+
+def time_train_steps(dev, iters: int = 20) -> list:
+    """Full width, 608x912, bf16 compute: the Adam step at batch 1 and 2,
+    ``TPU.REMAT`` off and on, from the same parameters and draws. Per
+    setting: ms per step (host clock over ``iters`` steps ended by a
+    synchronize, after two warm-up steps), the peak of
+    ``max_memory_allocated`` over one step, and :func:`profile_steps`. REMAT must give plain's loss
+    (1e-6 relative), its gradient norm (1e-3), its update (as
+    :func:`compare_updates` holds the card to the CPU) and a lower peak."""
+    from ctpn_tpu_torch.config import cfg, reset_cfg
+    from ctpn_tpu_torch.models.factory import init_params
+    from ctpn_tpu_torch.ops.anchor_target import num_anchors
+    from ctpn_tpu_torch.training.train_step import (
+        Batch,
+        build_train_step,
+        create_train_state,
+    )
+    from ctpn_tpu_torch.utils.weights import params_from_jax
+
+    reset_cfg()
+    cfg.TRAIN.SOLVER = "Adam"
+    h, w = TRAIN_BUCKET
+    fh, fw = h // 16, w // 16
+    arrays = train_arrays(12, 2, (h, w))
+    state_dict = params_from_jax(init_params(cfg.RNG_SEED))
+    rows = []
+    for n in (1, 2):
+        batch = Batch.from_numpy([a[:n] for a in arrays]).to(dev)
+        draws = torch.rand((2, n, num_anchors(fh, fw)),
+                           generator=torch.Generator().manual_seed(6))
+        first = {}
+        for remat in (False, True):
+            cfg.TPU.REMAT = remat
+            model = fresh_train_model(dev, state_dict)
+            state = create_train_state(model)
+            step = build_train_step(model, fh, fw)
+            before = [p.detach().clone() for p in model.parameters()]
+            first[remat] = step_record(model, before, step(state, batch, draws))
+            del before
+            step(state, batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            step(state, batch)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(dev)
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                m = step(state, batch)
+            float(m["total_loss"])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / iters * 1e3
+            rows.append({"batch": n, "remat": remat, "ms_per_step": ms,
+                         "img_per_s": n / ms * 1e3, "peak_mib": peak / 2**20,
+                         "total_loss": float(m["total_loss"]),
+                         **profile_steps(step, state, batch)})
+            log("  train step " + json.dumps(rows[-1]))
+            del model, state, step
+        m0, m1 = first[False]["metrics"], first[True]["metrics"]
+        rel = {k: abs(m1[k] - m0[k]) / abs(m0[k]) for k in ("total_loss", "grad_norm")}
+        if rel["total_loss"] > 1e-6 or rel["grad_norm"] > 1e-3:
+            raise AssertionError(f"batch {n}: REMAT against plain, relative "
+                                 f"differences {rel}")
+        worst, worst_noisy, n_noisy = compare_updates(
+            first[False], first[True], cfg.TRAIN.LEARNING_RATE, f"batch {n}: REMAT")
+        plain, remat_row = rows[-2], rows[-1]
+        if not remat_row["peak_mib"] < plain["peak_mib"]:
+            raise AssertionError(f"batch {n}: REMAT peak {remat_row['peak_mib']} MiB "
+                                 f"is not below plain's {plain['peak_mib']} MiB")
+        remat_row.update(rel_diff_vs_plain=rel, update_max_abs_diff_vs_plain=worst,
+                         noisy_update_max_abs_diff_vs_plain=worst_noisy,
+                         elements_grad_le_1e6=n_noisy)
+        log(f"  batch {n}: REMAT against plain: relative differences {rel}, "
+            f"updates within {worst:.3g} ({worst_noisy:.3g} on {n_noisy} elements "
+            f"with |g| <= 1e-6), peak {plain['peak_mib']:.1f} -> "
+            f"{remat_row['peak_mib']:.1f} MiB")
+    reset_cfg()
+    return rows
+
+
+COUNTED_MAIN = r"""
+import importlib, json, sys
+from ctpn_tpu_torch.ops import nms_bitmask, nms_fused, nms_resolve, stem_fused
+importlib.import_module(sys.argv[1]).main(sys.argv[2:])
+print("LAUNCHES " + json.dumps({
+    "nms_bitmask": nms_bitmask.suppression_bitmask.LAUNCHES,
+    "nms_resolve": nms_resolve.nms_resolve.LAUNCHES,
+    "stem_fused": stem_fused.fused_stem_block.LAUNCHES,
+    "nms_fused": nms_fused.nms_keep_sorted_fused.LAUNCHES}))
+"""
+
+
+def run_counted(module: str, args: list, timeout: int = 600) -> tuple:
+    """``module``'s ``main(args)`` in a new process (the entry point a
+    console script calls); returns (stdout, the kernels' launch counts in
+    that process)."""
+    proc = subprocess.run([sys.executable, "-c", COUNTED_MAIN, module, *args],
+                          cwd=str(REPO), capture_output=True, text=True,
+                          timeout=timeout, env=dict(os.environ, PYTHONPATH=str(REPO)))
+    if proc.returncode != 0:
+        raise AssertionError(f"{module} failed:\n{proc.stdout}\n{proc.stderr}")
+    tag = [ln for ln in proc.stdout.splitlines() if ln.startswith("LAUNCHES ")]
+    return proc.stdout, json.loads(tag[-1][len("LAUNCHES "):])
+
+
+def iter_lines(out: str) -> list:
+    """The solver's ``iter: N / M, ...`` lines as (N, total loss)."""
+    rows = []
+    for ln in out.splitlines():
+        if ln.startswith("iter: "):
+            rows.append((int(ln.split()[1]), float(ln.split("total loss: ")[1].split(",")[0])))
+    return rows
+
+
+def drive_training_entry_points(dev, n_iters: int = 10) -> dict:
+    """Data to a trained, exported checkpoint through the entry points, in
+    a temporary ``ROOT_DIR`` (devkit, roidb cache and output stay out of
+    the repo): the port's ``synth.generate_dataset``; ``ctpn-torch-prepare
+    --link``; an overfit run of ``SolverWrapper`` on one image (Adam, lr
+    1e-4 by ``--set``, 30 steps: the mean model loss of the last 5 steps
+    below that of the first 5); ``ctpn-torch-train`` for ``n_iters`` steps
+    with a snapshot on the way, then ``--restore`` to ``2 * n_iters``, whose
+    first logged iteration is ``n_iters + 1``; ``ctpn-torch-export --ckpt``;
+    ``ctpn-torch-demo`` on the export over the five photos (finite records,
+    exactly 2 fused-NMS launches per photo plus 2 for its warm-up batch, no
+    other kernel). The training runs launch no kernel."""
+    from ctpn_tpu_torch.config import cfg, cfg_from_list, reset_cfg
+    from ctpn_tpu_torch.data.roidb import get_training_roidb
+    from ctpn_tpu_torch.data.synth import generate_dataset
+    from ctpn_tpu_torch.data.voc import PascalVOC
+    from ctpn_tpu_torch.eval import read_res_txt
+    from ctpn_tpu_torch.training.solver import SolverWrapper
+
+    root = TRAIN_OUT
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "data").mkdir(parents=True)
+    report = {}
+    t0 = time.perf_counter()
+    images, labels = generate_dataset(str(root / "raw"), n_images=4, seed=3)
+    devkit = root / "data" / "VOCdevkit2007"
+    run_cli(["ctpn_tpu_torch.cli.prepare_data", "--images", images, "--labels", labels,
+             "--out", str(root / "TEXTVOC"), "--link", str(devkit)])
+    report["synth_and_prepare_s"] = time.perf_counter() - t0
+
+    reset_cfg()
+    cfg_from_list(["ROOT_DIR", str(root), "TRAIN.SOLVER", "Adam",
+                   "TRAIN.LEARNING_RATE", "0.0001", "TRAIN.USE_FLIPPED", "False",
+                   "TRAIN.DISPLAY", "1", "TRAIN.SNAPSHOT_ITERS", "1000"])
+    roidb = get_training_roidb(PascalVOC("trainval", "2007", devkit_path=str(devkit)))
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):  # 30 log lines
+        SolverWrapper(roidb[:1], str(root / "overfit"), device=dev,
+                      data_parallel=False).train_model(30)
+    report["overfit_30_steps_s"] = time.perf_counter() - t0
+    expect_launches(launch_counts(), {}, "SolverWrapper overfit")
+    losses = [json.loads(ln)["model_loss"]
+              for ln in (root / "overfit" / "metrics.jsonl").read_text().splitlines()]
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    report.update(overfit_first5=first, overfit_last5=last)
+    if len(losses) != 30 or not np.isfinite(losses).all() or not last < first:
+        raise AssertionError(f"overfit on one image: model loss {losses}")
+    log(f"  overfit on one image: model loss, mean of steps 1-5 {first:.4f}, "
+        f"of 26-30 {last:.4f}")
+    reset_cfg()
+
+    train = ["ctpn_tpu_torch.cli.train_net", "--cfg", str(REPO / "configs" / "text.yml"),
+             "--set", "ROOT_DIR", str(root), "TRAIN.SNAPSHOT_ITERS", str(n_iters // 2),
+             "TRAIN.DISPLAY", "1"]
+    t0 = time.perf_counter()
+    out, counts = run_counted(train[0], ["--max-iters", str(n_iters)] + train[1:])
+    report["train_s"] = time.perf_counter() - t0
+    expect_launches(counts, {}, "ctpn-torch-train")
+    first_run = iter_lines(out)
+    if [i for i, _ in first_run] != list(range(1, n_iters + 1)) or \
+            not np.isfinite([l for _, l in first_run]).all():
+        raise AssertionError(f"ctpn-torch-train logged {first_run}")
+    solver_dir = root / "output" / "ctpn_end2end" / "voc_2007_trainval"
+    steps = sorted(int(p.name) for p in (solver_dir / "checkpoints").iterdir())
+    if steps != [n_iters // 2, n_iters]:
+        raise AssertionError(f"checkpoints at {steps}")
+    t0 = time.perf_counter()
+    out, counts = run_counted(train[0], ["--max-iters", str(2 * n_iters), "--restore"]
+                              + train[1:])
+    report["train_restore_s"] = time.perf_counter() - t0
+    expect_launches(counts, {}, "ctpn-torch-train --restore")
+    resumed = iter_lines(out)
+    if not resumed or resumed[0][0] != n_iters + 1 or resumed[-1][0] != 2 * n_iters:
+        raise AssertionError(f"ctpn-torch-train --restore logged {resumed}")
+    log(f"  ctpn-torch-train: iterations 1-{n_iters} in {report['train_s']:.1f} s, "
+        f"checkpoints {steps}; --restore resumed at {resumed[0][0]} and ran to "
+        f"{resumed[-1][0]} (total loss {resumed[0][1]:.4f} -> {resumed[-1][1]:.4f})")
+
+    npz = root / "trained.npz"
+    run_cli(["ctpn_tpu_torch.cli.export_model", "--ckpt", str(solver_dir),
+             "--out", str(npz)])
+    t0 = time.perf_counter()
+    out, counts = run_counted("ctpn_tpu_torch.cli.demo", [
+        "--artifact", str(npz), "--images", str(COMMITTED / "H"),
+        "--output", str(root / "demo")])
+    report["demo_s"] = time.perf_counter() - t0
+    # 2 per photo, and 2 for the demo's warm-up batch
+    expect_launches(counts, {"nms_fused": 2 * (len(PHOTOS) + 1)},
+                    "ctpn-torch-demo on the export")
+    lines = 0
+    for photo in PHOTOS:
+        boxes = read_res_txt(str(root / "demo" / f"res_{photo.stem}.txt"))
+        if not np.isfinite(boxes).all():
+            raise AssertionError(f"ctpn-torch-demo {photo.name}: non-finite records")
+        lines += len(boxes)
+    report.update(demo_lines=lines, demo_launches=counts)
+    log(f"  ctpn-torch-export --ckpt -> ctpn-torch-demo: {lines} lines on "
+        f"{len(PHOTOS)} photos, launches {counts}")
+    return report
+
+
 def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1539,7 +1941,7 @@ def main(argv=()) -> int:
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()
-    log(f"[1/11] device: {torch.cuda.get_device_name(0)} | {card} | "
+    log(f"[1/14] device: {torch.cuda.get_device_name(0)} | {card} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     # a checkout from before the resolve kernel (timed with --kernels-only
@@ -1548,7 +1950,7 @@ def main(argv=()) -> int:
     t0 = time.perf_counter()
     logs = _build.build(["nms_fused", "nms_bitmask", "stem_fused"]
                         + ["nms_resolve"] * has_resolve)
-    log(f"[2/11] build: {time.perf_counter() - t0:.2f} s")
+    log(f"[2/14] build: {time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
         for line in text.splitlines():
             # registers, shared memory, spills, and ptxas's performance
@@ -1556,7 +1958,7 @@ def main(argv=()) -> int:
             if any(k in line for k in ("registers", "smem", "spill", "(C75")):
                 log(f"  {name}: {line.strip()}")
 
-    log("[3/11] kernels against their plain versions")
+    log("[3/14] kernels against their plain versions")
     entries = [check_nms_kernel(dev), check_bitmask_kernel(dev), check_stem_kernel(dev)]
     if has_resolve:
         entries.append(check_resolve_kernel(dev))
@@ -1569,35 +1971,55 @@ def main(argv=()) -> int:
     if not has_resolve:
         raise AssertionError("ctpn_tpu_torch/ops/csrc/nms_resolve.cu is missing")
 
-    log("[4/11] main path (default config)")
+    log("[4/14] main path (default config)")
     default_recs = drive_main_path(dev, entries[0])
 
-    log("[5/11] serving path (TPU.NMS_FUSED False, TPU.FUSED_STEM True)")
+    log("[5/14] serving path (TPU.NMS_FUSED False, TPU.FUSED_STEM True)")
     drive_serving_path(dev, entries[1], entries[3], entries[2], default_recs)
     for entry in entries:
         if not entry["launches"]:
             raise AssertionError(f"{entry['name']} was never launched on its path")
 
-    log("[6/11] serve CLI")
+    log("[6/14] serve CLI")
     check_cli()
 
     shutil.rmtree(OUT, ignore_errors=True)
     try:
-        log("[7/11] O mode")
+        log("[7/14] O mode")
         drive_o_mode(dev)
 
-        log("[8/11] host post-processing (detect_image_host, H and O)")
+        log("[8/14] host post-processing (detect_image_host, H and O)")
         drive_host_path(dev)
 
-        log("[9/11] frozen artifacts (default and served routes)")
+        log("[9/14] frozen artifacts (default and served routes)")
         frozen = drive_frozen(dev)
 
-        log("[10/11] CLIs: demo, eval, export --frozen, demo --frozen, serve frozen")
+        log("[10/14] CLIs: demo, eval, export --frozen, demo --frozen, serve frozen")
         check_clis(frozen)
     finally:
         shutil.rmtree(OUT, ignore_errors=True)
 
-    log(f"[11/11] result (all phases {time.perf_counter() - t_start:.1f} s)")
+    log("[11/14] training: one step on the card against the CPU")
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    train = {"parity": check_train_parity(dev)}
+    seconds = {"parity": time.perf_counter() - t0}
+    log("[12/14] training: full-width steps at 608x912, batch 1 and 2, REMAT off and on")
+    t0 = time.perf_counter()
+    train["steps"] = time_train_steps(dev)
+    seconds["steps"] = time.perf_counter() - t0
+    expect_launches(launch_counts(), {}, "training phases 11-12")
+    log("[13/14] training: data, overfit, train, restore, export --ckpt, demo")
+    t0 = time.perf_counter()
+    try:
+        train["entry_points"] = drive_training_entry_points(dev)
+    finally:
+        shutil.rmtree(TRAIN_OUT, ignore_errors=True)
+    seconds["entry_points"] = time.perf_counter() - t0
+    train["seconds"] = seconds
+    log("  train " + json.dumps(train))
+
+    log(f"[14/14] result (all phases {time.perf_counter() - t_start:.1f} s)")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,9 +6,10 @@ its NHWC layouts and output contracts (``CTPNOutputs``, ``Proposals``,
 ``TextLines``, the (M, 9) line records). This package imports neither JAX
 nor any module of ``ctpn_tpu``.
 
-    ops/          anchors, box decode, greedy NMS (fused kernel, or the
-                  suppression bitmask kernel and its resolve), the fused
-                  VGG block 1, proposals; hand-written CUDA kernels under
+    ops/          anchors, box encode/decode, IoU, anchor targets, greedy
+                  NMS (fused kernel, or the suppression bitmask kernel and
+                  its resolve), the fused VGG block 1, proposals;
+                  hand-written CUDA kernels under
                   ops/csrc/, each a ``torch.library`` op (``ctpn_torch::``)
                   beside its plain PyTorch version
     models/       VGG16 trunk + BiLSTM + CTPN heads (nn.Module)
@@ -17,7 +18,12 @@ nor any module of ``ctpn_tpu``.
     inference/    end-to-end predictor (device or host post-processing),
                   stream_detect, the frozen artifact, stage breakdown
     serving.py    HTTP server with micro-batching (cli/serve.py runs it)
-    cli/          serve, demo and export
+    training/     anchor-target losses, the train step with its optax-exact
+                  solvers, the solver loop and its checkpoints
+    data/         VOC loader, roidb, minibatches, prefetch, data preparation
+                  and the synthetic generator
+    parallel/     data-parallel training over torch.distributed
+    cli/          serve, demo, export, train and prepare
     eval.py       res_*.txt scoring (ctpn-torch-eval)
     utils/        image preprocessing, weights (load, export, converters),
                   host oracles, timer, device selection

@@ -9,14 +9,16 @@ variable dump:
         --out artifact.npz                      # f16 weights .npz
     ctpn-torch-export --artifact ... --out frozen.npz --frozen \
         [--frozen-shapes 1x608x912,8x608x912] [--device cuda]
+    ctpn-torch-export --ckpt <solver output dir> --out f.npz   # latest step
 
     --npy VGG_imagenet.npy           (backbone bootstrap)
     --tf-vars vars.npz               ({tf_var_name: array} dump of a TF ckpt)
 
-``--frozen`` exports the detect programs for ``--device`` (the card by
-default); they run only on a device of that type. ``--ckpt`` (a solver
-directory) and a directory ``--out`` (orbax) need the port's solver,
-ROADMAP A9.
+``--ckpt`` reads the latest checkpoint of the port's solver
+(``training/checkpoint.py``; an orbax directory of the JAX package is
+refused). ``--frozen`` exports the detect programs for ``--device`` (the
+card by default); they run only on a device of that type. A directory
+``--out`` (the JAX package's orbax artifact) is not written: ROADMAP E2.
 """
 
 from __future__ import annotations
@@ -24,8 +26,6 @@ from __future__ import annotations
 import argparse
 
 import numpy as np
-
-_A9 = "needs the port's training solver and orbax checkpoints (ROADMAP A9)"
 
 
 def parse_frozen_shapes(p: argparse.ArgumentParser, spec: str) -> list:
@@ -57,7 +57,7 @@ def main(argv=None):
     p.add_argument("--artifact", default=None,
                    help="source .npz weights artifact to start from")
     p.add_argument("--ckpt", default=None,
-                   help="solver output dir (not in the port yet: ROADMAP A9)")
+                   help="solver output dir (its latest checkpoint)")
     p.add_argument("--npy", default=None, help="VGG_imagenet.npy to convert")
     p.add_argument("--tf-vars", default=None, help="npz of {tf_var_name: array}")
     p.add_argument("--out", required=True,
@@ -83,11 +83,9 @@ def main(argv=None):
 
     shapes = (parse_frozen_shapes(p, args.frozen_shapes)
               if args.frozen and args.frozen_shapes else None)
-    if args.ckpt:
-        raise SystemExit(f"--ckpt {_A9}")
     if not args.out.endswith(".npz"):
-        raise SystemExit(f"--out {args.out}: a directory (orbax) artifact {_A9}; "
-                         "pass an .npz path")
+        raise SystemExit(f"--out {args.out}: a directory (orbax) artifact is not "
+                         "written by the port (ROADMAP E2); pass an .npz path")
 
     from ctpn_tpu_torch.config import cfg_from_file, cfg_from_list
     from ctpn_tpu_torch.models.factory import init_params
@@ -106,6 +104,16 @@ def main(argv=None):
     if args.artifact:
         params = load_pretrained_into(params, args.artifact, ignore_missing=False)
         print(f"loaded weights from {args.artifact}")
+    if args.ckpt:
+        from ctpn_tpu_torch.training import checkpoint
+        from ctpn_tpu_torch.utils.weights import params_to_jax
+
+        try:
+            ckpt = checkpoint.load(args.ckpt)
+        except (FileNotFoundError, ValueError) as e:
+            raise SystemExit(f"--ckpt {args.ckpt}: {e}") from e
+        params = params_to_jax(ckpt["params"])
+        print(f"restored step {ckpt['step']} from {args.ckpt}")
     if args.npy:
         params = load_pretrained_into(params, args.npy)
         print(f"merged pretrained weights from {args.npy}")

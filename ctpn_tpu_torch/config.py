@@ -3,9 +3,11 @@
 The PyTorch port keeps the same schema and key names as the JAX package so
 that one YAML file (``configs/text.yml``) loads into both; the ``TPU.*``
 knobs keep their names too. Of those, the port reads ``BUCKETS``,
-``COMPUTE_DTYPE``, ``PARAM_DTYPE``, ``MAX_LINES``, ``NMS_FUSED`` and
-``FUSED_STEM``; the others (tile sizes, ``PACKED_STEM``, whose packed
-block equals the stock convs) are accepted and change nothing.
+``COMPUTE_DTYPE``, ``PARAM_DTYPE``, ``MAX_LINES``, ``NMS_FUSED``,
+``FUSED_STEM`` and, in training, ``MAX_GT``, ``MAX_DONTCARE``,
+``PREFETCH_DEPTH`` and ``REMAT``; the others (tile sizes, ``MESH_AXIS``,
+``PACKED_STEM``, whose packed block equals the stock convs) are accepted
+and change nothing.
 
 Re-implements the reference's global-EasyDict config
 (`lib/fast_rcnn/config.py:7-316`) and the separate hard-coded text-connector
@@ -27,8 +29,10 @@ reference), with the same narrow exception that ints may widen to floats.
 from __future__ import annotations
 
 import copy
+import os
 import os.path as osp
-from typing import Any, Dict, List
+import time
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import yaml
@@ -317,3 +321,31 @@ def cfg_from_list(cfg_list: List[str]) -> AttrDict:
                 pass
         d[subkey] = _coerce(v, d[subkey], full_key)
     return cfg
+
+
+def get_output_dir(imdb_name: str, weights_filename: Optional[str] = None) -> str:
+    """Output directory `<root>/output/<EXP_DIR>/<imdb>/[weights]`.
+
+    Mirrors reference `config.py:230-242`.
+    """
+    outdir = osp.join(cfg.ROOT_DIR, "output", cfg.EXP_DIR, imdb_name)
+    if weights_filename is not None:
+        outdir = osp.join(outdir, weights_filename)
+    os.makedirs(outdir, exist_ok=True)
+    return outdir
+
+
+def get_log_dir(imdb_name: str) -> str:
+    """Timestamped log dir `<root>/logs/<LOG_DIR>/<imdb>/<timestamp>`.
+
+    Mirrors reference `config.py:244-254`.
+    """
+    log_dir = osp.join(
+        cfg.ROOT_DIR,
+        "logs",
+        cfg.LOG_DIR,
+        imdb_name,
+        time.strftime("%Y-%m-%d-%H-%M-%S", time.localtime()),
+    )
+    os.makedirs(log_dir, exist_ok=True)
+    return log_dir

@@ -120,8 +120,8 @@ def export_frozen(
     dev = resolve_device(device)
     if dp_devices and dp_devices > 1:
         raise NotImplementedError(
-            f"dp_devices={dp_devices}: the port runs on one card; data-"
-            "parallel programs wait for DDP (ROADMAP A9)"
+            f"dp_devices={dp_devices}: the port exports for one card; data-"
+            "parallel programs wait for a machine with more (ROADMAP E1)"
         )
     from ctpn_tpu_torch.config import cfg
     from ctpn_tpu_torch.inference.pipeline import lines_kwargs, proposal_kwargs

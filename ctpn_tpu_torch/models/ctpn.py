@@ -57,14 +57,22 @@ class CTPN(nn.Module):
         self.rpn_bbox_pred = nn.Linear(rpn_channels, num_anchors * 4)
         self.rpn_cls_score = nn.Linear(rpn_channels, num_anchors * 2)
 
-    def forward(self, images: torch.Tensor) -> CTPNOutputs:
-        """images: (N, H, W, 3) float32, BGR, pixel-mean subtracted."""
+    def forward(self, images: torch.Tensor, remat: bool = False) -> CTPNOutputs:
+        """images: (N, H, W, 3) float32, BGR, pixel-mean subtracted.
+
+        ``remat`` (training, ``TPU.REMAT``) rematerialises the backbone in
+        the backward pass one VGG block at a time: each block keeps only its
+        input, and the backward runs it once more. The values are the same.
+        The head (``rpn_conv``, the BiLSTM, the heads) keeps its activations:
+        they are small, and recomputing the BiLSTM's 57-step loop costs as
+        much host time as running it.
+        """
         x = images.to(self.dtype).permute(0, 3, 1, 2)  # NCHW view of NHWC
         if x.is_cuda:
             x = x.contiguous(memory_format=torch.channels_last)
         else:
             x = x.contiguous()
-        feat = self.trunk(x)
+        feat = self.trunk(x, remat=remat)
         rpn = F.relu(self.rpn_conv(feat)).permute(0, 2, 3, 1)  # NHWC
         lstm_o = self.bilstm(rpn)  # (N, H, W, C) float32
 

@@ -26,6 +26,7 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ctpn_tpu_torch.ops.stem_fused import fused_stem_block
 
@@ -74,15 +75,23 @@ class VGG16Trunk(nn.Module):
                 cin = ch
         self.out_channels = cin
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
+        """``remat`` keeps only each block's input for the backward pass and
+        recomputes the block there (training; same values)."""
         for block, reps, _ in self.stages:
             if block == 1 and self.fused_stem and reps == 2:
                 x = self._fused_block1(x)
-                continue
-            for rep in range(1, reps + 1):
-                x = F.relu(getattr(self, f"conv{block}_{rep}")(x))
-            if block < 5:  # pools 1-4 only: stride 16 at conv5_3
-                x = F.max_pool2d(x, 2, 2)
+            elif remat:
+                x = checkpoint(self._block, block, reps, x, use_reentrant=False)
+            else:
+                x = self._block(block, reps, x)
+        return x
+
+    def _block(self, block: int, reps: int, x: torch.Tensor) -> torch.Tensor:
+        for rep in range(1, reps + 1):
+            x = F.relu(getattr(self, f"conv{block}_{rep}")(x))
+        if block < 5:  # pools 1-4 only: stride 16 at conv5_3
+            x = F.max_pool2d(x, 2, 2)
         return x
 
     def _fused_block1(self, x: torch.Tensor) -> torch.Tensor:

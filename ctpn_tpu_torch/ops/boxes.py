@@ -1,5 +1,7 @@
-"""Box decode and clip on tensors (the port of ``ctpn_tpu.ops.boxes``).
+"""Box encode, decode and clip on tensors (the port of ``ctpn_tpu.ops.boxes``).
 
+* ``bbox_transform`` — encode (dx, dy, dw, dh) with the +1-pixel size
+  convention (`lib/fast_rcnn/bbox_transform.py:3-34`); the training targets.
 * ``bbox_transform_inv`` — the CTPN decode: x-center and width are NOT
   regressed; only dy/dh apply (`lib/fast_rcnn/bbox_transform.py:50-53`).
 * ``clip_boxes`` — clamp to ``[0, dim-1]`` (`bbox_transform.py:67-80`).
@@ -23,6 +25,25 @@ def box_sizes(boxes: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     w = boxes[..., 2] - boxes[..., 0] + 1.0
     h = boxes[..., 3] - boxes[..., 1] + 1.0
     return w, h
+
+
+def bbox_transform(ex_rois: torch.Tensor, gt_rois: torch.Tensor) -> torch.Tensor:
+    """Encode ``gt_rois`` relative to ``ex_rois``: (..., 4) -> (..., 4).
+
+    No degenerate-box assert: callers mask invalid rows. Zero-size padding
+    rows of ``gt_rois`` stay finite through the guarded log.
+    """
+    ex_w, ex_h = box_sizes(ex_rois)
+    gt_w, gt_h = box_sizes(gt_rois)
+    ex_cx = ex_rois[..., 0] + 0.5 * ex_w
+    ex_cy = ex_rois[..., 1] + 0.5 * ex_h
+    gt_cx = gt_rois[..., 0] + 0.5 * gt_w
+    gt_cy = gt_rois[..., 1] + 0.5 * gt_h
+    dx = (gt_cx - ex_cx) / ex_w
+    dy = (gt_cy - ex_cy) / ex_h
+    dw = torch.log(gt_w.clamp(min=1e-6) / ex_w)
+    dh = torch.log(gt_h.clamp(min=1e-6) / ex_h)
+    return torch.stack(torch.broadcast_tensors(dx, dy, dw, dh), dim=-1)
 
 
 def bbox_transform_inv(boxes: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:

@@ -88,6 +88,17 @@ def params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return state
 
 
+def jax_key(name: str) -> str:
+    """The JAX parameter path (``a/b/c``) of this package's ``CTPN``
+    state-dict key: ``trunk`` -> ``VGG16Trunk_0``, ``weight`` -> ``kernel``."""
+    path = name.split(".")
+    if path[0] == "trunk":
+        path[0] = _TRUNK_SCOPE
+    if path[-1] == "weight":
+        path[-1] = "kernel"
+    return "/".join(path)
+
+
 def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """This package's ``CTPN`` ``state_dict`` -> the JAX parameter tree, a
     nested dict of float32 numpy arrays (the inverse of
@@ -95,12 +106,9 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     -> Dense ``(in, out)``, ``trunk`` -> ``VGG16Trunk_0``."""
     tree: Dict[str, Any] = {}
     for name, t in state_dict.items():
-        path = name.split(".")
-        if path[0] == "trunk":
-            path[0] = _TRUNK_SCOPE
+        path = jax_key(name).split("/")
         a = t.detach().to(torch.float32).cpu().numpy()
-        if path[-1] == "weight":
-            path[-1] = "kernel"
+        if path[-1] == "kernel":
             if a.ndim == 4:  # OIHW -> HWIO
                 a = a.transpose(2, 3, 1, 0)
             elif a.ndim == 2:  # Linear (out, in) -> Dense (in, out)
@@ -179,12 +187,12 @@ def load_pretrained_into(params: Mapping[str, Any], npy_path: str,
     kernels. Layers that do not exist in the model (fc6/fc7/fc8 classifier
     heads) are skipped, mirroring ``ignore_missing=True``. An ``.npz``
     artifact is also accepted: its leaves share the tree's paths, so the
-    overlay is exact. Orbax directories need the solver of ROADMAP A9.
+    overlay is exact. Orbax directories are not read (ROADMAP E2).
     """
     if osp.isdir(npy_path):
         raise ValueError(
             f"{npy_path}: orbax artifact directories are not read by the port "
-            "yet (ROADMAP A9); pass an .npz artifact"
+            "(ROADMAP E2); pass an .npz artifact"
         )
     if npy_path.endswith(".npz"):
         target = _tree_copy(params)

@@ -149,11 +149,15 @@ def test_export_frozen_shapes_validation(tmp_path, bad):
 
 
 def test_export_refuses_what_needs_the_solver(tmp_path):
+    """``--ckpt`` needs a solver directory with a checkpoint; a directory
+    ``--out`` (orbax) is not written by the port (ROADMAP E2)."""
     from ctpn_tpu_torch.cli.export_model import main as export_main
 
-    for argv in (["--ckpt", str(tmp_path), "--out", str(tmp_path / "x.npz")],
-                 ["--out", str(tmp_path / "orbax_dir")]):
-        with pytest.raises(SystemExit, match="A9"):
+    for argv, msg in (
+            (["--ckpt", str(tmp_path), "--out", str(tmp_path / "x.npz")],
+             "no checkpoints under"),
+            (["--out", str(tmp_path / "orbax_dir")], "ROADMAP E2")):
+        with pytest.raises(SystemExit, match=msg):
             export_main(argv)
 
 

@@ -194,7 +194,7 @@ def test_loader_refuses(frozen_env, tmp_path, case):
         with pytest.raises(RuntimeError, match="exported by torch 1.13.1"):
             FrozenCTPN(path, device="cpu")
     else:
-        with pytest.raises(NotImplementedError, match="A9"):
+        with pytest.raises(NotImplementedError, match="ROADMAP E1"):
             export_frozen({}, path, shapes=[(2, *BUCKET)], dp_devices=2, device="cpu")
 
 
