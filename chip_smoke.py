@@ -3,8 +3,9 @@
 holds each against its plain PyTorch version, drives every inference path
 (the default and served routes, O mode, host post-processing, frozen
 artifacts, the CLIs) and the training path (the train step against the
-CPU, full-width steps, the solver, the data, train and export CLIs), and
-checks what comes out.
+CPU, full-width steps, the solver, the data, train and export CLIs, a
+synthetic fine-tune scored on a holdout before and after), builds the
+native host library, and checks what comes out.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only
@@ -102,7 +103,21 @@ Phases (any failure exits non-zero and prints no result line):
     --ckpt``, ``ctpn-torch-demo`` on the export: 2 fused-NMS launches per
     photo plus 2 for its warm-up, no other kernel; the training runs launch
     none.
-14. prints one ``{"kernels": [...]}`` line (four kernels), the card line,
+14. training quality and host ops: the native host library built by the
+    host compiler and held against the numpy oracles (the cases of
+    ``tests/test_torch_native.py``: keep lists and successors identical,
+    overlaps within 1e-6); then, in a temporary root, from the shipped
+    weights: ``train_synth.prepare_corpus`` on 48 + 16 synthetic images
+    (timed), ``eval_holdout`` on the 16 holdout images (F before),
+    ``train_synth`` for 120 iterations at batch 8, lr 2e-5, step at 80, in
+    two segments of 60 (child processes), then its export and score, and
+    ``eval_holdout`` on the export (F after). Gates: finite losses, the
+    second segment's first logged iteration 61, the mean logged model loss
+    <= 0.30, geometric F @ 0.5 after >= before - 0.05, 2 fused-NMS launches
+    per holdout batch of ``stream_detect`` and no other kernel in each
+    detection, none in training. Prints ms per step at batch 8, the
+    preparation seconds and the checkpoint's MiB.
+15. prints one ``{"kernels": [...]}`` line (four kernels), the card line,
     and last ``{"ok": true, "device": {...}}``.
 
 Every recall gate counts lines as ``ctpn-torch-eval`` does
@@ -1797,28 +1812,44 @@ def time_train_steps(dev, iters: int = 20) -> list:
 
 
 COUNTED_MAIN = r"""
-import importlib, json, sys
+import importlib, json, os, subprocess, sys
 from ctpn_tpu_torch.ops import nms_bitmask, nms_fused, nms_resolve, stem_fused
+_run = subprocess.run
+def _counted_run(cmd, *args, **kwargs):
+    # a child that runs a module of the package (train_synth's segments)
+    # counts and prints its own launches, as this process does
+    if isinstance(cmd, list) and cmd[1:2] == ["-m"] and cmd[2].startswith("ctpn_tpu_torch."):
+        cmd = [cmd[0], "-c", os.environ["CHIP_SMOKE_COUNTED_MAIN"], *cmd[2:]]
+    return _run(cmd, *args, **kwargs)
+subprocess.run = _counted_run
 importlib.import_module(sys.argv[1]).main(sys.argv[2:])
 print("LAUNCHES " + json.dumps({
     "nms_bitmask": nms_bitmask.suppression_bitmask.LAUNCHES,
     "nms_resolve": nms_resolve.nms_resolve.LAUNCHES,
     "stem_fused": stem_fused.fused_stem_block.LAUNCHES,
-    "nms_fused": nms_fused.nms_keep_sorted_fused.LAUNCHES}))
+    "nms_fused": nms_fused.nms_keep_sorted_fused.LAUNCHES}), flush=True)
 """
 
 
 def run_counted(module: str, args: list, timeout: int = 600) -> tuple:
     """``module``'s ``main(args)`` in a new process (the entry point a
     console script calls); returns (stdout, the kernels' launch counts in
-    that process)."""
+    that process). A child process that runs a module of the package with
+    ``subprocess.run([python, "-m", ...])`` prints its own counts on a
+    ``LAUNCHES`` line before the parent's (``launch_lines``)."""
     proc = subprocess.run([sys.executable, "-c", COUNTED_MAIN, module, *args],
                           cwd=str(REPO), capture_output=True, text=True,
-                          timeout=timeout, env=dict(os.environ, PYTHONPATH=str(REPO)))
+                          timeout=timeout, env=dict(os.environ, PYTHONPATH=str(REPO),
+                                                    CHIP_SMOKE_COUNTED_MAIN=COUNTED_MAIN))
     if proc.returncode != 0:
         raise AssertionError(f"{module} failed:\n{proc.stdout}\n{proc.stderr}")
-    tag = [ln for ln in proc.stdout.splitlines() if ln.startswith("LAUNCHES ")]
-    return proc.stdout, json.loads(tag[-1][len("LAUNCHES "):])
+    return proc.stdout, launch_lines(proc.stdout)[-1]
+
+
+def launch_lines(out: str) -> list:
+    """The counts of every ``LAUNCHES`` line in ``out``, in order."""
+    return [json.loads(ln[len("LAUNCHES "):]) for ln in out.splitlines()
+            if ln.startswith("LAUNCHES ")]
 
 
 def iter_lines(out: str) -> list:
@@ -1932,6 +1963,225 @@ def drive_training_entry_points(dev, n_iters: int = 10) -> dict:
     return report
 
 
+# ------------------------------------------- training quality, host ops
+
+SYNTH_ROOT = REPO / "output" / "chip_smoke_synth"  # git-ignored; removed at the end
+SYNTH_IMAGES, SYNTH_HOLDOUT = 48, 16
+SYNTH_ITERS, SYNTH_SEGMENT, SYNTH_BATCH = 120, 60, 8
+# the JAX continuation run's model loss (docs/runs/synth_ft5d_1500_edgeclip_
+# metrics.jsonl) tops out at 0.304
+SYNTH_MAX_MEAN_LOSS = 0.30
+SYNTH_F_DROP = 0.05
+
+
+def random_boxes(rng, n, im_h=600, im_w=900, max_wh=150) -> np.ndarray:
+    """(n, 4) well-formed float32 boxes inside an image (a copy of the
+    tests' generator, ``tests/conftest.py::random_boxes``)."""
+    x1 = rng.uniform(0, im_w - 2, n)
+    y1 = rng.uniform(0, im_h - 2, n)
+    w = rng.uniform(1, max_wh, n)
+    h = rng.uniform(1, max_wh, n)
+    x2 = np.minimum(x1 + w, im_w - 1)
+    y2 = np.minimum(y1 + h, im_h - 1)
+    return np.stack([x1, y1, x2, y2], axis=1).astype(np.float32)
+
+
+def strip_scene(rng, n_lines=4, im_h=600, im_w=900, slope=0.0, gap_px=16) -> tuple:
+    """Rows of 16-px text-proposal strips, shuffled (a copy of
+    ``tests/test_connector.py::make_strip_scene``)."""
+    boxes, scores = [], []
+    for _ in range(n_lines):
+        y = rng.uniform(40, im_h - 80)
+        h = rng.uniform(20, 40)
+        x_start = rng.uniform(0, 150)
+        n_strips = rng.randint(3, 20)
+        for s in range(n_strips):
+            x1 = x_start + s * gap_px
+            if x1 + 15 >= im_w:
+                break
+            yy = y + slope * (x1 - x_start) + rng.uniform(-1.5, 1.5)
+            hh = h * rng.uniform(0.95, 1.05)
+            boxes.append([x1, yy, x1 + 15, yy + hh])
+            scores.append(rng.uniform(0.75, 1.0))
+    boxes = np.array(boxes, np.float32)
+    scores = np.array(scores, np.float32)
+    perm = rng.permutation(len(boxes))
+    return boxes[perm], scores[perm]
+
+
+def check_native_host_ops() -> dict:
+    """``native.py``'s library built by the host compiler on this machine,
+    against the port's numpy oracles on the cases (and seeds) of
+    ``tests/test_torch_native.py``: NMS keep lists and graph successors
+    identical, overlaps and intersections within 1e-6."""
+    from ctpn_tpu_torch import native
+    from ctpn_tpu_torch.config import reset_cfg
+    from ctpn_tpu_torch.postprocess.oracle import build_graph_np
+    from ctpn_tpu_torch.utils.host_ref import (
+        bbox_intersections_np,
+        bbox_overlaps_np,
+        py_nms,
+    )
+
+    reset_cfg()
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("native: no host C++ compiler found")
+    report = {"build_s": time.perf_counter() - t0}
+    for t in (0.3, 0.7):
+        rng = np.random.RandomState(3)
+        dets = np.hstack([random_boxes(rng, 200, max_wh=80),
+                          rng.uniform(0, 1, 200).astype(np.float32)[:, None]])
+        keep = native.nms(dets, t)
+        if keep != py_nms(dets, t):
+            raise AssertionError(f"native.nms at {t}: {keep} != py_nms")
+        report[f"nms_{t}_kept"] = len(keep)
+    rng = np.random.RandomState(3)
+    b, q = random_boxes(rng, 50), random_boxes(rng, 31)
+    err = max(float(np.abs(native.bbox_overlaps(b, q) - bbox_overlaps_np(b, q)).max()),
+              float(np.abs(native.bbox_intersections(b, q)
+                           - bbox_intersections_np(b, q)).max()))
+    if not err <= 1e-6:
+        raise AssertionError(f"native overlaps/intersections: max abs err {err}")
+    report["overlaps_max_abs_err"] = err
+    edges = 0
+    for seed in (0, 1, 2):
+        boxes, scores = strip_scene(np.random.RandomState(seed))
+        want = build_graph_np(boxes.astype(np.float64), scores, (600, 900))
+        succ = native.build_graph_successors(boxes, scores, 900)
+        got = np.zeros_like(want)
+        got[np.flatnonzero(succ >= 0), succ[succ >= 0]] = True
+        if not np.array_equal(got, want):
+            raise AssertionError(f"native graph successors, seed {seed}")
+        edges += int(want.sum())
+    report["graph_edges"] = edges
+    return report
+
+
+def holdout_batches(root: Path) -> int:
+    """The batches of 4 that ``stream_detect`` forms over the holdout: one
+    bucket per image shape, each bucket's images in batches of 4."""
+    from ctpn_tpu_torch.config import cfg, reset_cfg
+    from ctpn_tpu_torch.utils.image import load_image_bgr, prep_image, resize_im
+
+    reset_cfg()
+    stems = sorted(p.stem for p in (root / "raw" / "image").glob("*.jpg"))
+    per_bucket: dict = {}
+    for stem in stems[-SYNTH_HOLDOUT:]:
+        im = load_image_bgr(str(root / "raw" / "image" / f"{stem}.jpg"))
+        data = prep_image(resize_im(im, cfg.TEXT.SCALE, cfg.TEXT.MAX_SCALE)[0])[0]
+        per_bucket[data.shape[:2]] = per_bucket.get(data.shape[:2], 0) + 1
+    return sum(-(-n // 4) for n in per_bucket.values())
+
+
+def holdout_report(out: str) -> dict:
+    """``eval_holdout``'s JSON report (indented, between a ``{`` line and
+    the next ``}`` line) from its output."""
+    lines = out.splitlines()
+    i = lines.index("{")
+    return json.loads("\n".join(lines[i:lines.index("}", i) + 1]))
+
+
+def drive_train_synth() -> dict:
+    """The synthetic fine-tune through the entry points, from the shipped
+    artifact, in a git-ignored root: ``train_synth.prepare_corpus`` (timed:
+    the data preparation), ``eval_holdout`` (F before), ``train_synth`` at
+    batch 8 in two segments of 60 iterations with the export and the score,
+    ``eval_holdout`` on the export (F after). Gates: every logged loss
+    finite, the second segment's first logged iteration 61, the mean logged
+    model loss <= 0.30, geometric F @ 0.5 after >= before - 0.05, 2
+    fused-NMS launches per holdout batch and no other kernel in each
+    detection, and none in training."""
+    from ctpn_tpu_torch.cli.train_synth import prepare_corpus
+
+    root = SYNTH_ROOT
+    shutil.rmtree(root, ignore_errors=True)
+    common = ["--root", str(root), "--images", str(SYNTH_IMAGES),
+              "--holdout", str(SYNTH_HOLDOUT)]
+    report = {}
+    t0 = time.perf_counter()
+    prepare_corpus(str(root), SYNTH_IMAGES, SYNTH_HOLDOUT)
+    report["prepare_s"] = time.perf_counter() - t0
+    batches = holdout_batches(root)
+    detect = {"nms_fused": 2 * batches}
+
+    t0 = time.perf_counter()
+    out, counts = run_counted("ctpn_tpu_torch.cli.eval_holdout",
+                              ["--artifact", str(ARTIFACT)] + common)
+    report["eval_before_s"] = time.perf_counter() - t0
+    expect_launches(counts, detect, "eval_holdout, shipped artifact")
+    before = holdout_report(out)
+
+    t0 = time.perf_counter()
+    out, _ = run_counted("ctpn_tpu_torch.cli.train_synth", common + [
+        "--iters", str(SYNTH_ITERS), "--batch", str(SYNTH_BATCH), "--lr", "2e-5",
+        "--stepsize", "80", "--segment-iters", str(SYNTH_SEGMENT),
+        "--init-artifact", str(ARTIFACT)], timeout=900)
+    report["train_synth_s"] = time.perf_counter() - t0
+    per_process = launch_lines(out)
+    if len(per_process) != 3:
+        raise AssertionError(f"train_synth: {len(per_process)} LAUNCHES lines, expected "
+                             "the two segments' and its own")
+    expect_launches(per_process[0], {}, "train_synth segment 1 (training only)")
+    expect_launches(per_process[1], detect, "train_synth segment 2 (training, then "
+                    "the holdout detection)")
+    expect_launches(per_process[2], {}, "train_synth (the segments' parent)")
+    seg2 = out.split(f"== segment -> iter {SYNTH_ITERS} ==")[1]
+    resumed = iter_lines(seg2)
+    if not resumed or resumed[0][0] != SYNTH_SEGMENT + 1:
+        raise AssertionError(f"train_synth segment 2 logged {resumed}")
+    rows = [json.loads(ln) for ln in
+            (root / "output" / "metrics.jsonl").read_text().splitlines()]
+    steps = [r["step"] for r in rows]
+    # the solver logs each segment's first step and every 20th (DISPLAY)
+    want = [n for a, b in ((0, SYNTH_SEGMENT), (SYNTH_SEGMENT, SYNTH_ITERS))
+            for n in range(a + 1, b + 1) if n == a + 1 or n % 20 == 0]
+    if steps != want:
+        raise AssertionError(f"train_synth logged steps {steps}, expected {want}")
+    losses = {k: [r[k] for r in rows] for k in
+              ("total_loss", "model_loss", "rpn_cls_loss", "rpn_box_loss")}
+    if not all(np.isfinite(v).all() for v in losses.values()):
+        raise AssertionError(f"train_synth: non-finite losses {losses}")
+    mean_loss = float(np.mean(losses["model_loss"]))
+    if not mean_loss <= SYNTH_MAX_MEAN_LOSS:
+        raise AssertionError(f"train_synth: mean model loss {mean_loss} > "
+                             f"{SYNTH_MAX_MEAN_LOSS} ({losses['model_loss']})")
+    # sec_per_iter is the mean since the segment began: the steady steps
+    # are those after segment 2's second logged step (81-120)
+    seg2_rows = [(r["step"] - SYNTH_SEGMENT, r["sec_per_iter"]) for r in rows
+                 if r["step"] > SYNTH_SEGMENT]
+    (n0, t0_mean), (n1, t1_mean) = seg2_rows[1 if len(seg2_rows) > 2 else 0], seg2_rows[-1]
+    if n1 == n0:  # one logged step: the mean from the segment's start
+        n0, t0_mean = 0, 0.0
+    step_ms = 1e3 * (n1 * t1_mean - n0 * t0_mean) / (n1 - n0)
+    step_range = f"{SYNTH_SEGMENT + n0 + 1}-{SYNTH_SEGMENT + n1}"
+    ckpt = root / "output" / "checkpoints" / str(SYNTH_ITERS) / "state.pt"
+    report.update(model_loss=losses["model_loss"], mean_model_loss=mean_loss,
+                  ms_per_step=step_ms, steady_steps=step_range,
+                  checkpoint_mib=ckpt.stat().st_size / 2**20)
+
+    t0 = time.perf_counter()
+    out, counts = run_counted("ctpn_tpu_torch.cli.eval_holdout",
+                              ["--artifact", str(root / "artifact.npz")] + common)
+    report["eval_after_s"] = time.perf_counter() - t0
+    expect_launches(counts, detect, "eval_holdout, fine-tuned export")
+    after = holdout_report(out)
+    f_before = before["geometric@0.5"]["f_measure"]
+    f_after = after["geometric@0.5"]["f_measure"]
+    report.update(holdout_batches=batches, before=before, after=after)
+    log(f"  data preparation ({SYNTH_IMAGES + SYNTH_HOLDOUT} images): "
+        f"{report['prepare_s']:.2f} s; {SYNTH_ITERS} iterations at batch {SYNTH_BATCH} in two "
+        f"segments, resumed at {resumed[0][0]}: {step_ms:.2f} ms per step (steps "
+        f"{step_range}), mean model loss {mean_loss:.4f}; checkpoint "
+        f"{report['checkpoint_mib']:.2f} MiB")
+    log(f"  holdout ({SYNTH_HOLDOUT} images, {batches} batches): geometric F @ 0.5 "
+        f"{f_before:.4f} before, {f_after:.4f} after; launches per detection "
+        f"{detect}")
+    if not f_after >= f_before - SYNTH_F_DROP:
+        raise AssertionError(f"holdout geometric F @ 0.5 fell from {f_before} to {f_after}")
+    return report
+
+
 def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1941,7 +2191,7 @@ def main(argv=()) -> int:
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()
-    log(f"[1/14] device: {torch.cuda.get_device_name(0)} | {card} | "
+    log(f"[1/15] device: {torch.cuda.get_device_name(0)} | {card} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     # a checkout from before the resolve kernel (timed with --kernels-only
@@ -1950,7 +2200,7 @@ def main(argv=()) -> int:
     t0 = time.perf_counter()
     logs = _build.build(["nms_fused", "nms_bitmask", "stem_fused"]
                         + ["nms_resolve"] * has_resolve)
-    log(f"[2/14] build: {time.perf_counter() - t0:.2f} s")
+    log(f"[2/15] build: {time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
         for line in text.splitlines():
             # registers, shared memory, spills, and ptxas's performance
@@ -1958,7 +2208,7 @@ def main(argv=()) -> int:
             if any(k in line for k in ("registers", "smem", "spill", "(C75")):
                 log(f"  {name}: {line.strip()}")
 
-    log("[3/14] kernels against their plain versions")
+    log("[3/15] kernels against their plain versions")
     entries = [check_nms_kernel(dev), check_bitmask_kernel(dev), check_stem_kernel(dev)]
     if has_resolve:
         entries.append(check_resolve_kernel(dev))
@@ -1971,45 +2221,45 @@ def main(argv=()) -> int:
     if not has_resolve:
         raise AssertionError("ctpn_tpu_torch/ops/csrc/nms_resolve.cu is missing")
 
-    log("[4/14] main path (default config)")
+    log("[4/15] main path (default config)")
     default_recs = drive_main_path(dev, entries[0])
 
-    log("[5/14] serving path (TPU.NMS_FUSED False, TPU.FUSED_STEM True)")
+    log("[5/15] serving path (TPU.NMS_FUSED False, TPU.FUSED_STEM True)")
     drive_serving_path(dev, entries[1], entries[3], entries[2], default_recs)
     for entry in entries:
         if not entry["launches"]:
             raise AssertionError(f"{entry['name']} was never launched on its path")
 
-    log("[6/14] serve CLI")
+    log("[6/15] serve CLI")
     check_cli()
 
     shutil.rmtree(OUT, ignore_errors=True)
     try:
-        log("[7/14] O mode")
+        log("[7/15] O mode")
         drive_o_mode(dev)
 
-        log("[8/14] host post-processing (detect_image_host, H and O)")
+        log("[8/15] host post-processing (detect_image_host, H and O)")
         drive_host_path(dev)
 
-        log("[9/14] frozen artifacts (default and served routes)")
+        log("[9/15] frozen artifacts (default and served routes)")
         frozen = drive_frozen(dev)
 
-        log("[10/14] CLIs: demo, eval, export --frozen, demo --frozen, serve frozen")
+        log("[10/15] CLIs: demo, eval, export --frozen, demo --frozen, serve frozen")
         check_clis(frozen)
     finally:
         shutil.rmtree(OUT, ignore_errors=True)
 
-    log("[11/14] training: one step on the card against the CPU")
+    log("[11/15] training: one step on the card against the CPU")
     zero_launch_counts()
     t0 = time.perf_counter()
     train = {"parity": check_train_parity(dev)}
     seconds = {"parity": time.perf_counter() - t0}
-    log("[12/14] training: full-width steps at 608x912, batch 1 and 2, REMAT off and on")
+    log("[12/15] training: full-width steps at 608x912, batch 1 and 2, REMAT off and on")
     t0 = time.perf_counter()
     train["steps"] = time_train_steps(dev)
     seconds["steps"] = time.perf_counter() - t0
     expect_launches(launch_counts(), {}, "training phases 11-12")
-    log("[13/14] training: data, overfit, train, restore, export --ckpt, demo")
+    log("[13/15] training: data, overfit, train, restore, export --ckpt, demo")
     t0 = time.perf_counter()
     try:
         train["entry_points"] = drive_training_entry_points(dev)
@@ -2019,7 +2269,18 @@ def main(argv=()) -> int:
     train["seconds"] = seconds
     log("  train " + json.dumps(train))
 
-    log(f"[14/14] result (all phases {time.perf_counter() - t_start:.1f} s)")
+    log("[14/15] training quality: synthetic fine-tune, holdout before and after; "
+        "native host ops")
+    t0 = time.perf_counter()
+    try:
+        quality = {"native": check_native_host_ops(),
+                   "train_synth": drive_train_synth()}
+    finally:
+        shutil.rmtree(SYNTH_ROOT, ignore_errors=True)
+    quality["seconds"] = time.perf_counter() - t0
+    log("  quality " + json.dumps(quality))
+
+    log(f"[15/15] result (all phases {time.perf_counter() - t_start:.1f} s)")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

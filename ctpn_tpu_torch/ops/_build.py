@@ -1,10 +1,13 @@
-"""Build the hand-written CUDA kernels at first use and load them with ctypes.
+"""Build the hand-written CUDA kernels and the host C++ library at first use
+and load them with ctypes.
 
-Each ``ops/csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, under ``ctpn_tpu_torch/_build/``
-(git-ignored). The library's file name carries a hash of the source and
-flags, so an edited source rebuilds. Nothing here runs at import time: the
-CPU tests import every module of the package on a machine with no ``nvcc``.
+Each ``ops/csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a``, and each
+``ops/csrc/<name>.cpp`` (host code: ``native.py``'s geometry) with the host
+C++ compiler, into a shared library with a plain C interface, under
+``ctpn_tpu_torch/_build/`` (git-ignored). The library's file name carries a
+hash of the source and flags, so an edited source rebuilds. Nothing here
+runs at import time: the CPU tests import every module of the package on a
+machine with no ``nvcc``.
 
 Each C entry point takes its pointers and the stream as ``void*`` and
 returns ``cudaGetLastError()``; the Python wrappers declare ``argtypes``
@@ -20,7 +23,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Dict, Iterable, Optional, Sequence
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "ops" / "csrc"
@@ -37,6 +40,11 @@ EXTRA_FLAGS: Dict[str, Sequence[str]] = {
     "nms_fused": ("-fmad=false",),
     "nms_bitmask": ("-fmad=false",),
 }
+
+# host C++: no -march=native and no contraction of a*b+c into an FMA, which
+# would move the last bit of an IoU (and so an NMS decision at the
+# threshold) against the numpy oracles
+CXX_FLAGS = ("-O3", "-ffp-contract=off", "-fPIC", "-shared", "-std=c++17")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -56,20 +64,47 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to a CUDA toolkit")
 
 
+def cxx() -> Optional[str]:
+    """Path of the host C++ compiler (``$CXX``, then ``g++``, ``c++``), or
+    None when there is none."""
+    for cand in (os.environ.get("CXX"), "g++", "c++"):
+        found = cand and shutil.which(cand)
+        if found:
+            return found
+    return None
+
+
+def _source(name: str) -> Path:
+    cu = CSRC / f"{name}.cu"
+    return cu if cu.exists() else CSRC / f"{name}.cpp"
+
+
 def _flags(name: str) -> Sequence[str]:
+    if _source(name).suffix == ".cpp":
+        return CXX_FLAGS
     return NVCC_FLAGS + tuple(EXTRA_FLAGS.get(name, ()))
 
 
+def _compiler(name: str) -> str:
+    if _source(name).suffix == ".cu":
+        return nvcc()
+    found = cxx()
+    if found is None:
+        raise RuntimeError("no host C++ compiler found: set CXX")
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = _source(name).read_bytes()
     digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:
-    """Compile every named source whose library is missing, one ``nvcc``
-    process per source, all started together. Returns each started
-    build's compiler output (``-Xptxas=-v`` register and shared-memory
+    """Compile every named source whose library is missing, one compiler
+    process per source (``nvcc`` for ``.cu``, the host C++ compiler for
+    ``.cpp``), all started together. Returns each started build's compiler
+    output (for a kernel, the ``-Xptxas=-v`` register and shared-memory
     report); raises with the output if a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -78,7 +113,7 @@ def build(names: Iterable[str]) -> Dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_compiler(name), *_flags(name), "-o", str(tmp), str(_source(name))]
         procs[name] = (
             subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
@@ -95,7 +130,7 @@ def build(names: Iterable[str]) -> Dict[str, str]:
         os.replace(tmp, out)
     if failed:
         raise RuntimeError(
-            "nvcc failed for "
+            "compiler failed for "
             + ", ".join(failed)
             + "\n"
             + "\n".join(logs[n] for n in failed)

@@ -10,7 +10,10 @@
 * pretrained VGG bootstrap (`train.py:118-124`) through
   ``utils/weights.py::load_pretrained_into``;
 * a log line every ``DISPLAY`` steps with the speed (`train.py:169-175`)
-  and a line of ``metrics.jsonl`` beside it;
+  and a line of ``metrics.jsonl`` beside it; with
+  ``CTPN_TPU_TENSORBOARD=1``, rank 0 also writes six of its scalars as
+  TensorBoard summaries (the reference's `train.py:83-88`) into the log
+  directory;
 * one step function per shape bucket;
 * data parallel over ``torch.distributed`` when the process runs under
   ``torchrun`` with ``WORLD_SIZE > 1`` (``parallel/dp.py``); the global
@@ -48,6 +51,11 @@ from ctpn_tpu_torch.utils.device import resolve_device
 from ctpn_tpu_torch.utils.timer import Stopwatch
 
 
+# the scalars the JAX solver writes to TensorBoard, at the logged steps
+TB_SCALARS = ("total_loss", "model_loss", "rpn_cls_loss", "rpn_box_loss",
+              "learning_rate", "grad_norm")
+
+
 class SolverWrapper:
     def __init__(
         self,
@@ -82,6 +90,22 @@ class SolverWrapper:
         os.makedirs(self.output_dir, exist_ok=True)
         os.makedirs(self.log_dir, exist_ok=True)
         self._metrics_path = osp.join(self.log_dir, "metrics.jsonl")
+        self._tb = None  # the TensorBoard writer while train_model runs
+
+    def _open_tensorboard(self):
+        """A ``SummaryWriter`` on the log directory when
+        ``CTPN_TPU_TENSORBOARD=1`` on rank 0, else None; a missing
+        ``tensorboard`` package is one warning line (``metrics.jsonl``
+        carries the same scalars)."""
+        if os.environ.get("CTPN_TPU_TENSORBOARD") != "1" or self.rank != 0:
+            return None
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError as e:
+            print(f"warning: CTPN_TPU_TENSORBOARD=1 needs the tensorboard package "
+                  f"({e}); writing metrics.jsonl only", flush=True)
+            return None
+        return SummaryWriter(self.log_dir)
 
     # -- checkpointing ----------------------------------------------------
     def snapshot(self, state: TrainState) -> None:
@@ -151,6 +175,7 @@ class SolverWrapper:
 
         # the feature extent depends on the batch's bucket: a step per bucket
         step_fns: Dict = {}
+        self._tb = self._open_tensorboard()
         timer = Stopwatch()
         last: Dict[str, float] = {}
         start_iter = state.step
@@ -178,11 +203,17 @@ class SolverWrapper:
                 self.snapshot(state)
         finally:
             loader.close()
+            if self._tb is not None:
+                self._tb.close()
+                self._tb = None
         return last
 
     def _log(self, last: Dict[str, float], max_iters: int) -> None:
         with open(self._metrics_path, "a") as f:
             f.write(json.dumps(last) + "\n")
+        if self._tb is not None:
+            for k in TB_SCALARS:
+                self._tb.add_scalar(k, last[k], global_step=last["step"])
         print(
             f"iter: {last['step']} / {max_iters}, "
             f"total loss: {last['total_loss']:.4f}, "

@@ -1,6 +1,7 @@
 """The port stands alone: ``ctpn_tpu_torch`` and ``chip_smoke.py`` import
-neither JAX, flax nor any module of ``ctpn_tpu``, and the entry points never
-drop to the CPU quietly.
+neither JAX, flax nor any module of ``ctpn_tpu``, TensorFlow only inside
+the two reference readers of ``cli/convert_reference.py``, and the entry
+points never drop to the CPU quietly.
 
 The import check runs in a subprocess: this test process has JAX loaded
 already (``tests/conftest.py``).
@@ -29,6 +30,7 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in {forbidden!r})
 print(len(names))
 print(",".join(bad))
+print("tensorflow" in sys.modules)
 """
 
 
@@ -45,6 +47,7 @@ def test_package_imports_no_jax_and_no_ctpn_tpu():
     ).stdout.splitlines()
     assert int(out[0]) == len(_module_names()) >= 15
     assert out[1] == "", f"forbidden modules imported: {out[1]}"
+    assert out[2] == "False", "importing the package imported tensorflow"
     # the walk covers the serving slice's modules and the rest of inference
     assert {
         "ctpn_tpu_torch.serving", "ctpn_tpu_torch.cli.serve",
@@ -53,7 +56,9 @@ def test_package_imports_no_jax_and_no_ctpn_tpu():
         "ctpn_tpu_torch.inference.records", "ctpn_tpu_torch.cli.demo",
         "ctpn_tpu_torch.cli.export_model", "ctpn_tpu_torch.eval",
         "ctpn_tpu_torch.utils.host_ref", "ctpn_tpu_torch.utils.timer",
-        "ctpn_tpu_torch.postprocess.oracle",
+        "ctpn_tpu_torch.postprocess.oracle", "ctpn_tpu_torch.native",
+        "ctpn_tpu_torch.cli.train_synth", "ctpn_tpu_torch.cli.eval_holdout",
+        "ctpn_tpu_torch.cli.convert_reference",
     } <= set(_module_names())
 
 
@@ -81,6 +86,28 @@ def test_sources_name_no_forbidden_import():
         assert not bad, f"{osp.relpath(path, REPO)} imports {sorted(bad)}"
 
 
+def test_tensorflow_only_inside_the_readers():
+    """TensorFlow is imported nowhere in the package and ``chip_smoke.py``
+    but inside ``vars_from_tf_checkpoint`` and ``vars_from_frozen_pb``."""
+    readers = {"vars_from_tf_checkpoint", "vars_from_frozen_pb"}
+    paths = [osp.join(REPO, "chip_smoke.py")] + [
+        osp.join(REPO, *m.split(".")) + ".py" for m in _module_names()]
+    found = []
+    for path in paths:
+        if not osp.exists(path):  # a package: its __init__ holds no import of TF
+            continue
+        tree = ast.parse(open(path).read(), filename=path)
+        for fn in [None] + [n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)]:
+            body = ast.walk(fn) if fn else ast.iter_child_nodes(tree)
+            for node in body:
+                names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                         else [node.module or ""] if isinstance(node, ast.ImportFrom)
+                         else [])
+                if any(n.split(".")[0] == "tensorflow" for n in names):
+                    found.append((osp.relpath(path, REPO), fn.name if fn else None))
+    assert set(found) == {("ctpn_tpu_torch/cli/convert_reference.py", r) for r in readers}
+
+
 _NO_CUDA = """
 import contextlib, io
 import torch
@@ -89,8 +116,10 @@ from ctpn_tpu_torch.utils.weights import load_params
 from ctpn_tpu_torch.inference.pipeline import CTPNPredictor
 from ctpn_tpu_torch.models.factory import get_network
 from ctpn_tpu_torch.inference.frozen import FrozenCTPN, export_frozen
-from ctpn_tpu_torch.cli import demo, export_model
+from ctpn_tpu_torch.cli import demo, eval_holdout, export_model
+import tempfile
 art = "data/artifacts/ctpn_synth_f16.npz"
+root = tempfile.mkdtemp()
 params = load_params(art, device="cpu")
 for call in (lambda: CTPNPredictor(params), lambda: get_network("VGGnet_test"),
              lambda: load_params(art), lambda: FrozenCTPN("unused.npz"),
@@ -98,7 +127,9 @@ for call in (lambda: CTPNPredictor(params), lambda: get_network("VGGnet_test"),
              lambda: demo.main(["--artifact", art, "--output", "unused"]),
              lambda: demo.main(["--frozen", "unused.npz", "--output", "unused"]),
              lambda: export_model.main(["--artifact", art, "--out", "unused.npz",
-                                        "--frozen"])):
+                                        "--frozen"]),
+             lambda: eval_holdout.main(["--artifact", art, "--root", root,
+                                        "--images", "0", "--holdout", "1"])):
     try:
         with contextlib.redirect_stdout(io.StringIO()):  # the CLIs' progress lines
             call()
