@@ -5,7 +5,9 @@ holds each against its plain PyTorch version, drives every inference path
 artifacts, the CLIs) and the training path (the train step against the
 CPU, full-width steps, the solver, the data, train and export CLIs, a
 synthetic fine-tune scored on a holdout before and after), builds the
-native host library, and checks what comes out.
+native host library, runs the data-parallel paths (training over NCCL,
+sharded detection, a data-parallel frozen artifact) over every visible
+card, and checks what comes out.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only
@@ -117,7 +119,23 @@ Phases (any failure exits non-zero and prints no result line):
     per holdout batch of ``stream_detect`` and no other kernel in each
     detection, none in training. Prints ms per step at batch 8, the
     preparation seconds and the checkpoint's MiB.
-15. prints one ``{"kernels": [...]}`` line (four kernels), the card line,
+15. multi-card: ``python -m ctpn_tpu_torch.parallel.multicard`` in this
+    process over every visible card (``multicard.run()``; one card: two
+    replicas on it, one NCCL rank), with its gates: six NCCL DDP steps at
+    608x912 in bf16, one image per rank, with a falling loss; one step at
+    min(2, cards) ranks, 2x256x384, f32, against one process (phase 11's
+    tolerances); ``shard_detect_fn`` on the photo batch of 8, both routes,
+    equal bit for bit to one card's ``run_batch`` slice by slice, counts
+    equal to one card's on the whole batch (its records' worst pairing
+    printed), exact launches per card (2 fused NMS per replica on the
+    default route; 2 bitmask, 2 resolve, 1 stem on the served route),
+    >= 75 % of the committed lines; the default route exported with
+    ``dp_devices`` and run in a process without model code, equal bit for
+    bit to the live DP function. Launch counts are zeroed before the phase:
+    each kernel must launch in it. Prints the module's numbers: DP detect
+    img/s at global batch 8 and 32, host syncs per replica batch, DDP ms
+    per step and the NCCL share of a step.
+16. prints one ``{"kernels": [...]}`` line (four kernels), the card line,
     and last ``{"ok": true, "device": {...}}``.
 
 Every recall gate counts lines as ``ctpn-torch-eval`` does
@@ -1013,8 +1031,9 @@ def launch_counts() -> dict:
 
 
 def zero_launch_counts() -> None:
-    for fn in counted_wrappers().values():
-        fn.LAUNCHES = 0
+    from ctpn_tpu_torch.ops import _launches
+
+    _launches.init(*counted_wrappers().values())
 
 
 def check_route_launches(counts: dict, batches: int, what: str) -> None:
@@ -1338,7 +1357,7 @@ import numpy as np
 sys.modules["ctpn_tpu_torch.models"] = None  # the loader must not need model code
 import torch
 from ctpn_tpu_torch.inference.frozen import FrozenCTPN
-from ctpn_tpu_torch.ops import nms_bitmask, nms_fused, nms_resolve, stem_fused
+from ctpn_tpu_torch.ops import _launches, nms_bitmask, nms_fused, nms_resolve, stem_fused
 
 wrappers = {"nms_bitmask": nms_bitmask.suppression_bitmask,
             "nms_resolve": nms_resolve.nms_resolve,
@@ -1350,8 +1369,7 @@ for name, path in zip(sys.argv[3::2], sys.argv[4::2]):
     art = FrozenCTPN(path)
     art.run_batch(batch["data"], batch["infos"])  # load the program, warm up
     torch.cuda.synchronize()
-    for fn in wrappers.values():
-        fn.LAUNCHES = 0
+    _launches.init(*wrappers.values())
     out = art.run_batch(batch["data"], batch["infos"])
     out = [t.cpu().numpy() for t in out]
     report[name] = {"launches": {k: fn.LAUNCHES for k, fn in wrappers.items()},
@@ -2182,6 +2200,33 @@ def drive_train_synth() -> dict:
     return report
 
 
+# ------------------------------------------------------------- multi-card
+
+
+def drive_multicard() -> dict:
+    """``ctpn_tpu_torch.parallel.multicard.run()`` over every visible card
+    (its gates raise), then this phase's launch counts: every kernel ran on
+    the DP paths."""
+    from ctpn_tpu_torch.parallel import multicard
+
+    report = multicard.run()
+    counts = launch_counts()
+    idle = [name for name, n in counts.items() if not n]
+    if idle:
+        raise AssertionError(f"multi-card phase: {idle} never launched ({counts})")
+    train = report["training"]
+    log("  multicard " + json.dumps({
+        "cards": report["cards"], "replicas": report["replicas"],
+        "ranks": report["ranks"], "card_line": report["card_line"],
+        "descent_losses": train["descent"]["losses"],
+        "parity": train["parity"], "ddp_steps": train["ddp_steps"],
+        "inference": report["inference"], "frozen": report["frozen"],
+        "dp_detect": report["dp_detect"], "launches_in_phase": counts,
+        "seconds": {k: report[k] for k in ("training_s", "inference_s", "frozen_s",
+                                           "readings_s")}}))
+    return report
+
+
 def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2191,7 +2236,7 @@ def main(argv=()) -> int:
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()
-    log(f"[1/15] device: {torch.cuda.get_device_name(0)} | {card} | "
+    log(f"[1/16] device: {torch.cuda.get_device_name(0)} | {card} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     # a checkout from before the resolve kernel (timed with --kernels-only
@@ -2200,7 +2245,7 @@ def main(argv=()) -> int:
     t0 = time.perf_counter()
     logs = _build.build(["nms_fused", "nms_bitmask", "stem_fused"]
                         + ["nms_resolve"] * has_resolve)
-    log(f"[2/15] build: {time.perf_counter() - t0:.2f} s")
+    log(f"[2/16] build: {time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
         for line in text.splitlines():
             # registers, shared memory, spills, and ptxas's performance
@@ -2208,7 +2253,7 @@ def main(argv=()) -> int:
             if any(k in line for k in ("registers", "smem", "spill", "(C75")):
                 log(f"  {name}: {line.strip()}")
 
-    log("[3/15] kernels against their plain versions")
+    log("[3/16] kernels against their plain versions")
     entries = [check_nms_kernel(dev), check_bitmask_kernel(dev), check_stem_kernel(dev)]
     if has_resolve:
         entries.append(check_resolve_kernel(dev))
@@ -2221,45 +2266,45 @@ def main(argv=()) -> int:
     if not has_resolve:
         raise AssertionError("ctpn_tpu_torch/ops/csrc/nms_resolve.cu is missing")
 
-    log("[4/15] main path (default config)")
+    log("[4/16] main path (default config)")
     default_recs = drive_main_path(dev, entries[0])
 
-    log("[5/15] serving path (TPU.NMS_FUSED False, TPU.FUSED_STEM True)")
+    log("[5/16] serving path (TPU.NMS_FUSED False, TPU.FUSED_STEM True)")
     drive_serving_path(dev, entries[1], entries[3], entries[2], default_recs)
     for entry in entries:
         if not entry["launches"]:
             raise AssertionError(f"{entry['name']} was never launched on its path")
 
-    log("[6/15] serve CLI")
+    log("[6/16] serve CLI")
     check_cli()
 
     shutil.rmtree(OUT, ignore_errors=True)
     try:
-        log("[7/15] O mode")
+        log("[7/16] O mode")
         drive_o_mode(dev)
 
-        log("[8/15] host post-processing (detect_image_host, H and O)")
+        log("[8/16] host post-processing (detect_image_host, H and O)")
         drive_host_path(dev)
 
-        log("[9/15] frozen artifacts (default and served routes)")
+        log("[9/16] frozen artifacts (default and served routes)")
         frozen = drive_frozen(dev)
 
-        log("[10/15] CLIs: demo, eval, export --frozen, demo --frozen, serve frozen")
+        log("[10/16] CLIs: demo, eval, export --frozen, demo --frozen, serve frozen")
         check_clis(frozen)
     finally:
         shutil.rmtree(OUT, ignore_errors=True)
 
-    log("[11/15] training: one step on the card against the CPU")
+    log("[11/16] training: one step on the card against the CPU")
     zero_launch_counts()
     t0 = time.perf_counter()
     train = {"parity": check_train_parity(dev)}
     seconds = {"parity": time.perf_counter() - t0}
-    log("[12/15] training: full-width steps at 608x912, batch 1 and 2, REMAT off and on")
+    log("[12/16] training: full-width steps at 608x912, batch 1 and 2, REMAT off and on")
     t0 = time.perf_counter()
     train["steps"] = time_train_steps(dev)
     seconds["steps"] = time.perf_counter() - t0
     expect_launches(launch_counts(), {}, "training phases 11-12")
-    log("[13/15] training: data, overfit, train, restore, export --ckpt, demo")
+    log("[13/16] training: data, overfit, train, restore, export --ckpt, demo")
     t0 = time.perf_counter()
     try:
         train["entry_points"] = drive_training_entry_points(dev)
@@ -2269,7 +2314,7 @@ def main(argv=()) -> int:
     train["seconds"] = seconds
     log("  train " + json.dumps(train))
 
-    log("[14/15] training quality: synthetic fine-tune, holdout before and after; "
+    log("[14/16] training quality: synthetic fine-tune, holdout before and after; "
         "native host ops")
     t0 = time.perf_counter()
     try:
@@ -2280,7 +2325,14 @@ def main(argv=()) -> int:
     quality["seconds"] = time.perf_counter() - t0
     log("  quality " + json.dumps(quality))
 
-    log(f"[15/15] result (all phases {time.perf_counter() - t_start:.1f} s)")
+    log("[15/16] multi-card: DP training, DP detection on both routes, DP frozen "
+        "artifact (every visible card)")
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    drive_multicard()
+    log(f"  multi-card phase {time.perf_counter() - t0:.1f} s")
+
+    log(f"[16/16] result (all phases {time.perf_counter() - t_start:.1f} s)")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

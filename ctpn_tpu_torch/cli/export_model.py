@@ -8,7 +8,7 @@ variable dump:
     ctpn-torch-export --artifact data/artifacts/ctpn_synth_f16.npz \
         --out artifact.npz                      # f16 weights .npz
     ctpn-torch-export --artifact ... --out frozen.npz --frozen \
-        [--frozen-shapes 1x608x912,8x608x912] [--device cuda]
+        [--frozen-shapes 1x608x912,8x608x912] [--frozen-dp N] [--device cuda]
     ctpn-torch-export --ckpt <solver output dir> --out f.npz   # latest step
 
     --npy VGG_imagenet.npy           (backbone bootstrap)
@@ -17,7 +17,9 @@ variable dump:
 ``--ckpt`` reads the latest checkpoint of the port's solver
 (``training/checkpoint.py``; an orbax directory of the JAX package is
 refused). ``--frozen`` exports the detect programs for ``--device`` (the
-card by default); they run only on a device of that type. A directory
+card by default); they run only on a device of that type. ``--frozen-dp
+N`` exports them data-parallel over N devices (each shape's batch split
+on dim 0; the loader needs N devices). A directory
 ``--out`` (the JAX package's orbax artifact) is not written: ROADMAP E2.
 """
 
@@ -74,6 +76,11 @@ def main(argv=None):
         "artifact, e.g. 1x608x912,8x608x912 (default: every cfg.TPU.BUCKETS "
         "shape at batch 1)",
     )
+    p.add_argument(
+        "--frozen-dp", type=int, default=None,
+        help="export frozen programs data-parallel over this many devices "
+        "(batch dim-0 sharded; every shape's batch must divide evenly)",
+    )
     p.add_argument("--device", default="cuda",
                    help="device the frozen programs are exported for "
                         "(default cuda)")
@@ -125,7 +132,8 @@ def main(argv=None):
     if args.frozen:
         from ctpn_tpu_torch.inference.frozen import export_frozen
 
-        out = export_frozen(params, args.out, shapes=shapes, device=args.device)
+        out = export_frozen(params, args.out, shapes=shapes,
+                            dp_devices=args.frozen_dp, device=args.device)
     else:
         out = export_params_npz(params, args.out)
     print(f"wrote inference artifact to {out}")

@@ -20,10 +20,13 @@ Where the port differs from the JAX script:
   checkpoints keep the JAX solver's layout), one straight after another;
 * it runs on the card unless ``--device cpu`` is given, and takes config
   overrides (``--set KEY VALUE ...``) as the port's other CLIs do;
-* it is one process on one card, whose global batch is ``--batch``.
-  ``train_net`` splits the batch over ranks under ``torchrun``, but the
-  corpus preparation and the scoring here are not rank-aware (multi-card
-  runs: ROADMAP E1).
+* ``--nproc N`` trains data parallel over N ranks (one card each; gloo
+  ranks with ``--device cpu``): each training segment runs under
+  ``torchrun --standalone --nproc_per_node N``, whose ranks only train,
+  each on its slice of the global batch ``--batch``. The preparation, the
+  export and the scoring stay in this process. The JAX script gets the
+  same from its solver, which is data parallel over every local device by
+  default.
 """
 
 from __future__ import annotations
@@ -80,6 +83,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="run training in child processes of <= this many "
                         "iters each, resuming from the newest checkpoint "
                         "between them")
+    p.add_argument("--nproc", type=int, default=1,
+                   help="train data parallel: each training segment under "
+                        "torchrun with this many ranks (one card each)")
     p.add_argument("--device", default="cuda", help="default cuda")
     p.add_argument("--set", dest="set_cfg", nargs="*", default=None,
                    metavar="KEY VALUE", help="config overrides")
@@ -232,57 +238,45 @@ def score(res_dir: str, ref_dir: str, iou: float = 0.5) -> dict:
 # -- segments ------------------------------------------------------------------
 def run_segments(args: argparse.Namespace, argv: Sequence[str]) -> None:
     """Run ``args.iters`` as child processes of at most
-    ``args.segment_iters`` each, resuming where the checkpoints end."""
+    ``args.segment_iters`` each (one child without it), resuming where the
+    checkpoints end. With ``--nproc N`` each child is ``torchrun`` over N
+    ranks that only train; this process then exports and scores."""
     from ctpn_tpu_torch.training.checkpoint import saved_steps
 
     # "--flag=value" -> "--flag value", so the rewrites below find the flags
     base: List[str] = []
     for a in argv:
         base.extend(a.split("=", 1) if a.startswith("--") and "=" in a else [a])
-    if "--segment-iters" in base:
-        i = base.index("--segment-iters")
-        del base[i:i + 2]
+    for flag in ("--segment-iters", "--nproc"):
+        if flag in base:
+            i = base.index(flag)
+            del base[i:i + 2]
+    launch = [sys.executable, "-m"]
+    if args.nproc > 1:
+        launch += ["torch.distributed.run", "--standalone", "--nproc_per_node",
+                   str(args.nproc), "-m"]
     steps = saved_steps(osp.join(args.root, "output"))
     done = steps[-1] if steps else 0
     first = True
     while done < args.iters:
-        done = min(done + args.segment_iters, args.iters)
-        seg = [sys.executable, "-m", MODULE, *base]
+        done = min(done + (args.segment_iters or args.iters), args.iters)
+        seg = [*launch, MODULE, *base]
         if "--iters" in seg:
             seg[seg.index("--iters") + 1] = str(done)
         else:
             seg.extend(["--iters", str(done)])
         if (steps or not first) and "--restore" not in seg:
             seg.append("--restore")
-        if done < args.iters:
+        if (done < args.iters or args.nproc > 1) and "--train-only" not in seg:
             seg.append("--train-only")
         first = False
         print(f"== segment -> iter {done} ==", flush=True)
         subprocess.run(seg, check=True)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
-    argv = list(sys.argv[1:] if argv is None else argv)
-    args = parse_args(argv)
-    if args.segment_iters and args.iters > args.segment_iters:
-        run_segments(args, argv)
-        return
-
-    from ctpn_tpu_torch.config import cfg_from_list
-
-    if args.set_cfg:
-        cfg_from_list(args.set_cfg)
-    holdout = prepare_corpus(args.root, args.images, args.holdout)
-    metrics = train(
-        args.root, args.iters, batch=args.batch, lr=args.lr,
-        stepsize=args.stepsize, ohem=args.ohem, restore=args.restore,
-        init_artifact=args.init_artifact, data_parallel=not args.no_dp,
-        device=args.device,
-    )
-    print("final:", json.dumps(metrics), flush=True)
-    if args.train_only:
-        return
-
+def score_holdout(args: argparse.Namespace, holdout: Sequence[str]) -> None:
+    """Export the newest checkpoint, detect the holdout and print P/R/F
+    against both merges of its ground truth."""
     print("== export + detect holdout ==", flush=True)
     art = export(args.root)
     img_dir = osp.join(args.root, "raw", "image")
@@ -294,6 +288,46 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     for label, d in ref_dirs.items():
         print(f"holdout detection vs gt ({label}-merge):",
               json.dumps(score(res_dir, d), indent=2), flush=True)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = parse_args(argv)
+    from ctpn_tpu_torch.config import cfg_from_list
+    from ctpn_tpu_torch.parallel.dp import env_world_size
+
+    if args.set_cfg:
+        cfg_from_list(args.set_cfg)
+    rank = int(os.environ.get("RANK", "0"))
+    if env_world_size() > 1:  # a rank under torchrun: the parent prepared
+        metrics = train(
+            args.root, args.iters, batch=args.batch, lr=args.lr,
+            stepsize=args.stepsize, ohem=args.ohem, restore=args.restore,
+            init_artifact=args.init_artifact, device=args.device,
+        )
+        if rank == 0:
+            print("final:", json.dumps(metrics), flush=True)
+        return
+    if args.nproc > 1:
+        holdout = prepare_corpus(args.root, args.images, args.holdout)
+        run_segments(args, argv)
+        if not args.train_only:
+            score_holdout(args, holdout)
+        return
+    if args.segment_iters and args.iters > args.segment_iters:
+        run_segments(args, argv)
+        return
+
+    holdout = prepare_corpus(args.root, args.images, args.holdout)
+    metrics = train(
+        args.root, args.iters, batch=args.batch, lr=args.lr,
+        stepsize=args.stepsize, ohem=args.ohem, restore=args.restore,
+        init_artifact=args.init_artifact, data_parallel=not args.no_dp,
+        device=args.device,
+    )
+    print("final:", json.dumps(metrics), flush=True)
+    if not args.train_only:
+        score_holdout(args, holdout)
 
 
 if __name__ == "__main__":

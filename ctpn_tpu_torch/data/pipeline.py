@@ -12,14 +12,17 @@ blob queue that does not exist). This is the real thing:
 
 The workers build pinned CPU tensors (``assemble_batch(..., pin=True)``);
 the train loop uploads them with ``non_blocking=True``, so the copy
-overlaps the step before it. With several workers the batch order follows
-thread timing.
+overlaps the step before it. Batches reach the consumer in the order they
+were sampled, whatever order the workers finish them in: data-parallel
+ranks each run a loader over the same seeded layer and slice the batch
+they get, so they must get the same batch at every step.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Callable, Iterator, Optional
 
 from ctpn_tpu_torch.config import cfg
@@ -52,6 +55,9 @@ class PrefetchLoader:
             maxsize=depth or cfg.TPU.PREFETCH_DEPTH
         )
         self._lock = threading.Lock()
+        self._issued = 0  # sequence number of the next sample (under _lock)
+        self._next = 0  # sequence number the consumer takes next
+        self._ready: dict = {}  # finished out of order, by sequence number
         self._stop = threading.Event()
         self._threads = [
             threading.Thread(target=self._worker, daemon=True)
@@ -64,32 +70,45 @@ class PrefetchLoader:
         while not self._stop.is_set():
             try:
                 with self._lock:
+                    seq = self._issued
+                    self._issued += 1
                     item = self._sample()
                 batch = self._build(item)
-            except Exception as e:  # surface errors to the consumer
-                self._q.put(e)
+            except Exception as e:  # surface errors to the consumer, in order
+                self._q.put((seq, e))
                 return
             while not self._stop.is_set():
                 try:
-                    self._q.put(batch, timeout=0.1)
+                    self._q.put((seq, batch), timeout=0.1)
                     break
                 except queue.Full:
                     continue
 
     def get(self):
-        item = self._q.get()
+        while self._next not in self._ready:
+            seq, item = self._q.get()
+            self._ready[seq] = item
+        item = self._ready.pop(self._next)
+        self._next += 1
         if isinstance(item, Exception):
             raise item
         return item
 
-    def close(self) -> None:
+    def close(self, timeout: float = 60.0) -> None:
+        """Stop the workers and wait up to ``timeout`` s for them: a daemon
+        thread still inside a torch call when the interpreter exits aborts
+        the process."""
         self._stop.set()
-        # drain so workers blocked on put can exit
-        try:
-            while True:
-                self._q.get_nowait()
-        except queue.Empty:
-            pass
+        deadline = time.monotonic() + timeout
+        for t in self._threads:
+            while t.is_alive() and time.monotonic() < deadline:
+                # drain so a worker blocked on put can exit
+                try:
+                    while True:
+                        self._q.get_nowait()
+                except queue.Empty:
+                    pass
+                t.join(timeout=0.1)
 
     def __iter__(self) -> Iterator:
         while True:

@@ -120,8 +120,12 @@ class PascalVOC:
             with open(cache_file, "rb") as f:
                 return pickle.load(f)
         roidb = [self._load_annotation(idx) for idx in self.image_index]
-        with open(cache_file, "wb") as f:
+        # write aside, then rename: data-parallel ranks build the same cache
+        # at once, and none may read another's half-written file
+        tmp = f"{cache_file}.{os.getpid()}"
+        with open(tmp, "wb") as f:
             pickle.dump(roidb, f, pickle.HIGHEST_PROTOCOL)
+        os.replace(tmp, cache_file)
         return roidb
 
     def _load_annotation(self, index: str) -> dict:

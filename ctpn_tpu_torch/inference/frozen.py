@@ -33,6 +33,14 @@ format is tied to the version that wrote it), and the JAX package's
 StableHLO artifact. It runs the programs with TF32 matmuls off: the
 connector's least-squares sums need full f32, and a program does not carry
 the global precision flags that the live connector sets around itself.
+
+A data-parallel artifact (``export_frozen(..., dp_devices=N)``, as in the
+JAX package) holds one program per shape traced at the per-device batch
+``n / N`` and stored under the global key ``program/{n}x{h}x{w}``. The
+loader puts a copy of the weights and of each program on each of N devices
+(a program traced on card 0 is moved to card k by
+``torch.export.passes.move_to_device_pass``) and runs the dim-0 slices as
+``parallel/dp.py::shard_detect_fn`` does, returning the global ABI tuple.
 """
 
 from __future__ import annotations
@@ -47,6 +55,8 @@ import torch
 # the op registrations: a loaded program resolves its kernel nodes here
 from ctpn_tpu_torch.ops import nms_bitmask, nms_fused, nms_resolve, stem_fused  # noqa: F401
 from ctpn_tpu_torch.ops.proposal import Proposals
+from ctpn_tpu_torch.parallel.dp import shard_detect_fn
+from ctpn_tpu_torch.parallel.mesh import as_devices, data_devices
 from ctpn_tpu_torch.postprocess.connector import TextLines, full_f32_matmul
 from ctpn_tpu_torch.utils.device import resolve_device
 
@@ -107,6 +117,7 @@ def export_frozen(
     model: Optional[torch.nn.Module] = None,
     dp_devices: Optional[int] = None,
     device: Union[str, torch.device] = "cuda",
+    devices: Optional[Sequence[Union[str, torch.device]]] = None,
 ) -> str:
     """Export the full detect program + weights into ``out_path`` (.npz).
 
@@ -116,30 +127,44 @@ def export_frozen(
     traced on ``device`` and run only on a device of its type. The cfg at
     export time fixes the route (``TPU.NMS_FUSED``, ``TPU.FUSED_STEM``),
     the compute dtype and every threshold inside the programs.
+
+    ``dp_devices``: export each program data-parallel over that many
+    devices (weights replicated, batch dim-0 sharded). Every shape's batch
+    must divide evenly (``ValueError``) and that many devices of the type
+    must be visible (``RuntimeError``); the loader needs as many.
+    ``devices``, if given, is the list the run will use instead of the
+    visible ones (it may name one card twice); the programs are traced on
+    its first entry.
     """
-    dev = resolve_device(device)
-    if dp_devices and dp_devices > 1:
-        raise NotImplementedError(
-            f"dp_devices={dp_devices}: the port exports for one card; data-"
-            "parallel programs wait for a machine with more (ROADMAP E1)"
-        )
     from ctpn_tpu_torch.config import cfg
     from ctpn_tpu_torch.inference.pipeline import lines_kwargs, proposal_kwargs
     from ctpn_tpu_torch.models.factory import get_network
     from ctpn_tpu_torch.utils.weights import params_from_jax
 
+    dev = resolve_device(device)
+    if shapes is None:
+        shapes = [(1, bh, bw) for bh, bw in cfg.TPU.BUCKETS]
+    n_dev = int(dp_devices or 1)
+    if n_dev > 1:
+        bad = [tuple(s) for s in shapes if s[0] % n_dev]
+        if bad:
+            raise ValueError(f"batch of shapes {bad} not divisible by "
+                             f"dp_devices={n_dev}")
+        devs = data_devices(n_dev, dev) if devices is None else as_devices(devices)
+        if len(devs) < n_dev:
+            raise RuntimeError(f"dp_devices={n_dev} but only {len(devs)} devices given")
+        dev = devs[0]
     model = (model or get_network("VGGnet_test", dev)).to(dev).eval()
     state = {k: v.to(dev) for k, v in params_from_jax(params).items()}
     model.load_state_dict(state)  # checks names and shapes
     mode = mode or cfg.TEST.DETECT_MODE
-    if shapes is None:
-        shapes = [(1, bh, bw) for bh, bw in cfg.TPU.BUCKETS]
     program = _DetectProgram(model, proposal_kwargs(), lines_kwargs(mode))
 
     blobs: Dict[str, np.ndarray] = {}
     for n, bh, bw in shapes:
-        images = torch.zeros((n, bh, bw, 3), dtype=torch.uint8, device=dev)
-        info = torch.tensor([[bh, bw, 1.0]] * n, dtype=torch.float32, device=dev)
+        per = n // n_dev  # the batch of one device's program
+        images = torch.zeros((per, bh, bw, 3), dtype=torch.uint8, device=dev)
+        info = torch.tensor([[bh, bw, 1.0]] * per, dtype=torch.float32, device=dev)
         with torch.no_grad():
             exported = torch.export.export(program, (state, images, info), strict=False)
         exported.example_inputs = None  # else the archive keeps the weights too
@@ -161,6 +186,7 @@ def export_frozen(
         "text_max_scale": int(cfg.TEXT.MAX_SCALE),
         "test_scale": int(cfg.TEST.SCALES[0]),
         "test_max_size": int(cfg.TEST.MAX_SIZE),
+        "dp_devices": n_dev,
         "torch_version": torch.__version__,
     }
     if dev.type == "cuda":
@@ -176,9 +202,16 @@ def export_frozen(
 
 class FrozenCTPN:
     """Loader and runner of a frozen artifact, on ``device`` (default the
-    card; the artifact must have been exported for that device type)."""
+    card; the artifact must have been exported for that device type).
 
-    def __init__(self, path: str, device: Union[str, torch.device] = "cuda"):
+    A data-parallel artifact (``meta["dp_devices"]`` N > 1) runs over
+    ``devices``, default the first N visible devices of the type
+    (``mesh.data_devices``); fewer than N raise ``RuntimeError``. Several
+    entries may name one device (the CPU tests run N replicas on the CPU).
+    """
+
+    def __init__(self, path: str, device: Union[str, torch.device] = "cuda",
+                 devices: Optional[Sequence[Union[str, torch.device]]] = None):
         self.device = resolve_device(device)
         with np.load(path) as z:
             if "__meta__" not in z.files:
@@ -207,41 +240,87 @@ class FrozenCTPN:
                     f"{self.device.type!r}: re-export on this device "
                     "(`ctpn-torch-export --frozen --device ...`)"
                 )
-            self._params = {
-                name: torch.from_numpy(z[f"param/{name}"]).to(self.device)
-                for name in self.meta["param_names"]
-            }
+            self.devices = self._dp_devices(path, devices)
+            self.device = self.devices[0]
+            host = {name: torch.from_numpy(z[f"param/{name}"])
+                    for name in self.meta["param_names"]}
+            self._params = {dev: {k: v.to(dev) for k, v in host.items()}
+                            for dev in dict.fromkeys(self.devices)}
             self._blobs = {
                 tuple(int(d) for d in k.split("/")[1].split("x")): bytes(z[k])
                 for k in z.files if k.startswith("program/")
             }
-        self._programs: Dict[Tuple[int, int, int], Any] = {}
+        self._programs: Dict[Tuple[Tuple[int, int, int], torch.device], Any] = {}
+        self._sharded: Dict[Tuple[int, int, int], Any] = {}
+
+    def _dp_devices(self, path: str, devices) -> list:
+        """The devices the programs run on: ``[self.device]``, or N of the
+        artifact's device type for a data-parallel one."""
+        n_dev = int(self.meta.get("dp_devices") or 1)
+        if n_dev == 1:
+            return [self.device]
+        devs = (data_devices(n_dev, self.device) if devices is None
+                else as_devices(devices))
+        if len(devs) < n_dev:
+            raise RuntimeError(
+                f"{path}: its programs were exported for {n_dev} devices; "
+                f"{len(devs)} given"
+            )
+        if any(d.type != self.device.type for d in devs):
+            raise ValueError(f"devices {devs} are not all of type {self.device.type!r}")
+        return devs[:n_dev]
 
     @property
     def shapes(self):
         """Exported (batch, bucket_h, bucket_w) triples."""
         return sorted(self._blobs)
 
-    def _program(self, key):
-        if key not in self._programs:
+    def _program(self, key, dev: torch.device):
+        """The program of ``key`` on ``dev``, loaded once per device."""
+        if (key, dev) not in self._programs:
             loaded = torch.export.load(io.BytesIO(self._blobs[key]))
-            self._programs[key] = loaded.module()
-        return self._programs[key]
+            if dev.type == "cuda" and dev.index is not None:
+                # traced on one card, whose index its device constants carry
+                from torch.export.passes import move_to_device_pass
+
+                loaded = move_to_device_pass(loaded, str(dev))
+            self._programs[(key, dev)] = loaded.module()
+        return self._programs[(key, dev)]
+
+    def _run_sharded(self, key, x: np.ndarray, info: np.ndarray):
+        if key not in self._sharded:
+            def make_detect(dev):
+                program, params = self._program(key, dev), self._params[dev]
+
+                def detect(images, im_info):
+                    with torch.inference_mode():
+                        out = program(params, images, im_info)
+                    return Proposals(*out[:3]), TextLines(*out[3:])
+                return detect
+
+            self._sharded[key] = shard_detect_fn(make_detect, self.devices)
+        props, lines = self._sharded[key](x, info)
+        return (*props, *lines)
 
     def run_batch(self, images: np.ndarray, im_info: np.ndarray):
         """(N, bh, bw, 3) uint8 BGR + (N, 3) im_info -> the flat ABI tuple
-        of tensors on the artifact's device (queued; fetch with ``.cpu()``)."""
+        of tensors on the artifact's (first) device (queued; fetch with
+        ``.cpu()``)."""
         key = (int(images.shape[0]), int(images.shape[1]), int(images.shape[2]))
         if key not in self._blobs:
             raise ValueError(
                 f"no exported program for shape {key}; artifact has "
                 f"{self.shapes}"
             )
-        program = self._program(key)
-        x = torch.as_tensor(np.ascontiguousarray(images, np.uint8)).to(self.device)
-        info = torch.as_tensor(np.asarray(im_info, np.float32)).to(self.device)
+        x = np.ascontiguousarray(images, np.uint8)
+        info = np.asarray(im_info, np.float32)
+        if len(self.devices) > 1:
+            return self._run_sharded(key, x, info)
+        program = self._program(key, self.device)
+        x = torch.as_tensor(x).to(self.device)
+        info = torch.as_tensor(info).to(self.device)
         with torch.inference_mode(), full_f32_matmul():
-            return tuple(program(self._params, x, info))
+            return tuple(program(self._params[self.device], x, info))
 
     def detect_image(self, im_bgr: np.ndarray) -> np.ndarray:
         """One uint8 BGR image -> (M, 9) line records in ORIGINAL coords.

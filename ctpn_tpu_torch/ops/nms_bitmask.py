@@ -32,6 +32,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ctpn_tpu_torch.ops import _launches
 from ctpn_tpu_torch.ops.nms_fused import _check, _suppress
 
 BITS = 32
@@ -116,7 +117,7 @@ def _launch(boxes: torch.Tensor, valid: torch.Tensor, thresh: float) -> torch.Te
         )
     if err != 0:
         raise RuntimeError(f"nms_bitmask kernel launch failed: CUDA error {err}")
-    suppression_bitmask.LAUNCHES += 1
+    _launches.count(suppression_bitmask, dev)
     return mask
 
 
@@ -143,7 +144,8 @@ def suppression_bitmask(
     boxes: (B, N, 4) f32; valid: (B, N) bool. Calls the op
     ``torch.ops.ctpn_torch.suppression_bitmask``: CPU tensors run
     :func:`suppression_bitmask_ref`; CUDA tensors launch the kernel (adding
-    one to ``suppression_bitmask.LAUNCHES``) or raise.
+    one to ``suppression_bitmask.LAUNCHES`` and
+    ``LAUNCHES_BY_DEVICE``, see ``ops/_launches.py``) or raise.
     """
     _check(boxes, valid)
     if boxes.device.type not in ("cpu", "cuda"):
@@ -151,4 +153,4 @@ def suppression_bitmask(
     return torch.ops.ctpn_torch.suppression_bitmask(boxes, valid, float(thresh))
 
 
-suppression_bitmask.LAUNCHES = 0
+_launches.init(suppression_bitmask)

@@ -36,6 +36,8 @@ from typing import Optional
 
 import torch
 
+from ctpn_tpu_torch.ops import _launches
+
 BLOCK = 512  # boxes per block of the kernel's walk
 CLUSTER = 8  # CTAs per image; each keeps its own copy of the kept-box list
 # caps above this keep the kernel's kept-box lists in global scratch
@@ -173,7 +175,7 @@ def _launch(
         )
     if err != 0:
         raise RuntimeError(f"nms_fused kernel launch failed: CUDA error {err}")
-    nms_keep_sorted_fused.LAUNCHES += 1
+    _launches.count(nms_keep_sorted_fused, dev)
     return keep
 
 
@@ -205,7 +207,8 @@ def nms_keep_sorted_fused(
     boxes: (B, K, 4) f32; valid: (B, K) bool -> keep (B, K) bool. Calls the
     op ``torch.ops.ctpn_torch.nms_keep_sorted_fused``: CPU tensors run
     :func:`nms_keep_sorted_fused_ref`; CUDA tensors launch the kernel
-    (adding one to ``nms_keep_sorted_fused.LAUNCHES``) or raise.
+    (adding one to ``nms_keep_sorted_fused.LAUNCHES`` and
+    ``LAUNCHES_BY_DEVICE``, see ``ops/_launches.py``) or raise.
     """
     _check(boxes, valid)
     if boxes.device.type not in ("cpu", "cuda"):
@@ -215,4 +218,4 @@ def nms_keep_sorted_fused(
     )
 
 
-nms_keep_sorted_fused.LAUNCHES = 0
+_launches.init(nms_keep_sorted_fused)

@@ -37,6 +37,7 @@ import ctypes
 
 import torch
 
+from ctpn_tpu_torch.ops import _launches
 from ctpn_tpu_torch.ops.nms_bitmask import BITS, num_words
 
 
@@ -168,7 +169,7 @@ def _launch(mask: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
         )
     if err != 0:
         raise RuntimeError(f"nms_resolve kernel launch failed: CUDA error {err}")
-    nms_resolve.LAUNCHES += 1
+    _launches.count(nms_resolve, dev)
     return keep
 
 
@@ -191,7 +192,8 @@ def nms_resolve(mask: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
     Calls the op ``torch.ops.ctpn_torch.nms_resolve``: CPU tensors run
     :func:`nms_fixed_point_blocked`; CUDA tensors launch the kernel (adding
-    one to ``nms_resolve.LAUNCHES``) or raise.
+    one to ``nms_resolve.LAUNCHES`` and
+    ``LAUNCHES_BY_DEVICE``, see ``ops/_launches.py``) or raise.
     """
     _check(mask, valid)
     if mask.device.type not in ("cpu", "cuda"):
@@ -199,4 +201,4 @@ def nms_resolve(mask: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return torch.ops.ctpn_torch.nms_resolve(mask, valid)
 
 
-nms_resolve.LAUNCHES = 0
+_launches.init(nms_resolve)

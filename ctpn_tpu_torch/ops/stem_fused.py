@@ -60,6 +60,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ctpn_tpu_torch.ops import _launches
+
 CH = 64  # output channels of both convs (VGG16's block 1)
 CIN = 3
 
@@ -226,7 +228,7 @@ def _launch(
         )
     if err != 0:
         raise RuntimeError(f"stem_fused kernel launch failed: CUDA error {err}")
-    fused_stem_block.LAUNCHES += 1
+    _launches.count(fused_stem_block, x.device)
     return out
 
 
@@ -257,7 +259,8 @@ def fused_stem_block(
 
     Calls the op ``torch.ops.ctpn_torch.fused_stem_block``: CPU tensors run
     :func:`fused_stem_block_ref`; CUDA tensors launch the kernel (adding one
-    to ``fused_stem_block.LAUNCHES``) or raise.
+    to ``fused_stem_block.LAUNCHES`` and
+    ``LAUNCHES_BY_DEVICE``, see ``ops/_launches.py``) or raise.
     """
     _check(x, w1, b1, w2, b2)
     if x.device.type not in ("cpu", "cuda"):
@@ -265,4 +268,4 @@ def fused_stem_block(
     return torch.ops.ctpn_torch.fused_stem_block(x, w1, b1, w2, b2)
 
 
-fused_stem_block.LAUNCHES = 0
+_launches.init(fused_stem_block)

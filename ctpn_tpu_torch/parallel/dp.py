@@ -10,18 +10,34 @@ takes its dim-0 slice of the global batch. The train step makes the
 anchor-target draws for the global batch from a generator every rank
 seeds alike and slices them the same way, so N ranks give the update of
 one process on the whole batch.
+
+Detection (``shard_detect_fn``, the counterpart of the JAX
+``shard_detect_fn``) needs no collective: the weights are replicated once
+per device, each dim-0 slice of the batch is uploaded from the host
+straight to its device, one worker thread per replica issues that
+replica's detect program, and the outputs are gathered on the first
+device in batch order.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import os
-from typing import Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import TYPE_CHECKING, Callable, Dict, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn as nn
 
-from ctpn_tpu_torch.training.train_step import Batch
+from ctpn_tpu_torch.ops.proposal import Proposals
+from ctpn_tpu_torch.parallel.mesh import as_devices, data_devices, split_batch
+from ctpn_tpu_torch.postprocess.connector import TextLines, full_f32_matmul
+
+if TYPE_CHECKING:  # the frozen loader imports this module: no training code
+    from ctpn_tpu_torch.training.train_step import Batch
 
 
 def env_world_size() -> int:
@@ -31,10 +47,13 @@ def env_world_size() -> int:
 
 def init_data_parallel(device: torch.device) -> Tuple[int, int]:
     """Join the process group ``torchrun`` describes (NCCL on CUDA, gloo on
-    the CPU); returns (rank, world size). A CUDA rank uses the card of its
-    ``LOCAL_RANK``."""
+    the CPU); returns (rank, world size). A CUDA rank binds the group to
+    ``device``, the card of its ``LOCAL_RANK``."""
     if not dist.is_initialized():
-        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+        if device.type == "cuda":
+            dist.init_process_group("nccl", device_id=device)
+        else:
+            dist.init_process_group("gloo")
     return dist.get_rank(), dist.get_world_size()
 
 
@@ -53,3 +72,82 @@ def shard_batch(batch: Batch, rank: int, world: int) -> Batch:
         raise ValueError(f"global batch {n} does not split over {world} ranks")
     per = n // world
     return batch.rows(rank * per, (rank + 1) * per)
+
+
+# ------------------------------------------------------------- detection
+
+
+def replicate_model(model: nn.Module,
+                    devices: Sequence[Union[str, torch.device]]) -> Dict[torch.device, nn.Module]:
+    """``{device: copy of model on it}``, one copy of the weights per
+    distinct device (replicas named twice on one device share it: the
+    detect program does not mutate the model)."""
+    out: Dict[torch.device, nn.Module] = {}
+    for dev in as_devices(devices):
+        if dev not in out:
+            out[dev] = copy.deepcopy(model).to(dev).eval()
+    return out
+
+
+def _upload(x, dev: torch.device) -> torch.Tensor:
+    """A host slice (numpy or CPU tensor) straight to ``dev``."""
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    return x.to(dev)
+
+
+def shard_detect_fn(
+    make_detect: Callable[[torch.device], Callable],
+    devices: Sequence[Union[str, torch.device]] = None,
+) -> Callable[[np.ndarray, np.ndarray], Tuple[Proposals, TextLines]]:
+    """Batch-sharded detection over ``devices`` (default: every visible
+    card, ``mesh.data_devices()``).
+
+    ``make_detect(device)`` returns ``detect(images, im_info) ->
+    (Proposals, TextLines)`` for tensors on ``device`` (for instance
+    ``pipeline.build_detect_fn`` of that device's replica from
+    :func:`replicate_model`); it is called once per entry of ``devices``.
+    The returned ``fn(images, im_info)`` takes the global host batch
+    ((N, H, W, 3) uint8 and (N, 3), N divisible by the device count), runs
+    replica k on the k-th dim-0 slice and returns the outputs gathered on
+    ``devices[0]`` in batch order. ``fn.close()`` stops its threads.
+
+    Replica k always runs in the same worker thread of its own: cuDNN keeps
+    its chosen execution plans per thread, so a new thread per call would
+    choose them again on every call. TF32 matmuls are off from before the
+    workers start until after they join (``connector.full_f32_matmul``,
+    which the connector needs and whose flag is global to the process), so
+    every replica runs the same precision whichever thread is in its
+    connector.
+    """
+    devices = as_devices(data_devices() if devices is None else devices)
+    fns = [make_detect(dev) for dev in devices]
+    workers = [ThreadPoolExecutor(1, thread_name_prefix=f"replica{k}")
+               for k in range(len(devices))]
+
+    def run(k: int, images, im_info):
+        dev = devices[k]
+        guard = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+        with guard:
+            return fns[k](_upload(images, dev), _upload(im_info, dev))
+
+    def detect(images, im_info) -> Tuple[Proposals, TextLines]:
+        n = len(devices)
+        xs, infos = split_batch(images, n), split_batch(im_info, n)
+        with full_f32_matmul():
+            futures = [workers[k].submit(run, k, xs[k], infos[k]) for k in range(n)]
+            outs = [f.result() for f in futures]
+        home = devices[0]
+        props = Proposals(*(torch.cat([o[0][i].to(home) for o in outs])
+                            for i in range(len(Proposals._fields))))
+        lines = TextLines(*(torch.cat([o[1][i].to(home) for o in outs])
+                            for i in range(len(TextLines._fields))))
+        return props, lines
+
+    def close() -> None:
+        for w in workers:
+            w.shutdown()
+
+    detect.devices = devices
+    detect.close = close
+    return detect

@@ -29,6 +29,7 @@ import os.path as osp
 from typing import Dict, List, Optional, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from ctpn_tpu_torch.config import cfg
@@ -124,7 +125,11 @@ class SolverWrapper:
         })
 
     def restore(self, state: TrainState) -> TrainState:
-        """Load the latest checkpoint into ``state`` (unchanged if none)."""
+        """Load the latest checkpoint into ``state`` (unchanged if none).
+        Data-parallel ranks meet at a barrier first: only rank 0 writes
+        checkpoints."""
+        if self.world > 1:
+            dist.barrier()
         if checkpoint.latest_step(self.output_dir) is None:
             return state
         ckpt = checkpoint.load(self.output_dir)
@@ -235,7 +240,8 @@ def train_net(
     restore: bool = False,
     **kw,
 ) -> Dict[str, float]:
-    """Reference `train_net` entry (`train.py:217-227`)."""
+    """Reference `train_net` entry (`train.py:217-227`). A data-parallel
+    run leaves its process group when it ends."""
     sw = SolverWrapper(
         roidb,
         output_dir,
@@ -243,7 +249,12 @@ def train_net(
         pretrained_model=pretrained_model,
         **kw,
     )
-    print("Solving...")
-    out = sw.train_model(max_iters, restore=restore)
-    print("done solving")
+    try:
+        print("Solving...")
+        out = sw.train_model(max_iters, restore=restore)
+        print("done solving")
+    finally:
+        if sw.world > 1 and dist.is_initialized():
+            dist.barrier()  # rank 0 may still be writing the last checkpoint
+            dist.destroy_process_group()
     return out

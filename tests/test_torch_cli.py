@@ -235,3 +235,43 @@ def test_stopwatch_and_profile_trace(tmp_path):
     with open(tmp_path / "trace" / "trace.json") as f:
         events = json.load(f)["traceEvents"]
     assert any("mm" in str(e.get("name", "")) for e in events)
+
+
+def test_export_frozen_dp_cli(tmp_path):
+    """``ctpn-torch-export --frozen --frozen-dp 2 --device cpu`` writes a
+    data-parallel artifact that runs over two CPU replicas and gives the
+    live pipeline's outputs on the slice each replica runs; a batch that
+    does not divide fails before any export."""
+    from ctpn_tpu.data.synth import render_image
+    from ctpn_tpu_torch.cli.export_model import main as export_main
+    from ctpn_tpu_torch.config import cfg_from_list, reset_cfg
+    from ctpn_tpu_torch.inference.frozen import FrozenCTPN
+    from ctpn_tpu_torch.inference.pipeline import CTPNPredictor
+    from ctpn_tpu_torch.utils.weights import load_params
+
+    frozen = str(tmp_path / "frozen_dp.npz")
+    out = _cli("ctpn_tpu_torch.cli.export_model", "--artifact", ARTIFACT, "--out",
+               frozen, "--frozen", "--frozen-shapes", "2x64x96", "--frozen-dp", "2",
+               "--device", "cpu", "--set", *TINY)
+    assert "wrote inference artifact" in out
+    art = FrozenCTPN(frozen, device="cpu")
+    assert art.meta["dp_devices"] == 2 and art.shapes == [(2, 64, 96)]
+    assert len(art.devices) == 2
+    rng = np.random.RandomState(3)
+    images = np.stack([render_image(rng, width=96, height=64)[0][..., ::-1]
+                       for _ in range(2)]).astype(np.uint8)
+    infos = np.tile(np.array([64, 96, 1.0], np.float32), (2, 1))
+    got = art.run_batch(images, infos)
+    reset_cfg()
+    cfg_from_list(TINY)
+    try:
+        pred = CTPNPredictor(load_params(ARTIFACT, device="cpu"), device="cpu")
+        want = [pred.run_batch(images[k:k + 1], infos[k:k + 1]) for k in range(2)]
+    finally:
+        reset_cfg()
+    want = [torch.cat([(*w[0], *w[1])[i] for w in want]) for i in range(6)]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    with pytest.raises(ValueError, match="not divisible by dp_devices=2"):
+        export_main(["--out", str(tmp_path / "x.npz"), "--frozen", "--frozen-shapes",
+                     "1x64x96", "--frozen-dp", "2", "--device", "cpu"])

@@ -172,12 +172,119 @@ def _with_meta(src, dst, **changes):
     return dst
 
 
+@pytest.fixture(scope="module")
+def dp_env(tmp_path_factory):
+    """A ``dp_devices=2`` artifact of the small cfg at batch 2, and the live
+    ``shard_detect_fn`` outputs over two CPU replicas on the same batch."""
+    from ctpn_tpu_torch.config import cfg, reset_cfg
+    from ctpn_tpu_torch.inference.frozen import export_frozen
+    from ctpn_tpu_torch.inference.pipeline import build_detect_fn
+    from ctpn_tpu_torch.models.factory import get_network
+    from ctpn_tpu_torch.parallel import replicate_model, shard_detect_fn
+    from ctpn_tpu_torch.utils.weights import load_params, params_from_jax
+
+    reset_cfg()
+    _set(cfg, SMALL)
+    params = load_params(ARTIFACT, device="cpu")
+    model = get_network("VGGnet_test", "cpu")
+    model.load_state_dict(params_from_jax(params))
+    replicas = replicate_model(model, ["cpu", "cpu"])
+    detect = shard_detect_fn(lambda d: build_detect_fn(replicas[d]), ["cpu", "cpu"])
+    images, infos = _batch()
+    props, lines = detect(images, infos)
+    live = tuple(t.numpy() for t in (*props, *lines))
+    path = str(tmp_path_factory.mktemp("frozen_dp") / "ctpn_frozen_dp.npz")
+    export_frozen(params, path, shapes=[(2, *BUCKET)], dp_devices=2, device="cpu")
+    reset_cfg()
+    yield {"path": path, "images": images, "infos": infos, "live": live,
+           "params": params}
+    reset_cfg()
+
+
+def test_dp_artifact_matches_live_sharded(dp_env):
+    """A ``dp_devices=2`` artifact loaded over two CPU replicas equals the
+    live ``shard_detect_fn`` over two replicas bit for bit."""
+    from ctpn_tpu_torch.inference.frozen import FrozenCTPN
+
+    art = FrozenCTPN(dp_env["path"], device="cpu")
+    assert art.meta["dp_devices"] == 2 and art.shapes == [(2, *BUCKET)]
+    assert art.devices == [torch.device("cpu")] * 2
+    out = art.run_batch(dp_env["images"], dp_env["infos"])
+    for got, want in zip(out, dp_env["live"]):
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert int(out[5].sum()) > 0
+
+
+def test_dp_export_batch_must_divide(dp_env, tmp_path):
+    from ctpn_tpu_torch.inference.frozen import export_frozen
+
+    with pytest.raises(ValueError, match="not divisible by dp_devices=2"):
+        export_frozen(dp_env["params"], str(tmp_path / "x.npz"),
+                      shapes=[(3, *BUCKET)], dp_devices=2, device="cpu")
+
+
+def test_dp_artifact_matches_jax_dp_artifact(tmp_path):
+    """The setting of the JAX package's
+    ``test_frozen_dp_export_matches_live_sharded`` (random full-width
+    weights from ``PRNGKey(1)``, 64x80, pre-NMS 200, post-NMS 50, 16
+    lines, 8 devices): the port's ``dp_devices=8`` artifact over eight CPU
+    replicas against the JAX package's over eight virtual devices, counts
+    exact and records paired within 0.5 px."""
+    import jax
+    import jax.numpy as jnp
+
+    from ctpn_tpu.config import cfg as jcfg
+    from ctpn_tpu.config import reset_cfg as jreset
+    from ctpn_tpu.inference.frozen import FrozenCTPN as JaxFrozen
+    from ctpn_tpu.inference.frozen import export_frozen as jax_export
+    from ctpn_tpu.models.factory import get_network as jax_network
+    from ctpn_tpu_torch.config import cfg, reset_cfg
+    from ctpn_tpu_torch.inference.frozen import FrozenCTPN, export_frozen
+
+    bh, bw = 64, 80
+    setting = {"TEST.RPN_PRE_NMS_TOP_N": 200, "TEST.RPN_POST_NMS_TOP_N": 50,
+               "TPU.MAX_LINES": 16}
+    _set(jcfg, setting)
+    try:
+        params = jax_network("VGGnet_test").init(
+            jax.random.PRNGKey(1), jnp.zeros((1, bh, bw, 3), jnp.float32))["params"]
+        jpath = jax_export(params, str(tmp_path / "jax_dp.npz"), shapes=[(8, bh, bw)],
+                           mode="H", dp_devices=8)
+    finally:
+        jreset()
+    images = np.random.RandomState(5).randint(0, 256, (8, bh, bw, 3), np.uint8)
+    infos = np.tile(np.array([bh, bw, 1.0], np.float32), (8, 1))
+    want = [np.asarray(x) for x in JaxFrozen(jpath).run_batch(images, infos)]
+    reset_cfg()
+    _set(cfg, setting)
+    try:
+        path = export_frozen(jax.device_get(params), str(tmp_path / "port_dp.npz"),
+                             shapes=[(8, bh, bw)], mode="H", dp_devices=8, device="cpu")
+    finally:
+        reset_cfg()
+    art = FrozenCTPN(path, device="cpu")
+    assert art.meta["dp_devices"] == 8 and len(art.devices) == 8
+    got = [t.numpy() for t in art.run_batch(images, infos)]
+    np.testing.assert_array_equal(got[2], want[2])
+    np.testing.assert_array_equal(got[5], want[5])
+    for i, n in enumerate(got[5]):
+        a, b = got[3][i, :n], want[3][i, :n]
+        used = np.zeros(n, bool)
+        for row in a:
+            d = np.abs(b - row).max(axis=1)
+            d[used] = np.inf
+            j = int(d.argmin())
+            assert d[j] <= 0.5, d[j]
+            used[j] = True
+
+
 @pytest.mark.parametrize("case", ["device", "jax", "version", "dp"])
-def test_loader_refuses(frozen_env, tmp_path, case):
+def test_loader_refuses(frozen_env, dp_env, tmp_path, case):
     """A program exported for the card is not moved to the CPU, a JAX
     (StableHLO) artifact and another torch version are refused with a
-    pointer to re-export, and data-parallel export waits for DDP."""
-    from ctpn_tpu_torch.inference.frozen import FrozenCTPN, export_frozen
+    pointer to re-export, and a data-parallel artifact needs as many
+    devices as it was exported for."""
+    from ctpn_tpu_torch.inference.frozen import FrozenCTPN
 
     path = str(tmp_path / "a.npz")
     if case == "device":
@@ -194,8 +301,8 @@ def test_loader_refuses(frozen_env, tmp_path, case):
         with pytest.raises(RuntimeError, match="exported by torch 1.13.1"):
             FrozenCTPN(path, device="cpu")
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP E1"):
-            export_frozen({}, path, shapes=[(2, *BUCKET)], dp_devices=2, device="cpu")
+        with pytest.raises(RuntimeError, match="exported for 2 devices; 1 given"):
+            FrozenCTPN(dp_env["path"], device="cpu", devices=["cpu"])
 
 
 def test_matches_jax_frozen_artifact(frozen_env, tmp_path):

@@ -58,7 +58,9 @@ def test_package_imports_no_jax_and_no_ctpn_tpu():
         "ctpn_tpu_torch.utils.host_ref", "ctpn_tpu_torch.utils.timer",
         "ctpn_tpu_torch.postprocess.oracle", "ctpn_tpu_torch.native",
         "ctpn_tpu_torch.cli.train_synth", "ctpn_tpu_torch.cli.eval_holdout",
-        "ctpn_tpu_torch.cli.convert_reference",
+        "ctpn_tpu_torch.cli.convert_reference", "ctpn_tpu_torch.parallel.mesh",
+        "ctpn_tpu_torch.parallel.dp", "ctpn_tpu_torch.parallel.multicard",
+        "ctpn_tpu_torch.ops._launches",
     } <= set(_module_names())
 
 

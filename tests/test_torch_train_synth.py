@@ -177,6 +177,37 @@ def test_train_synth_two_segments_export_and_score(tmp_path):
         "res_" + osp.splitext(f)[0] + ".txt" for f in held]
 
 
+def test_train_synth_two_ranks(tmp_path):
+    """``--nproc 2 --device cpu``: this process prepares the corpus, each of
+    two segments trains under ``torchrun`` over two gloo ranks (one image of
+    the global batch of 2 each; rank 0 logs and writes the checkpoint), then
+    this process exports and scores the holdout."""
+    root = str(tmp_path / "run")
+    cmd = [sys.executable, "-m", "ctpn_tpu_torch.cli.train_synth", "--root", root,
+           "--images", "2", "--holdout", "2", "--iters", "2", "--segment-iters", "1",
+           "--batch", "2", "--nproc", "2", "--lr", "2e-5", "--init-artifact", ARTIFACT,
+           "--device", "cpu", "--set", *SMALL, "TEXT.SCALE", "64",
+           "TEXT.MAX_SCALE", "96", "ROOT_DIR", root]
+    out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"))
+    assert out.returncode == 0, out.stdout[-4000:] + out.stderr[-4000:]
+    text = out.stdout
+    assert text.count("== generating synthetic dataset ==") == 1  # the parent's only
+    seg1, seg2 = text.split("== segment -> iter 2 ==")
+    assert "== segment -> iter 1 ==" in seg1 and "holdout detection" not in seg1
+    assert seg1.count("== training ==") == 2  # two ranks train
+    assert [ln.split()[1] for ln in seg1.splitlines() if ln.startswith("iter: ")] == ["1"]
+    assert [ln.split()[1] for ln in seg2.splitlines() if ln.startswith("iter: ")] == ["2"]
+    assert text.count("final:") == 2  # rank 0 of each segment
+    assert checkpoint.saved_steps(osp.join(root, "output")) == [1, 2]
+    rows = [json.loads(ln) for ln in open(osp.join(root, "output", "metrics.jsonl"))]
+    assert [r["step"] for r in rows] == [1, 2]
+    assert np.isfinite([r["model_loss"] for r in rows]).all()
+    assert osp.exists(osp.join(root, "artifact.npz"))
+    assert seg2.index("== export + detect holdout ==") > seg2.rindex("final:")
+    assert "holdout detection vs gt (geometric-merge)" in seg2
+
+
 @pytest.fixture
 def tiny_roidb(tmp_path):
     reset_cfg()
