@@ -7,7 +7,14 @@ CPU, full-width steps, the solver, the data, train and export CLIs, a
 synthetic fine-tune scored on a holdout before and after), builds the
 native host library, runs the data-parallel paths (training over NCCL,
 sharded detection, a data-parallel frozen artifact) over every visible
-card, and checks what comes out.
+card, holds the captured detect programs (CUDA graphs, replayed) against
+the eager program, and checks what comes out.
+
+On the card every ``run_batch`` of the predictors and of the frozen
+artifacts replays a captured program after the first call of its shape
+(``ctpn_tpu_torch/inference/graphs.py``); the kernels' launch counts are
+recorded at capture and added per replay, so every launch gate below
+counts through replays.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only
@@ -62,8 +69,10 @@ Phases (any failure exits non-zero and prints no result line):
    reference lines found. Then ``stream_detect`` over the photos with the
    same accounting; ``nms_keep_sorted`` on the bitmask route at (8,12000)
    and (8,1000) with device-to-host syncs made an error; and ``run_batch``
-   at batch 8 timed with its resolve launches and host syncs per batch
-   (the plain resolve's sweep count must not move).
+   at batch 8 timed with its resolve launches and the host syncs made
+   while the batch is issued, the fetch outside (the plain resolve's sweep
+   count must not move; only the sync debug mode's own warning counts as
+   a sync).
 6. serve CLI: ``python3 -m ctpn_tpu_torch.cli.serve ... --set
    TPU.NMS_FUSED False TPU.FUSED_STEM True`` as a subprocess answers one
    POST with 200 and ``count > 0``.
@@ -131,11 +140,27 @@ Phases (any failure exits non-zero and prints no result line):
     default route; 2 bitmask, 2 resolve, 1 stem on the served route),
     >= 75 % of the committed lines; the default route exported with
     ``dp_devices`` and run in a process without model code, equal bit for
-    bit to the live DP function. Launch counts are zeroed before the phase:
-    each kernel must launch in it. Prints the module's numbers: DP detect
-    img/s at global batch 8 and 32, host syncs per replica batch, DDP ms
-    per step and the NCCL share of a step.
-16. prints one ``{"kernels": [...]}`` line (four kernels), the card line,
+    bit to the live DP function; no host sync while a replica's batch is
+    issued (a ``.item()`` must count as one, so the count is not blind).
+    Every replica replays its own captured program on its own stream.
+    Launch counts are zeroed before the phase: each kernel must launch in
+    it. Prints the module's numbers: DP detect img/s at global batch 8 and
+    32 beside one card's replayed and eager program, host syncs per replica
+    batch, the cards' kernel overlap, DDP ms per step and the NCCL share of
+    a step.
+16. captured programs, on the photo batch of 8, for the default route, the
+    served route, O mode and the frozen default route (exported here): the
+    eager program issued with host syncs made an error; the first
+    ``run_batch`` (warm-up run, capture); three replayed batches issued
+    with host syncs made an error (the fetch outside), with exactly 2
+    fused-NMS launches per batch (default, O, frozen) or 2 bitmask, 2
+    resolve and 1 stem (served); the first and replayed records against
+    the eager program's: counts equal, records paired within 0.5 px, the
+    largest float difference printed (expected 0.0). Prints eager and
+    replayed wall ms per batch with the fetch, the device busy share of
+    one batch of each (``torch.profiler``), capture seconds and the graph
+    pool's MiB.
+17. prints one ``{"kernels": [...]}`` line (four kernels), the card line,
     and last ``{"ok": true, "device": {...}}``.
 
 Every recall gate counts lines as ``ctpn-torch-eval`` does
@@ -181,6 +206,9 @@ BF16_TENSOR_OPS_PER_S = 989e12
 # 2 min + 2 max + 4 add/sub (sides), 2 max + 1 mul (inter), 2 add/sub +
 # 1 max (union), 1 mul (t * union), 1 compare
 IOU_PAIR_OPS = 16
+# the warning of CUDA's sync debug mode at each synchronizing operation (not
+# the notice printed by the first set_sync_debug_mode of a process)
+SYNC_WARNING = "called a synchronizing CUDA operation"
 
 
 def log(msg: str) -> None:
@@ -870,6 +898,20 @@ def plain_nms():
 
 
 @contextlib.contextmanager
+def eager_program(pred):
+    """Run ``pred.run_batch`` through the eager detect program instead of
+    its captured graphs: a replay would run the kernels it captured, not a
+    plain version swapped in (whose host syncs a capture refuses)."""
+    graphs = pred.graphs
+    pred.graphs = lambda images, im_info: pred.program(
+        torch.as_tensor(images).to(pred.device), torch.as_tensor(im_info).to(pred.device))
+    try:
+        yield
+    finally:
+        pred.graphs = graphs
+
+
+@contextlib.contextmanager
 def plain_stem():
     """Route the model's block 1 to the stem's plain version, on the card."""
     from ctpn_tpu_torch.models import vgg
@@ -957,7 +999,7 @@ def drive_main_path(dev, kernel_entry: dict) -> list:
     log(f"  main path: {total} lines on {len(PHOTOS)} photos, "
         f"nms_fused launches {launches}, reference recall {hits}/{n_ref}")
 
-    with plain_nms():
+    with plain_nms(), eager_program(pred):
         worst = 0.0
         for photo, im, (recs, _, _) in zip(PHOTOS, images, results):
             plain = pred.detect_image(im)
@@ -982,6 +1024,11 @@ def time_run_batch(pred, data: np.ndarray, infos: np.ndarray, iters: int = 10) -
         _, lines = pred.run_batch(data, infos)
         lines.count.cpu()
 
+    return time_batches(batch, iters)
+
+
+def time_batches(batch, iters: int = 10) -> float:
+    """Mean host seconds of ``batch()``, after one warm-up run."""
     batch()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1132,8 +1179,12 @@ def drive_serving_path(dev, bitmask_entry: dict, resolve_entry: dict,
         f"{near} within 0.5 px: the stem moves {n_recs - near}")
     del stock
 
-    for bucket in sorted(set(buckets)):  # build, cuDNN algorithm choice
+    for bucket in sorted(set(buckets)):  # build, cuDNN algorithm choice, capture
         pred.warmup(bucket, batch=8)
+    log(f"  served predictor: {len(pred.graphs.graphs)} captured programs in one "
+        f"pool of {pred.graphs.pool_mib()} MiB: "
+        + ", ".join(f"{k[1]}x{k[2]}x{k[3]} {v.capture_s:.3f} s"
+                    for k, v in pred.graphs.graphs.items()))
     bodies = [p.read_bytes() for p in PHOTOS]
     requests = list(range(len(PHOTOS))) + [4, 1, 2]  # 5 photos + 3 repeats
     srv = DetectionServer(pred, host="127.0.0.1", port=0, max_batch=8,
@@ -1229,14 +1280,14 @@ def drive_serving_path(dev, bitmask_entry: dict, resolve_entry: dict,
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            _, lines = pred.run_batch(data, infos)
-            lines.count.cpu()
+            _, lines = pred.run_batch(data, infos)  # the issue only
         finally:
             torch.cuda.set_sync_debug_mode("default")
+    lines.count.cpu()
     n_resolves = launch_counts()["nms_resolve"]
     if nms.nms_fixed_point_blocked.SWEEPS != sweeps:
         raise AssertionError("the served batch ran the plain resolve's sweeps")
-    n_syncs = sum("synchroniz" in str(w.message) for w in caught)
+    n_syncs = sum(SYNC_WARNING in str(w.message) for w in caught)
     sec = time_run_batch(pred, data, infos)
     log("  e2e " + json.dumps({
         "route": "NMS_FUSED False, FUSED_STEM True",
@@ -1404,30 +1455,43 @@ def run_frozen_probe(batch_file: Path, artifacts: dict) -> tuple:
         return report, {k: z[k] for k in z.files}
 
 
+def compare_outputs(got: list, want: list, what: str) -> tuple:
+    """Flat outputs (rois, roi_valid, roi_count, recs, line_valid,
+    line_count) against others on the same batch: counts equal, records
+    paired within 0.5 px; returns (worst pair px, largest float difference
+    of rois and records)."""
+    rois, _, roi_count, recs, _, line_count = got
+    if not (np.array_equal(roi_count, want[2]) and np.array_equal(line_count, want[5])):
+        raise AssertionError(f"{what}: counts differ: rois {roi_count.tolist()} vs "
+                             f"{want[2].tolist()}, lines {line_count.tolist()} vs "
+                             f"{want[5].tolist()}")
+    worst_px = max(rows_match(recs[i, :c], want[3][i, :c], 0.5)
+                   for i, c in enumerate(line_count))
+    diff = max(float(np.abs(rois - want[0]).max()), float(np.abs(recs - want[3]).max()))
+    return worst_px, diff
+
+
 def compare_frozen(arrays: dict, name: str, live: tuple, what: str) -> float:
-    """Frozen outputs against the live pipeline's on the same batch: counts
-    equal, records paired within 0.5 px; returns the largest float
-    difference of rois and records."""
+    """Frozen outputs against the live pipeline's on the same batch
+    (:func:`compare_outputs`); returns the largest float difference."""
     from ctpn_tpu_torch.inference.frozen import ABI
 
     got = [arrays[f"{name}/{key}"] for key in ABI]
-    rois, _, roi_count, recs, _, line_count = got
-    if not (np.array_equal(roi_count, live[2]) and np.array_equal(line_count, live[5])):
-        raise AssertionError(f"{what}: counts differ from the live pipeline: rois "
-                             f"{roi_count.tolist()} vs {live[2].tolist()}, lines "
-                             f"{line_count.tolist()} vs {live[5].tolist()}")
-    worst_px = max(rows_match(recs[i, :c], live[3][i, :c], 0.5)
-                   for i, c in enumerate(line_count))
-    diff = max(float(np.abs(rois - live[0]).max()), float(np.abs(recs - live[3]).max()))
-    log(f"  {what}: roi counts {roi_count.tolist()}, line counts "
-        f"{line_count.tolist()} equal to the live pipeline's; records paired, worst "
+    worst_px, diff = compare_outputs(got, live, what)
+    log(f"  {what}: roi counts {got[2].tolist()}, line counts "
+        f"{got[5].tolist()} equal to the live pipeline's; records paired, worst "
         f"{worst_px} px; largest float difference (rois, records) {diff}")
     return diff
 
 
-def live_outputs(pred, data, infos) -> tuple:
-    props, lines = pred.run_batch(data, infos)
-    return tuple(t.cpu().numpy() for t in (*props, *lines))
+def live_outputs(pred, data, infos) -> list:
+    return flat_outputs(pred.run_batch(data, infos))
+
+
+def flat_outputs(out) -> list:
+    """(Proposals, TextLines) on the card -> the flat ABI list on the host."""
+    props, lines = out
+    return [t.cpu().numpy() for t in (*props, *lines)]
 
 
 def drive_frozen(dev) -> Path:
@@ -2200,6 +2264,124 @@ def drive_train_synth() -> dict:
     return report
 
 
+# ------------------------------------------------------ captured programs
+
+
+def device_busy_share(fn) -> float:
+    """Summed device time of the kernels ``fn()`` runs (``torch.profiler``)
+    over the wall time of the window, which ends when the card is done.
+    The detect program runs on one stream at a time, so no kernel time
+    counts twice."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
+    return busy_us / 1e6 / window
+
+
+def drive_captured(dev) -> dict:
+    """The detect program captured once per shape and replayed
+    (``inference/graphs.py``) on the default route, the served route, O mode
+    and the frozen default route, on the photo batch of 8. For each: the
+    eager program issued with host syncs made an error; the first
+    ``run_batch`` (warm-up run and capture); three replayed batches issued
+    with host syncs made an error (the fetch outside), with exact launches
+    per batch; replayed records against the eager program's (counts exact,
+    records within 0.5 px, the largest float difference printed); eager and
+    replayed wall ms per batch with the fetch, the device busy share of
+    one batch of each, capture seconds and the graph pool's MiB."""
+    from ctpn_tpu_torch.config import cfg_from_list, reset_cfg
+    from ctpn_tpu_torch.inference.frozen import FrozenCTPN, FrozenPredictor, export_frozen
+    from ctpn_tpu_torch.inference.pipeline import CTPNPredictor
+    from ctpn_tpu_torch.utils.weights import load_params
+
+    data, infos = photo_batch()
+    x, info = torch.from_numpy(data).to(dev), torch.from_numpy(infos).to(dev)
+    params = load_params(str(ARTIFACT), device=dev)
+    replays = 3
+    cases = (("default", [], "H", False, {"nms_fused": 2}),
+             ("served", SERVED_ROUTE, "H", False,
+              {"nms_bitmask": 2, "nms_resolve": 2, "stem_fused": 1}),
+             ("O mode", [], "O", False, {"nms_fused": 2}),
+             ("frozen default", [], "H", True, {"nms_fused": 2}))
+    report = {}
+    OUT.mkdir(parents=True, exist_ok=True)
+    for name, sets, mode, frozen, want in cases:
+        reset_cfg()
+        cfg_from_list(sets)
+        if frozen:
+            path = OUT / "captured_frozen.npz"
+            export_frozen(params, str(path), shapes=[tuple(data.shape[:3])], device=dev)
+            art = FrozenCTPN(str(path), device=dev)
+            pred, eager = FrozenPredictor(art), art.program_on(dev)
+        else:
+            pred = CTPNPredictor(params, mode=mode, device=dev)
+            eager = pred.program
+        eager(x, info)  # cuDNN's choice, the device constants
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            want_out = eager(x, info)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        want_flat = flat_outputs(want_out)
+
+        t0 = time.perf_counter()
+        first = flat_outputs(pred.run_batch(data, infos))  # warm-up run, capture
+        first_s = time.perf_counter() - t0
+        graphs = art.runner if frozen else pred.graphs
+        (entry,) = graphs.graphs.values()
+
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs = [pred.run_batch(data, infos) for _ in range(replays)]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        outs = [flat_outputs(o) for o in outs]  # the fetch, outside
+        expect_launches(launch_counts(), {k: replays * n for k, n in want.items()},
+                        f"captured {name}: {replays} replayed batches of 8")
+        worst, diff = compare_outputs(first, want_flat, f"captured {name}, first call")
+        for out in outs:
+            w, d = compare_outputs(out, want_flat, f"captured {name}, replay")
+            worst, diff = max(worst, w), max(diff, d)
+
+        def eager_batch():
+            _, lines = eager(torch.from_numpy(data).to(dev), torch.from_numpy(infos).to(dev))
+            lines.count.cpu()
+
+        def replayed_batch():
+            _, lines = pred.run_batch(data, infos)
+            lines.count.cpu()
+
+        eager_s = time_batches(eager_batch)
+        replay_s = time_batches(replayed_batch)
+        row = {
+            "batch": "x".join(map(str, data.shape[:3])) + " uint8",
+            "eager_ms_per_batch": eager_s * 1e3,
+            "replayed_ms_per_batch": replay_s * 1e3,
+            "eager_device_busy_share": device_busy_share(eager_batch),
+            "replayed_device_busy_share": device_busy_share(replayed_batch),
+            "first_call_s": first_s, "capture_s": entry.capture_s,
+            "pool_mib": graphs.pool_mib(),
+            "launches_per_batch": want, "host_syncs_per_batch": 0,
+            "records_worst_pair_px": worst, "max_abs_diff": diff,
+            "line_counts": outs[0][5].tolist(), "iters": 10,
+        }
+        report[name] = row
+        log(f"  captured {name} " + json.dumps(row))
+        del pred, eager, graphs, entry
+    reset_cfg()
+    shutil.rmtree(OUT, ignore_errors=True)
+    return report
+
+
 # ------------------------------------------------------------- multi-card
 
 
@@ -2236,7 +2418,7 @@ def main(argv=()) -> int:
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()
-    log(f"[1/16] device: {torch.cuda.get_device_name(0)} | {card} | "
+    log(f"[1/17] device: {torch.cuda.get_device_name(0)} | {card} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     # a checkout from before the resolve kernel (timed with --kernels-only
@@ -2245,7 +2427,7 @@ def main(argv=()) -> int:
     t0 = time.perf_counter()
     logs = _build.build(["nms_fused", "nms_bitmask", "stem_fused"]
                         + ["nms_resolve"] * has_resolve)
-    log(f"[2/16] build: {time.perf_counter() - t0:.2f} s")
+    log(f"[2/17] build: {time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
         for line in text.splitlines():
             # registers, shared memory, spills, and ptxas's performance
@@ -2253,7 +2435,7 @@ def main(argv=()) -> int:
             if any(k in line for k in ("registers", "smem", "spill", "(C75")):
                 log(f"  {name}: {line.strip()}")
 
-    log("[3/16] kernels against their plain versions")
+    log("[3/17] kernels against their plain versions")
     entries = [check_nms_kernel(dev), check_bitmask_kernel(dev), check_stem_kernel(dev)]
     if has_resolve:
         entries.append(check_resolve_kernel(dev))
@@ -2266,45 +2448,45 @@ def main(argv=()) -> int:
     if not has_resolve:
         raise AssertionError("ctpn_tpu_torch/ops/csrc/nms_resolve.cu is missing")
 
-    log("[4/16] main path (default config)")
+    log("[4/17] main path (default config)")
     default_recs = drive_main_path(dev, entries[0])
 
-    log("[5/16] serving path (TPU.NMS_FUSED False, TPU.FUSED_STEM True)")
+    log("[5/17] serving path (TPU.NMS_FUSED False, TPU.FUSED_STEM True)")
     drive_serving_path(dev, entries[1], entries[3], entries[2], default_recs)
     for entry in entries:
         if not entry["launches"]:
             raise AssertionError(f"{entry['name']} was never launched on its path")
 
-    log("[6/16] serve CLI")
+    log("[6/17] serve CLI")
     check_cli()
 
     shutil.rmtree(OUT, ignore_errors=True)
     try:
-        log("[7/16] O mode")
+        log("[7/17] O mode")
         drive_o_mode(dev)
 
-        log("[8/16] host post-processing (detect_image_host, H and O)")
+        log("[8/17] host post-processing (detect_image_host, H and O)")
         drive_host_path(dev)
 
-        log("[9/16] frozen artifacts (default and served routes)")
+        log("[9/17] frozen artifacts (default and served routes)")
         frozen = drive_frozen(dev)
 
-        log("[10/16] CLIs: demo, eval, export --frozen, demo --frozen, serve frozen")
+        log("[10/17] CLIs: demo, eval, export --frozen, demo --frozen, serve frozen")
         check_clis(frozen)
     finally:
         shutil.rmtree(OUT, ignore_errors=True)
 
-    log("[11/16] training: one step on the card against the CPU")
+    log("[11/17] training: one step on the card against the CPU")
     zero_launch_counts()
     t0 = time.perf_counter()
     train = {"parity": check_train_parity(dev)}
     seconds = {"parity": time.perf_counter() - t0}
-    log("[12/16] training: full-width steps at 608x912, batch 1 and 2, REMAT off and on")
+    log("[12/17] training: full-width steps at 608x912, batch 1 and 2, REMAT off and on")
     t0 = time.perf_counter()
     train["steps"] = time_train_steps(dev)
     seconds["steps"] = time.perf_counter() - t0
     expect_launches(launch_counts(), {}, "training phases 11-12")
-    log("[13/16] training: data, overfit, train, restore, export --ckpt, demo")
+    log("[13/17] training: data, overfit, train, restore, export --ckpt, demo")
     t0 = time.perf_counter()
     try:
         train["entry_points"] = drive_training_entry_points(dev)
@@ -2314,7 +2496,7 @@ def main(argv=()) -> int:
     train["seconds"] = seconds
     log("  train " + json.dumps(train))
 
-    log("[14/16] training quality: synthetic fine-tune, holdout before and after; "
+    log("[14/17] training quality: synthetic fine-tune, holdout before and after; "
         "native host ops")
     t0 = time.perf_counter()
     try:
@@ -2325,14 +2507,20 @@ def main(argv=()) -> int:
     quality["seconds"] = time.perf_counter() - t0
     log("  quality " + json.dumps(quality))
 
-    log("[15/16] multi-card: DP training, DP detection on both routes, DP frozen "
+    log("[15/17] multi-card: DP training, DP detection on both routes, DP frozen "
         "artifact (every visible card)")
     zero_launch_counts()
     t0 = time.perf_counter()
     drive_multicard()
     log(f"  multi-card phase {time.perf_counter() - t0:.1f} s")
 
-    log(f"[16/16] result (all phases {time.perf_counter() - t_start:.1f} s)")
+    log("[16/17] captured programs: default route, served route, O mode, frozen "
+        "default route (CUDA graphs replayed against the eager program)")
+    t0 = time.perf_counter()
+    drive_captured(dev)
+    log(f"  captured-program phase {time.perf_counter() - t0:.1f} s")
+
+    log(f"[17/17] result (all phases {time.perf_counter() - t_start:.1f} s)")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -7,11 +7,15 @@ H-mode detect on one CUDA card.
 Runs ``CTPNPredictor`` with the shipped weights on a batch of the committed
 demo photos in the 608x912 bucket, after a warm-up, and prints one JSON
 object: the card (``nvidia-smi`` name and power limit), the mean wall time
-per batch, the mean device time of each stage (CUDA events: trunk + heads,
-proposal layer, detector), the device-busy share of a profiled window
+per batch of ``run_batch`` (the captured program replayed,
+``inference/graphs.py``) and of the eager program issued op by op, the
+mean device time of each stage of the eager program (CUDA events at its
+stage marks: trunk + heads, proposal layer, detector; a captured program
+has no marks), the device-busy share of a profiled window of each
 (summed kernel time over wall time; overlapping kernels would count
-twice, and the detect path runs on one stream), and the top kernels by
-device time from ``torch.profiler``. Needs CUDA; raises without it.
+twice, and the detect path runs on one stream at a time), and the top
+kernels of the replayed batch by device time from ``torch.profiler``.
+Needs CUDA; raises without it.
 """
 
 from __future__ import annotations
@@ -53,6 +57,29 @@ def _staged(pred: CTPNPredictor, images: torch.Tensor, info: torch.Tensor):
     return [events[i].elapsed_time(events[i + 1]) for i in range(3)]
 
 
+def _wall_ms(run, iters: int) -> float:
+    """Mean wall ms of ``run()``, after one warm-up run."""
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        run()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def _profiled(run):
+    """(wall ms, the CUDA kernels' profiler averages) of one ``run()``."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    return window_ms, [e for e in prof.key_averages()
+                       if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batch", type=int, default=8)
@@ -79,26 +106,15 @@ def main(argv=None) -> dict:
         _, lines = pred.run_batch(data, infos)
         lines.count.cpu()
 
-    run()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(args.iters):
-        run()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) / args.iters * 1e3
+    def run_eager():
+        _, lines = pred.program(torch.from_numpy(data).to(dev), torch.from_numpy(infos).to(dev))
+        lines.count.cpu()
 
+    wall_ms, eager_wall_ms = (_wall_ms(f, args.iters) for f in (run, run_eager))
     stages = np.mean([_staged(pred, images, info) for _ in range(args.iters)], 0)
-
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        window_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    window_ms, events = _profiled(run)
+    eager_window_ms, eager_events = _profiled(run_eager)
     dev_ms = lambda e: e.self_device_time_total / 1e3  # noqa: E731
-    busy_ms = sum(dev_ms(e) for e in events)
     top = sorted(events, key=dev_ms, reverse=True)[:15]
     result = {
         "card": card,
@@ -110,13 +126,15 @@ def main(argv=None) -> dict:
         "fused_stem": cfg.TPU.FUSED_STEM,
         "wall_ms_per_batch": wall_ms,
         "img_per_s": args.batch / wall_ms * 1e3,
+        "eager_wall_ms_per_batch": eager_wall_ms,
         "stage_device_ms": {
             "forward": float(stages[0]),
             "proposal_layer": float(stages[1]),
             "detect_lines": float(stages[2]),
         },
         "profiled_window_ms": window_ms,
-        "device_busy_share": busy_ms / window_ms,
+        "device_busy_share": sum(map(dev_ms, events)) / window_ms,
+        "eager_device_busy_share": sum(map(dev_ms, eager_events)) / eager_window_ms,
         "top_kernels": [
             {"name": e.key[:90], "device_ms": dev_ms(e), "calls": e.count}
             for e in top

@@ -41,6 +41,10 @@ loader puts a copy of the weights and of each program on each of N devices
 (a program traced on card 0 is moved to card k by
 ``torch.export.passes.move_to_device_pass``) and runs the dim-0 slices as
 ``parallel/dp.py::shard_detect_fn`` does, returning the global ABI tuple.
+
+On the card a loaded program runs as the live pipeline does: captured
+once per shape as a CUDA graph and replayed (``inference/graphs.py``; one
+wrapper per device, or one per replica through ``shard_detect_fn``).
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ import torch
 
 # the op registrations: a loaded program resolves its kernel nodes here
 from ctpn_tpu_torch.ops import nms_bitmask, nms_fused, nms_resolve, stem_fused  # noqa: F401
+from ctpn_tpu_torch.inference.graphs import DetectGraphs
 from ctpn_tpu_torch.ops.proposal import Proposals
 from ctpn_tpu_torch.parallel.dp import shard_detect_fn
 from ctpn_tpu_torch.parallel.mesh import as_devices, data_devices
@@ -251,7 +256,8 @@ class FrozenCTPN:
                 for k in z.files if k.startswith("program/")
             }
         self._programs: Dict[Tuple[Tuple[int, int, int], torch.device], Any] = {}
-        self._sharded: Dict[Tuple[int, int, int], Any] = {}
+        # DetectGraphs of the device, or the sharded fn over the devices
+        self.runner = None
 
     def _dp_devices(self, path: str, devices) -> list:
         """The devices the programs run on: ``[self.device]``, or N of the
@@ -279,28 +285,30 @@ class FrozenCTPN:
         """The program of ``key`` on ``dev``, loaded once per device."""
         if (key, dev) not in self._programs:
             loaded = torch.export.load(io.BytesIO(self._blobs[key]))
-            if dev.type == "cuda" and dev.index is not None:
-                # traced on one card, whose index its device constants carry
+            if dev.type == "cuda":
+                # traced on one card, whose index its device constants
+                # carry; a constant kept on the host by an older export
+                # would be copied in on every run (and a capture refuses
+                # a copy from pageable memory): every tensor goes to dev
                 from torch.export.passes import move_to_device_pass
 
-                loaded = move_to_device_pass(loaded, str(dev))
+                loaded = move_to_device_pass(loaded, str(as_devices([dev])[0]))
             self._programs[(key, dev)] = loaded.module()
         return self._programs[(key, dev)]
 
-    def _run_sharded(self, key, x: np.ndarray, info: np.ndarray):
-        if key not in self._sharded:
-            def make_detect(dev):
-                program, params = self._program(key, dev), self._params[dev]
+    def program_on(self, dev: torch.device):
+        """The eager detect(images, im_info) on ``dev``: the loaded program
+        of the batch's shape (a replica's slice of it when data parallel),
+        on tensors on ``dev``."""
+        params, n_dev = self._params[dev], len(self.devices)
 
-                def detect(images, im_info):
-                    with torch.inference_mode():
-                        out = program(params, images, im_info)
-                    return Proposals(*out[:3]), TextLines(*out[3:])
-                return detect
-
-            self._sharded[key] = shard_detect_fn(make_detect, self.devices)
-        props, lines = self._sharded[key](x, info)
-        return (*props, *lines)
+        def detect(images, im_info):
+            n, h, w = (int(d) for d in images.shape[:3])
+            program = self._program((n * n_dev, h, w), dev)
+            with torch.inference_mode(), full_f32_matmul():
+                out = program(params, images, im_info)
+            return Proposals(*out[:3]), TextLines(*out[3:])
+        return detect
 
     def run_batch(self, images: np.ndarray, im_info: np.ndarray):
         """(N, bh, bw, 3) uint8 BGR + (N, 3) im_info -> the flat ABI tuple
@@ -312,15 +320,15 @@ class FrozenCTPN:
                 f"no exported program for shape {key}; artifact has "
                 f"{self.shapes}"
             )
-        x = np.ascontiguousarray(images, np.uint8)
-        info = np.asarray(im_info, np.float32)
-        if len(self.devices) > 1:
-            return self._run_sharded(key, x, info)
-        program = self._program(key, self.device)
-        x = torch.as_tensor(x).to(self.device)
-        info = torch.as_tensor(info).to(self.device)
-        with torch.inference_mode(), full_f32_matmul():
-            return tuple(program(self._params[self.device], x, info))
+        for dev in dict.fromkeys(self.devices):  # loaded here: not thread-safe
+            self._program(key, dev)
+        if self.runner is None:
+            self.runner = (shard_detect_fn(self.program_on, self.devices)
+                           if len(self.devices) > 1
+                           else DetectGraphs(self.program_on(self.device), self.device))
+        props, lines = self.runner(np.ascontiguousarray(images, np.uint8),
+                                   np.asarray(im_info, np.float32))
+        return (*props, *lines)
 
     def detect_image(self, im_bgr: np.ndarray) -> np.ndarray:
         """One uint8 BGR image -> (M, 9) line records in ORIGINAL coords.

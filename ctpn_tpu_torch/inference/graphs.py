@@ -1,0 +1,201 @@
+"""Compiled detect programs: one captured CUDA graph per shape, replayed.
+
+The counterpart of the JAX package's compiled programs: ``ONE jit program
+per bucket shape`` (``ctpn_tpu/inference/pipeline.py``), kept per shape in
+``CTPNPredictor._fns`` and in the persistent compilation cache of
+``ctpn_tpu/utils/compilation.py``. PyTorch issues the same program one op
+at a time from Python (the BiLSTM alone is a loop of 57 steps per
+direction), so on the card the host sets the pace. Here the program is
+captured once into a ``torch.cuda.CUDAGraph`` and replayed: one launch of
+the whole graph per batch. A graph lives in its process only: there is no
+counterpart of the persistent cache.
+
+:class:`DetectGraphs` wraps a detect callable ``(images, im_info) ->``
+outputs (``(Proposals, TextLines)``, or the frozen program's flat tuple).
+
+* On a CUDA device, the first call for a key (device, batch, height,
+  width, input dtype and the caller's ``variant``: the mode and the NMS
+  route) copies the inputs into static input tensors, runs the program
+  once on the wrapper's own stream (the warm-up: kernel builds, their
+  ``cudaFuncSetAttribute``, cuDNN's plans, the stem's packed weights, the
+  device constants) and answers the call with that run's outputs; then it
+  captures the program on the same stream into the wrapper's memory pool
+  and keeps the graph, its static inputs and outputs, and the kernel
+  launches the capture recorded (``ops/_launches.py``).
+* Each later call copies the inputs into the static inputs (through
+  pinned memory, ``non_blocking``), replays the graph, adds the
+  recorded launches to the kernels' counts, and clones the outputs, so
+  that the next replay cannot overwrite a result still held.
+
+Nothing in a call waits for the card: the caller's stream waits for the
+wrapper's stream, and results are fetched with ``.cpu()`` as before. The
+warm-up and the capture run with TF32 matmuls off
+(``connector.full_f32_matmul``), so the graph keeps full-f32 matmuls
+whatever another thread sets later. A capture or replay that fails raises:
+no call falls back to the eager program. Like the JAX package's traced
+programs, a graph keeps the cfg it was captured under; ``variant`` names
+what the caller may change between calls.
+
+On the CPU the wrapper runs the program eagerly. ``backend`` replaces the
+CUDA graph machinery (the tests inject a fake one).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+import time
+from typing import Any, Callable, Dict, Hashable, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.utils._pytree import tree_leaves, tree_map
+
+from ctpn_tpu_torch.ops import _launches
+from ctpn_tpu_torch.postprocess.connector import full_f32_matmul
+
+# one warm-up and capture at a time in the process: entering a capture
+# synchronizes the card and empties the allocator's cache of every card,
+# which must not happen while another thread (a replica) is capturing
+_CAPTURE_LOCK = threading.Lock()
+
+
+def _as_tensor(x) -> torch.Tensor:
+    if isinstance(x, np.ndarray):
+        return torch.from_numpy(np.ascontiguousarray(x))
+    return torch.as_tensor(x)
+
+
+class CudaGraphBackend:
+    """Warm-up, capture and replay on one card, on a stream of the
+    wrapper's own, into a memory pool of its own."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        with torch.cuda.device(device):
+            self.stream = torch.cuda.Stream(device)
+            self.pool = torch.cuda.graph_pool_handle()
+
+    def upload(self, static: torch.Tensor, x: torch.Tensor) -> None:
+        """Copy the host tensor ``x`` into ``static`` on the wrapper's
+        stream, through pinned memory, without waiting for the card."""
+        with torch.cuda.stream(self.stream):
+            static.copy_(x.pin_memory(), non_blocking=True)
+
+    def run(self, fn: Callable[[], Any]) -> Any:
+        with torch.cuda.stream(self.stream):
+            return fn()
+
+    def capture(self, fn: Callable[[], Any]) -> Tuple[torch.cuda.CUDAGraph, Any]:
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: the other replicas' threads keep running while one
+        # captures; this thread may make no host sync inside
+        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                              capture_error_mode="thread_local"):
+            out = fn()
+        return graph, out
+
+    def replay(self, graph: torch.cuda.CUDAGraph) -> None:
+        with torch.cuda.stream(self.stream):
+            graph.replay()
+
+    def finish(self, out) -> Any:
+        """Make the caller's stream wait for the outputs and keep their
+        memory until that stream is done with them."""
+        caller = torch.cuda.current_stream(self.device)
+        caller.wait_stream(self.stream)
+        for t in tree_leaves(out):
+            t.record_stream(caller)
+        return out
+
+    def pool_bytes(self) -> int:
+        """Bytes reserved in the pool (the segments of its capture(s))."""
+        return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+                   if tuple(s.get("segment_pool_id", ())) == tuple(self.pool))
+
+
+class Captured:
+    """One captured program: the graph, its static inputs and outputs, the
+    kernel launches its capture recorded (and the tensors the kernels read
+    that it keeps alive), the seconds the capture took."""
+
+    def __init__(self, graph, inputs, outputs, recording, capture_s: float):
+        self.graph = graph
+        self.inputs = inputs
+        self.outputs = outputs
+        self.launches = recording.launches
+        self.held = recording.held
+        self.capture_s = capture_s
+
+
+class DetectGraphs:
+    """``detect(images, im_info)`` captured per shape on ``device`` and
+    replayed (see the module's docstring); eager on the CPU.
+
+    ``images`` and ``im_info`` are host arrays (numpy or CPU tensors).
+    ``variant()``, if given, is called on each call
+    and its value joins the key (e.g. the mode and ``cfg.TPU.NMS_FUSED``).
+    ``graphs`` maps each key to its :class:`Captured`.
+    """
+
+    def __init__(self, detect: Callable, device: torch.device,
+                 variant: Optional[Callable[[], Hashable]] = None,
+                 backend: Optional[Any] = None):
+        self.detect = detect
+        self.device = torch.device(device)
+        self.variant = variant
+        if backend is None and self.device.type == "cuda":
+            backend = CudaGraphBackend(self.device)
+        self.backend = backend
+        self.graphs: Dict[tuple, Captured] = {}
+        self._lock = threading.Lock()
+
+    def key(self, images: torch.Tensor) -> tuple:
+        extra = self.variant() if self.variant is not None else ()
+        return (self.device, *images.shape, images.dtype, extra)
+
+    def __call__(self, images, im_info):
+        x, info = _as_tensor(images), _as_tensor(im_info)
+        if x.device.type != "cpu" or info.device.type != "cpu":
+            raise ValueError("DetectGraphs takes host arrays (numpy or CPU tensors)")
+        if self.backend is None:  # the CPU: the eager program
+            return self.detect(x, info)
+        guard = (torch.cuda.device(self.device) if self.device.type == "cuda"
+                 else contextlib.nullcontext())
+        with self._lock, guard, torch.inference_mode():
+            key = self.key(x)
+            entry = self.graphs.get(key)
+            if entry is None:
+                out = self._first_call(key, x, info)
+            else:
+                self.backend.upload(entry.inputs[0], x)
+                self.backend.upload(entry.inputs[1], info)
+                self.backend.replay(entry.graph)
+                _launches.add(entry.launches)
+                # the next replay writes the same memory: hand out copies
+                out = self.backend.run(lambda: tree_map(torch.clone, entry.outputs))
+            return self.backend.finish(out)
+
+    def _first_call(self, key: tuple, x: torch.Tensor, info: torch.Tensor):
+        inputs = (torch.empty(x.shape, dtype=x.dtype, device=self.device),
+                  torch.empty(info.shape, dtype=info.dtype, device=self.device))
+        self.backend.upload(inputs[0], x)
+        self.backend.upload(inputs[1], info)
+
+        def program():
+            return self.detect(*inputs)
+
+        with _CAPTURE_LOCK, full_f32_matmul():
+            out = self.backend.run(program)  # the warm-up answers this call
+            t0 = time.perf_counter()
+            with _launches.recording() as rec:
+                graph, static_out = self.backend.capture(program)
+        self.graphs[key] = Captured(graph, inputs, static_out, rec,
+                                    time.perf_counter() - t0)
+        return out
+
+    def pool_mib(self) -> Optional[float]:
+        """MiB of the wrapper's graph memory pool (None off the card)."""
+        if not isinstance(self.backend, CudaGraphBackend):
+            return None
+        return self.backend.pool_bytes() / 2**20

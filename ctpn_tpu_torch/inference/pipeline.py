@@ -6,7 +6,10 @@ One batched pass per padded bucket: mean-subtract (on the device) -> VGG16
 connector (H or O mode). Only the final padded line records go back to the
 host, where ``unscale_records`` trims them, applies the line-union pass and
 maps them to original image coordinates. The same program
-(:func:`detect_program`) is what ``inference/frozen.py`` exports.
+(:func:`detect_program`) is what ``inference/frozen.py`` exports. On the
+card ``CTPNPredictor`` captures it once per shape as a CUDA graph and
+replays it (``inference/graphs.py``, the counterpart of the JAX package's
+program per bucket); on the CPU it runs eagerly.
 
 ``CTPNPredictor.detect_image_host`` is the other split, the reference's
 ``demo_pb.py``: the card runs the network only, and the proposal decode and
@@ -22,12 +25,13 @@ import numpy as np
 import torch
 
 from ctpn_tpu_torch.config import cfg
+from ctpn_tpu_torch.inference.graphs import DetectGraphs
 from ctpn_tpu_torch.inference.records import unscale_records
 from ctpn_tpu_torch.models.ctpn import CTPN, CTPNOutputs
 from ctpn_tpu_torch.ops.proposal import Proposals, proposal_layer
 from ctpn_tpu_torch.postprocess.connector import TextLines
 from ctpn_tpu_torch.postprocess.detector import detect_lines
-from ctpn_tpu_torch.utils.device import resolve_device
+from ctpn_tpu_torch.utils.device import device_constant, resolve_device
 from ctpn_tpu_torch.utils.image import load_image_bgr, prep_image, resize_im
 from ctpn_tpu_torch.utils.weights import params_from_jax
 
@@ -40,7 +44,9 @@ def forward_features(
     ``images``: (N, H, W, 3) uint8 (the wire format) or float32, BGR.
     ``model`` is a ``CTPN`` or any callable with its forward's contract.
     """
-    means = torch.tensor(cfg.PIXEL_MEANS, dtype=torch.float32, device=images.device)
+    pixel = tuple(float(m) for m in cfg.PIXEL_MEANS)
+    means = device_constant(("pixel_means", pixel), images.device,
+                            lambda: np.asarray(pixel, np.float32))
     return model(images.float() - means)
 
 
@@ -85,8 +91,11 @@ def detect_program(
 ) -> Tuple[Proposals, TextLines]:
     """The detect program: mean subtract, forward, proposals, lines.
 
-    Plain tensor code and the kernels' ops, with no host sync of its own,
-    so ``torch.export`` can trace it (``inference/frozen.py``).
+    Plain tensor code and the kernels' ops, with no host sync and no
+    tensor made from host data (the constants stay on the device,
+    ``utils/device.py::device_constant``), so that ``torch.export`` can
+    trace it (``inference/frozen.py``) and a CUDA graph can capture it
+    (``inference/graphs.py``).
     """
     mark = on_stage or (lambda name: None)
     outs = forward_features(model, images)
@@ -138,7 +147,11 @@ class CTPNPredictor:
 
     ``buckets_run`` records, in first-run order, each (height, width)
     bucket that ``run_batch`` has run: the server reports it where the JAX
-    package reports its compiled programs.
+    package reports its compiled programs. ``program`` is the eager detect
+    program (:func:`build_detect_fn`, on tensors on the device);
+    ``graphs`` captures it (``inference/graphs.py``): one program per
+    (batch, bucket, input dtype, mode, ``TPU.NMS_FUSED``) on the card,
+    none on the CPU.
     """
 
     def __init__(
@@ -155,17 +168,21 @@ class CTPNPredictor:
         self.model.load_state_dict(params_from_jax(params))
         self.model.eval()
         self.mode = mode or cfg.TEST.DETECT_MODE
-        self._detect = build_detect_fn(self.model, mode=self.mode)
+        self.program = build_detect_fn(self.model, mode=self.mode)
+        mode = self.mode  # (not self: no reference cycle holds the graphs)
+        self.graphs = DetectGraphs(
+            self.program, self.device,
+            variant=lambda: (mode, bool(cfg.TPU.NMS_FUSED)))
         self.buckets_run: Dict[Tuple[int, int], None] = {}
 
     def run_batch(self, images: np.ndarray, im_info: np.ndarray):
         """(N, bh, bw, 3) uint8/float32 batch -> (Proposals, TextLines) on
-        the device. Returns once the work is queued on the device (the
-        routes' own host syncs aside): callers fetch with ``.cpu()``."""
+        the device. On the card, replays the batch's captured program (the
+        first call of a shape runs it and captures it); returns once the
+        work is queued, with no host sync: callers fetch with ``.cpu()``."""
         self.buckets_run.setdefault(tuple(int(d) for d in images.shape[1:3]))
-        x = torch.as_tensor(np.ascontiguousarray(images)).to(self.device)
-        info = torch.as_tensor(np.asarray(im_info, np.float32)).to(self.device)
-        return self._detect(x, info)
+        return self.graphs(np.ascontiguousarray(images),
+                           np.asarray(im_info, np.float32))
 
     def run_padded(self, images, infos, batch_size: int):
         """Run a possibly-partial batch padded to ``batch_size`` (callers

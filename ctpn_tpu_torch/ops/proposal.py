@@ -24,6 +24,7 @@ import torch
 from ctpn_tpu_torch.ops.anchors import FEAT_STRIDE, NUM_ANCHORS, shifted_anchors
 from ctpn_tpu_torch.ops.boxes import bbox_transform_inv, box_sizes, clip_boxes
 from ctpn_tpu_torch.ops.nms import nms_keep_sorted, take_rows
+from ctpn_tpu_torch.utils.device import device_constant
 
 
 class Proposals(NamedTuple):
@@ -52,7 +53,7 @@ def proposal_layer(
         raise ValueError(f"expected {NUM_ANCHORS} anchors, got {a}")
     dev = cls_prob.device
     k = fh * fw * a
-    anchors = torch.from_numpy(shifted_anchors(fh, fw).copy()).to(dev)
+    anchors = device_constant(("anchors", fh, fw), dev, lambda: shifted_anchors(fh, fw))
 
     scores = cls_prob.reshape(n_img, k).float()
     deltas = bbox_pred.reshape(n_img, k, 4).float()

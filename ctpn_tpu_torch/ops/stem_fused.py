@@ -213,6 +213,9 @@ def _launch(
     if n == 0:
         return out
     w1k, b1k, w2k, b2k = packed_stem_weights(w1, b1, w2, b2)
+    # a captured launch reads them on every replay: the capture keeps them
+    # (the cache may drop them)
+    _launches.hold(w1k, b1k, w2k, b2k)
     with torch.cuda.device(x.device):
         err = lib.ctpn_stem_fused(
             x.data_ptr(),

@@ -13,15 +13,15 @@ one process on the whole batch.
 
 Detection (``shard_detect_fn``, the counterpart of the JAX
 ``shard_detect_fn``) needs no collective: the weights are replicated once
-per device, each dim-0 slice of the batch is uploaded from the host
-straight to its device, one worker thread per replica issues that
-replica's detect program, and the outputs are gathered on the first
-device in batch order.
+per device, one worker thread per replica stages its dim-0 slice of the
+batch in pinned host memory and replays that replica's captured detect
+program (``inference/graphs.py``) on its own stream, and the outputs are
+gathered on the first device in batch order. No step waits for a card, so
+the replicas run at once.
 """
 
 from __future__ import annotations
 
-import contextlib
 import copy
 import os
 from concurrent.futures import ThreadPoolExecutor
@@ -32,6 +32,7 @@ import torch
 import torch.distributed as dist
 import torch.nn as nn
 
+from ctpn_tpu_torch.inference.graphs import DetectGraphs
 from ctpn_tpu_torch.ops.proposal import Proposals
 from ctpn_tpu_torch.parallel.mesh import as_devices, data_devices, split_batch
 from ctpn_tpu_torch.postprocess.connector import TextLines, full_f32_matmul
@@ -89,13 +90,6 @@ def replicate_model(model: nn.Module,
     return out
 
 
-def _upload(x, dev: torch.device) -> torch.Tensor:
-    """A host slice (numpy or CPU tensor) straight to ``dev``."""
-    if isinstance(x, np.ndarray):
-        x = torch.from_numpy(np.ascontiguousarray(x))
-    return x.to(dev)
-
-
 def shard_detect_fn(
     make_detect: Callable[[torch.device], Callable],
     devices: Sequence[Union[str, torch.device]] = None,
@@ -112,8 +106,13 @@ def shard_detect_fn(
     replica k on the k-th dim-0 slice and returns the outputs gathered on
     ``devices[0]`` in batch order. ``fn.close()`` stops its threads.
 
-    Replica k always runs in the same worker thread of its own: cuDNN keeps
-    its chosen execution plans per thread, so a new thread per call would
+    Each replica is a :class:`~ctpn_tpu_torch.inference.graphs.DetectGraphs`
+    of its own (``fn.replicas``): on a card its own stream and graph memory
+    pool (two replicas on one card share neither), its slice staged in
+    pinned memory, its graph replayed; on the CPU the eager program. The
+    gather copies are ordered on the streams, with no host wait. Replica k
+    always runs in the same worker thread of its own: cuDNN keeps its
+    chosen execution plans per thread, so a new thread per call would
     choose them again on every call. TF32 matmuls are off from before the
     workers start until after they join (``connector.full_f32_matmul``,
     which the connector needs and whose flag is global to the process), so
@@ -121,26 +120,20 @@ def shard_detect_fn(
     connector.
     """
     devices = as_devices(data_devices() if devices is None else devices)
-    fns = [make_detect(dev) for dev in devices]
+    replicas = [DetectGraphs(make_detect(dev), dev) for dev in devices]
     workers = [ThreadPoolExecutor(1, thread_name_prefix=f"replica{k}")
                for k in range(len(devices))]
-
-    def run(k: int, images, im_info):
-        dev = devices[k]
-        guard = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
-        with guard:
-            return fns[k](_upload(images, dev), _upload(im_info, dev))
 
     def detect(images, im_info) -> Tuple[Proposals, TextLines]:
         n = len(devices)
         xs, infos = split_batch(images, n), split_batch(im_info, n)
         with full_f32_matmul():
-            futures = [workers[k].submit(run, k, xs[k], infos[k]) for k in range(n)]
+            futures = [workers[k].submit(replicas[k], xs[k], infos[k]) for k in range(n)]
             outs = [f.result() for f in futures]
         home = devices[0]
-        props = Proposals(*(torch.cat([o[0][i].to(home) for o in outs])
+        props = Proposals(*(torch.cat([o[0][i].to(home, non_blocking=True) for o in outs])
                             for i in range(len(Proposals._fields))))
-        lines = TextLines(*(torch.cat([o[1][i].to(home) for o in outs])
+        lines = TextLines(*(torch.cat([o[1][i].to(home, non_blocking=True) for o in outs])
                             for i in range(len(TextLines._fields))))
         return props, lines
 
@@ -149,5 +142,6 @@ def shard_detect_fn(
             w.shutdown()
 
     detect.devices = devices
+    detect.replicas = replicas
     detect.close = close
     return detect

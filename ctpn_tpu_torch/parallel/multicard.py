@@ -28,16 +28,19 @@ Four legs, every gate raising ``AssertionError``:
     reported (one card's records move with the batch size it runs: the
     same card at the per-replica batch is reported beside it); launches
     per card exactly 2 fused-NMS (default) or 2 bitmask, 2 resolve and 1
-    stem (served) per replica on it; and, with each photo in its own
-    bucket, at least 75 % of the 49 committed lines found.
+    stem (served) per replica on it, counted through the replays of the
+    replicas' captured programs; on cards, no host sync while one
+    replica's batch is issued; and, with each photo in its own bucket, at
+    least 75 % of the 49 committed lines found.
 (c) frozen. The default route exported with ``dp_devices`` at 8x608x912,
     loaded in a new process that cannot import ``ctpn_tpu_torch.models``:
     the launches per card from inside the programs as in (b), and outputs
     equal bit for bit to the live DP function's.
 (d) readings on cards, not gated: DP detect img/s at global batch 8 and 32
-    over 1, 2 and all cards (beside one card's program called directly,
-    and with several replicas also at a 0.1 ms thread switch interval);
-    the host syncs of one replica's batch, by the line that makes them;
+    over 1, 2 and all cards (beside one card's captured program and its
+    eager program called directly, and with several replicas also at a
+    0.1 ms thread switch interval); the cards' kernel overlap in one DP
+    call at global batch 32 over all cards (``kernel_overlap``);
     DDP ms per step at 2 images per rank over 1, 2 and all ranks, with the
     NCCL kernels' share of a step from ``torch.profiler``; the card line of
     ``nvidia-smi``.
@@ -78,6 +81,8 @@ COMMITTED = REPO / "docs" / "demo_results" / "H"
 PHOTOS = [COMMITTED / n for n in ("006.jpg", "007.jpg", "008.jpg", "009.jpg", "010.png")]
 SERVED_ROUTE = ["TPU.NMS_FUSED", "False", "TPU.FUSED_STEM", "True"]
 DESCENT_STEPS = 6
+# the warning of CUDA's sync debug mode at each synchronizing operation
+SYNC_WARNING = "called a synchronizing CUDA operation"
 RANK_TIMEOUT = 900  # seconds for one group of ranks
 
 # bucket of each leg: (a) descent and timing, (a) parity, (b)-(d) detection
@@ -550,7 +555,10 @@ def _flat(props, lines) -> list:
 def host_syncs(fn) -> dict:
     """The device-to-host syncs that ``fn()`` makes (CUDA's sync debug
     mode), in all and by the Python line that made them: a replica's
-    issuing thread waits at each one for its card to drain."""
+    issuing thread waits at each one for its card to drain. Only the
+    mode's own warning counts ("called a synchronizing CUDA operation"),
+    not the notice that the first ``set_sync_debug_mode`` of a process
+    prints from ``torch/cuda/__init__.py``."""
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -559,7 +567,7 @@ def host_syncs(fn) -> dict:
         finally:
             torch.cuda.set_sync_debug_mode("default")
     sites = Counter(f"{Path(w.filename).name}:{w.lineno}" for w in caught
-                    if "synchroniz" in str(w.message))
+                    if SYNC_WARNING in str(w.message))
     return {"count": sum(sites.values()), "sites": dict(sorted(sites.items()))}
 
 
@@ -640,8 +648,13 @@ def leg_inference(devices: List[torch.device], small: bool) -> dict:
                                      f"batch {len(data)}, {route} route", atol=None)
         match = outputs_match(got, want, f"DP detect against one card, {route} route",
                               atol=None)
-        if home.type == "cuda":  # upload and program of one replica's slice
+        if home.type == "cuda":  # upload and replay of one replica's slice
+            if host_syncs(lambda: torch.ones(1, device=home).item())["count"] != 1:
+                raise AssertionError("host_syncs does not see the sync of .item()")
             row_syncs = host_syncs(lambda: pred.run_batch(data[:per], infos[:per]))
+            if row_syncs["count"]:
+                raise AssertionError(f"{route} route: a replica's batch makes host "
+                                     f"syncs: {row_syncs}")
         row = {"launches_per_card": counts, "equal_to_one_card_per_slice": True,
                "per_replica_batch": per, **match,
                "one_card_batch_effect_worst_pair_px": batch_effect["worst_pair_px"]}
@@ -770,10 +783,60 @@ def time_detect(detect, data, infos, devices, iters: int = 5) -> float:
     return (time.perf_counter() - t0) / iters
 
 
-def leg_readings(devices: List[torch.device], cards: int) -> list:
+def _merge(spans: list) -> list:
+    """Sorted, merged [start, end) intervals."""
+    out = []
+    for lo, hi in sorted(spans):
+        if out and lo <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], hi)
+        else:
+            out.append([lo, hi])
+    return out
+
+
+def kernel_overlap(fn, devices: List[torch.device]) -> dict:
+    """Where the cards' kernels ran during one call of ``fn()``, from the
+    device events of ``torch.profiler``: each card's busy ms (the union of
+    its kernels' intervals), the ms in which any card and in which every
+    card was busy, and the concurrency, the summed busy ms over the ms any
+    card was busy (1 when the cards take turns, the card count when all
+    run at once)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for d in devices:
+        _sync(d)
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        for d in devices:
+            _sync(d)
+    spans: Dict[int, list] = {}
+    for e in prof.events():
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            spans.setdefault(int(e.device_index), []).append(
+                (e.time_range.start, e.time_range.end))
+    merged = {k: _merge(v) for k, v in sorted(spans.items())}
+    edges = sorted((t, step) for iv in merged.values() for lo, hi in iv
+                   for t, step in ((lo, 1), (hi, -1)))
+    any_us = all_us = 0.0
+    busy, last = 0, None
+    for t, step in edges:
+        if last is not None:
+            any_us += (t - last) * (busy > 0)
+            all_us += (t - last) * (busy == len(merged) > 0)
+        busy, last = busy + step, t
+    busy_ms = {str(k): sum(hi - lo for lo, hi in iv) / 1e3 for k, iv in merged.items()}
+    return {"cards_with_kernels": len(merged), "busy_ms_per_card": busy_ms,
+            "any_card_busy_ms": any_us / 1e3, "all_cards_busy_ms": all_us / 1e3,
+            "concurrency": (sum(busy_ms.values()) * 1e3 / any_us) if any_us else None}
+
+
+def leg_readings(devices: List[torch.device], cards: int) -> dict:
     """(d): DP detect img/s on the default route at global batch 8 and 32
     over 1, 2 and all cards (and two replicas on one card when one card is
-    visible), beside one card's detect program called directly."""
+    visible), beside one card's captured program (what
+    ``CTPNPredictor.run_batch`` runs) and its eager program, called
+    directly; and the cards' kernel overlap in one DP call at global batch
+    32 over all cards."""
+    from ctpn_tpu_torch.inference.graphs import DetectGraphs
     from ctpn_tpu_torch.inference.pipeline import build_detect_fn
     from ctpn_tpu_torch.models.factory import get_network
     from ctpn_tpu_torch.parallel.dp import replicate_model, shard_detect_fn
@@ -789,19 +852,22 @@ def leg_readings(devices: List[torch.device], cards: int) -> list:
         lists.append(all_cards * 2)
     data, infos = photo_batch(tuple(FULL["detect"]))
     home, plain = all_cards[0], build_detect_fn(replicas[all_cards[0]])
+    replayed = DetectGraphs(plain, home)  # what CTPNPredictor.run_batch runs
 
-    def one_card(x, info):  # what CTPNPredictor.run_batch runs, no threads
+    def eager(x, info):  # the program issued op by op, pageable uploads
         return plain(torch.from_numpy(x).to(home), torch.from_numpy(info).to(home))
 
     rows = []
-    for batch in (8, 32):
-        reps = batch // len(data)
-        sec = time_detect(one_card, np.concatenate([data] * reps),
-                          np.concatenate([infos] * reps), [home])
-        rows.append({"path": "one card, no threads", "cards": 1, "replicas": 1,
-                     "global_batch": batch, "ms_per_batch": sec * 1e3,
-                     "img_per_s": batch / sec, "iters": 5})
-        log("  (d) dp detect " + json.dumps(rows[-1]))
+    for path, one_card in (("one card, replayed", replayed), ("one card, eager", eager)):
+        for batch in (8, 32):
+            reps = batch // len(data)
+            sec = time_detect(one_card, np.concatenate([data] * reps),
+                              np.concatenate([infos] * reps), [home])
+            rows.append({"path": path, "cards": 1, "replicas": 1,
+                         "global_batch": batch, "ms_per_batch": sec * 1e3,
+                         "img_per_s": batch / sec, "iters": 5})
+            log("  (d) dp detect " + json.dumps(rows[-1]))
+    overlap = None
     # the replicas' threads share the interpreter lock: a thread back from
     # a host sync waits up to the switch interval (5 ms by default) for it,
     # so several replicas are also timed at a 0.1 ms interval
@@ -819,8 +885,13 @@ def leg_readings(devices: List[torch.device], cards: int) -> list:
                              "global_batch": batch, "ms_per_batch": sec * 1e3,
                              "img_per_s": batch / sec, "iters": 5})
                 log("  (d) dp detect " + json.dumps(rows[-1]))
+        if devs is lists[-1]:  # every card (one card: its two replicas)
+            x32, i32 = np.concatenate([data] * 4), np.concatenate([infos] * 4)
+            overlap = {"replicas": len(devs), "cards": len(set(devs)), "global_batch": 32,
+                       **kernel_overlap(lambda: detect(x32, i32)[1].count.cpu(), devs)}
+            log("  (d) kernel overlap " + json.dumps(overlap))
         detect.close()
-    return rows
+    return {"rows": rows, "kernel_overlap": overlap}
 
 
 # ------------------------------------------------------------------ run

@@ -107,7 +107,7 @@ def build_successors(
         boxes, valid, max_gap, min_v_overlaps, min_size_sim
     )
     big = 1 << 30
-    neg_inf = torch.tensor(-float("inf"), device=boxes.device)
+    neg_inf = -float("inf")
 
     # successor side: restrict to nearest candidate column of i
     cand_col = torch.where(cand, col[:, None, :], big)
@@ -214,7 +214,7 @@ def connect_text_lines(
         cnt = torch.clamp(r.sum(dim=2), min=1.0)
         xbar = im_w * 0.5
         member = r > 0.0
-        inf = torch.tensor(float("inf"), device=dev)
+        inf = float("inf")
         min_x1 = torch.where(member, x1[:, None, :], inf).min(dim=2).values
         max_x2 = torch.where(member, x2[:, None, :], -inf).max(dim=2).values
         mean_score = _rowdot(r, scores) / cnt
