@@ -7,12 +7,14 @@ CPU, full-width steps, the solver, the data, train and export CLIs, a
 synthetic fine-tune scored on a holdout before and after), builds the
 native host library, runs the data-parallel paths (training over NCCL,
 sharded detection, a data-parallel frozen artifact) over every visible
-card, holds the captured detect programs (CUDA graphs, replayed) against
-the eager program, and checks what comes out.
+card, holds the captured detect programs and the captured train step (CUDA
+graphs, replayed) against the eager ones, and checks what comes out.
 
 On the card every ``run_batch`` of the predictors and of the frozen
 artifacts replays a captured program after the first call of its shape
-(``ctpn_tpu_torch/inference/graphs.py``); the kernels' launch counts are
+(``ctpn_tpu_torch/inference/graphs.py``), and every training step of the
+solver and of the DDP ranks replays a captured step after its warm-up
+(``ctpn_tpu_torch/training/graphs.py``); the kernels' launch counts are
 recorded at capture and added per replay, so every launch gate below
 counts through replays.
 
@@ -103,14 +105,18 @@ Phases (any failure exits non-zero and prints no result line):
     1e-3 * lr wherever the CPU gradient exceeds 1e-6 (2 * lr below it,
     where rounding decides the sign Adam steps by).
 12. full-size steps: 608x912, bf16, Adam, batch 1 and 2, ``TPU.REMAT``
-    off and on: ms per step and peak ``max_memory_allocated``; REMAT must
-    give plain's loss and update (as in phase 11) at a lower peak. Phases
-    11-12 launch none of the four kernels.
+    off and on, through ``TrainGraphs``: the first call (the eager warm-up
+    step and the capture), then the state rewound in place and the same
+    step replayed; peak ``max_memory_allocated`` over the first call;
+    REMAT must give plain's loss and update (as in phase 11) on the eager
+    and on the replayed step, at a lower peak. Phases 11-12 launch none of
+    the four kernels.
 13. training entry points, in a temporary ``ROOT_DIR``: the port's
     ``synth.generate_dataset``, ``ctpn-torch-prepare --link``, 30 steps of
     ``SolverWrapper`` on one image (the mean model loss of the last 5 below
     that of the first 5), ``ctpn-torch-train`` for 10 steps with a snapshot
-    at 5, ``--restore`` to 20 (first logged iteration 11), ``ctpn-torch-export
+    at 5, ``--restore`` to 20 (first logged iteration 11; the solver's
+    steps replay their captured step), ``ctpn-torch-export
     --ckpt``, ``ctpn-torch-demo`` on the export: 2 fused-NMS launches per
     photo plus 2 for its warm-up, no other kernel; the training runs launch
     none.
@@ -130,8 +136,10 @@ Phases (any failure exits non-zero and prints no result line):
     preparation seconds and the checkpoint's MiB.
 15. multi-card: ``python -m ctpn_tpu_torch.parallel.multicard`` in this
     process over every visible card (``multicard.run()``; one card: two
-    replicas on it, one NCCL rank), with its gates: six NCCL DDP steps at
-    608x912 in bf16, one image per rank, with a falling loss; one step at
+    replicas on it, one NCCL rank), with its gates: sixteen NCCL DDP steps
+    at 608x912 in bf16, one image per rank, with a falling loss, the first
+    11 eager (DDP's warm-up) and the last five replaying the captured step
+    with its all-reduces; one step at
     min(2, cards) ranks, 2x256x384, f32, against one process (phase 11's
     tolerances); ``shard_detect_fn`` on the photo batch of 8, both routes,
     equal bit for bit to one card's ``run_batch`` slice by slice, counts
@@ -146,8 +154,8 @@ Phases (any failure exits non-zero and prints no result line):
     Launch counts are zeroed before the phase: each kernel must launch in
     it. Prints the module's numbers: DP detect img/s at global batch 8 and
     32 beside one card's replayed and eager program, host syncs per replica
-    batch, the cards' kernel overlap, DDP ms per step and the NCCL share of
-    a step.
+    batch, the cards' kernel overlap, DDP ms per step (eager warm-up and
+    replayed) and the NCCL share of a replayed step.
 16. captured programs, on the photo batch of 8, for the default route, the
     served route, O mode and the frozen default route (exported here): the
     eager program issued with host syncs made an error; the first
@@ -160,7 +168,23 @@ Phases (any failure exits non-zero and prints no result line):
     replayed wall ms per batch with the fetch, the device busy share of
     one batch of each (``torch.profiler``), capture seconds and the graph
     pool's MiB.
-17. prints one ``{"kernels": [...]}`` line (four kernels), the card line,
+17. captured training, parity: 2x256x384, f32 with TF32 off, Adam, from
+    the same parameters and draws: ``TrainGraphs`` on the pinned host
+    batch (the eager warm-up step, then three replayed steps) against
+    eager steps of the bucket's ``TrainStep``, each set to the captured
+    side's state before its step: every step's loss and gradient norm
+    within 1e-4 relative and its update within phase 11's tolerance;
+    bit-equality of each update and the drift of an eager model that took
+    the four steps on its own are printed, not gated (cuDNN's backward may
+    round differently from run to run).
+18. captured training at full width: 608x912, bf16, Adam, batch 1, 2 and
+    8, ``TPU.REMAT`` off and on: eager against replayed ms per step,
+    busy share and kernels per step (``torch.profiler``), capture seconds,
+    the graph pool's MiB, peak ``max_memory_allocated`` of an eager step
+    and of the first call; three replayed steps issued with host syncs made
+    an error (the fetch outside) and finite losses. Phases 17-18 launch
+    none of the four kernels (counts zeroed before 17).
+19. prints one ``{"kernels": [...]}`` line (four kernels), the card line,
     and last ``{"ok": true, "device": {...}}``.
 
 Every recall gate counts lines as ``ctpn-torch-eval`` does
@@ -1792,15 +1816,17 @@ def check_train_parity(dev) -> dict:
     return report
 
 
-def profile_steps(step, state, batch, n: int = 2) -> dict:
-    """``n`` steps under ``torch.profiler``: the card's busy share (summed
-    kernel time over the window's wall time), kernels per step and the top
-    kernels by device time."""
+def profile_steps(run, n: int = 2) -> dict:
+    """``n`` calls of ``run()`` (one training step each, returning its
+    metrics) under ``torch.profiler``: the card's busy share (summed kernel
+    time over the window's wall time), kernels per step and the top kernels
+    by device time."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            m = step(state, batch)
+            m = run()
         float(m["total_loss"])
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
@@ -1815,79 +1841,111 @@ def profile_steps(step, state, batch, n: int = 2) -> dict:
                              "calls_per_step": e.count / n} for e in top]}
 
 
-def time_train_steps(dev, iters: int = 20) -> list:
+def time_steps(run, iters: int) -> float:
+    """Mean host ms of ``run()`` (one step, returning its metrics) over
+    ``iters`` calls ended by a fetch and a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        m = run()
+    float(m["total_loss"])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def rewind(state, saved: list) -> None:
+    """Put back a state's tensors (``state_tensors``) and host counters as
+    ``saved`` (from :func:`keep`) holds them: in place, so that a captured
+    step still reads them."""
+    from ctpn_tpu_torch.training.train_step import state_tensors
+
+    tensors, step, count = saved
+    with torch.no_grad():
+        for t, v in zip(state_tensors(state), tensors):
+            t.copy_(v)
+    state.step = step
+    if count is not None:
+        state.opt_state["count"] = count
+
+
+def keep(state) -> list:
+    """A copy of a state's tensors and host counters, for :func:`rewind`."""
+    from ctpn_tpu_torch.training.train_step import state_tensors
+
+    return [[t.detach().clone() for t in state_tensors(state)], state.step,
+            state.opt_state.get("count")]
+
+
+def full_size_steps(dev) -> list:
     """Full width, 608x912, bf16 compute: the Adam step at batch 1 and 2,
-    ``TPU.REMAT`` off and on, from the same parameters and draws. Per
-    setting: ms per step (host clock over ``iters`` steps ended by a
-    synchronize, after two warm-up steps), the peak of
-    ``max_memory_allocated`` over one step, and :func:`profile_steps`. REMAT must give plain's loss
-    (1e-6 relative), its gradient norm (1e-3), its update (as
-    :func:`compare_updates` holds the card to the CPU) and a lower peak."""
+    ``TPU.REMAT`` off and on, from the same parameters and draws, through
+    ``TrainGraphs``: the first call (the eager warm-up step, then the
+    capture), then the state rewound in place and the same step replayed.
+    Per setting: the peak of ``max_memory_allocated`` over the first call.
+    REMAT must give plain's loss (1e-6 relative), its gradient norm (1e-3)
+    and its update (as :func:`compare_updates` holds the card to the CPU),
+    on the eager step and on the replayed one, at a lower peak. Times are
+    phase 18's."""
     from ctpn_tpu_torch.config import cfg, reset_cfg
     from ctpn_tpu_torch.models.factory import init_params
     from ctpn_tpu_torch.ops.anchor_target import num_anchors
-    from ctpn_tpu_torch.training.train_step import (
-        Batch,
-        build_train_step,
-        create_train_state,
-    )
+    from ctpn_tpu_torch.training.graphs import TrainGraphs
+    from ctpn_tpu_torch.training.train_step import Batch, create_train_state
     from ctpn_tpu_torch.utils.weights import params_from_jax
 
     reset_cfg()
     cfg.TRAIN.SOLVER = "Adam"
     h, w = TRAIN_BUCKET
-    fh, fw = h // 16, w // 16
     arrays = train_arrays(12, 2, (h, w))
     state_dict = params_from_jax(init_params(cfg.RNG_SEED))
     rows = []
     for n in (1, 2):
-        batch = Batch.from_numpy([a[:n] for a in arrays]).to(dev)
-        draws = torch.rand((2, n, num_anchors(fh, fw)),
+        batch = Batch.from_numpy([a[:n] for a in arrays], pin=True)
+        draws = torch.rand((2, n, num_anchors(h // 16, w // 16)),
                            generator=torch.Generator().manual_seed(6))
-        first = {}
+        recs = {}
         for remat in (False, True):
             cfg.TPU.REMAT = remat
             model = fresh_train_model(dev, state_dict)
             state = create_train_state(model)
-            step = build_train_step(model, fh, fw)
+            graphs = TrainGraphs(state, dev)
+            saved = keep(state)
             before = [p.detach().clone() for p in model.parameters()]
-            first[remat] = step_record(model, before, step(state, batch, draws))
-            del before
-            step(state, batch)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
-            step(state, batch)
+            eager = step_record(model, before, graphs(batch, draws))
             torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated(dev)
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                m = step(state, batch)
-            float(m["total_loss"])
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) / iters * 1e3
-            rows.append({"batch": n, "remat": remat, "ms_per_step": ms,
-                         "img_per_s": n / ms * 1e3, "peak_mib": peak / 2**20,
-                         "total_loss": float(m["total_loss"]),
-                         **profile_steps(step, state, batch)})
-            log("  train step " + json.dumps(rows[-1]))
-            del model, state, step
-        m0, m1 = first[False]["metrics"], first[True]["metrics"]
-        rel = {k: abs(m1[k] - m0[k]) / abs(m0[k]) for k in ("total_loss", "grad_norm")}
-        if rel["total_loss"] > 1e-6 or rel["grad_norm"] > 1e-3:
-            raise AssertionError(f"batch {n}: REMAT against plain, relative "
-                                 f"differences {rel}")
-        worst, worst_noisy, n_noisy = compare_updates(
-            first[False], first[True], cfg.TRAIN.LEARNING_RATE, f"batch {n}: REMAT")
+            rewind(state, saved)
+            replayed = step_record(model, before, graphs(batch, draws))
+            (entry,) = graphs.graphs.values()
+            recs[remat] = (eager, replayed)
+            rows.append({"batch": n, "remat": remat, "peak_mib": peak / 2**20,
+                         "capture_s": entry.capture_s, "pool_mib": graphs.pool_mib(),
+                         "total_loss": replayed["metrics"]["total_loss"],
+                         "replayed_equals_eager": bool(
+                             torch.equal(eager["delta"], replayed["delta"]))})
+            log("  full-size step " + json.dumps(rows[-1]))
+            del model, state, graphs, entry, before, saved
+            torch.cuda.empty_cache()
         plain, remat_row = rows[-2], rows[-1]
+        for i, which in enumerate(("eager", "replayed")):
+            m0, m1 = recs[False][i]["metrics"], recs[True][i]["metrics"]
+            rel = {k: abs(m1[k] - m0[k]) / abs(m0[k]) for k in ("total_loss", "grad_norm")}
+            if rel["total_loss"] > 1e-6 or rel["grad_norm"] > 1e-3:
+                raise AssertionError(f"batch {n}, {which} step: REMAT against plain, "
+                                     f"relative differences {rel}")
+            worst, worst_noisy, n_noisy = compare_updates(
+                recs[False][i], recs[True][i], cfg.TRAIN.LEARNING_RATE,
+                f"batch {n}, {which} step: REMAT")
+            remat_row[which] = dict(rel_diff_vs_plain=rel, update_max_abs_diff_vs_plain=worst,
+                                    noisy_update_max_abs_diff_vs_plain=worst_noisy,
+                                    elements_grad_le_1e6=n_noisy)
         if not remat_row["peak_mib"] < plain["peak_mib"]:
             raise AssertionError(f"batch {n}: REMAT peak {remat_row['peak_mib']} MiB "
                                  f"is not below plain's {plain['peak_mib']} MiB")
-        remat_row.update(rel_diff_vs_plain=rel, update_max_abs_diff_vs_plain=worst,
-                         noisy_update_max_abs_diff_vs_plain=worst_noisy,
-                         elements_grad_le_1e6=n_noisy)
-        log(f"  batch {n}: REMAT against plain: relative differences {rel}, "
-            f"updates within {worst:.3g} ({worst_noisy:.3g} on {n_noisy} elements "
-            f"with |g| <= 1e-6), peak {plain['peak_mib']:.1f} -> "
+        log(f"  batch {n}: REMAT against plain, eager {remat_row['eager']}, replayed "
+            f"{remat_row['replayed']}; peak {plain['peak_mib']:.1f} -> "
             f"{remat_row['peak_mib']:.1f} MiB")
     reset_cfg()
     return rows
@@ -2382,6 +2440,181 @@ def drive_captured(dev) -> dict:
     return report
 
 
+# ------------------------------------------------------ captured training
+
+CAPTURED_TRAIN_BATCHES = (1, 2, 8)
+
+
+def check_captured_parity(dev) -> dict:
+    """Three replayed steps against three eager steps: 2x256x384, f32 with
+    TF32 off, Adam at lr 1e-4, from the same parameters and draws. The
+    captured side calls ``TrainGraphs`` with the pinned host batch (its
+    first call is the eager warm-up step and the capture, the next three
+    replay); before each step the eager side (the bucket's ``TrainStep``
+    on the batch on the card) is set to the captured side's state, in
+    place, so that each pair of steps starts from one state. Each step:
+    loss and gradient norm within 1e-4 relative and the update as
+    :func:`compare_updates` holds the card to the CPU (phase 11's
+    tolerances). Whether each update came out equal bit for bit is
+    reported, not gated (cuDNN's backward may round differently from run
+    to run), and so is the largest parameter difference of a second eager
+    model that took the four steps on its own."""
+    from ctpn_tpu_torch.config import cfg, reset_cfg
+    from ctpn_tpu_torch.models.factory import init_params
+    from ctpn_tpu_torch.ops.anchor_target import num_anchors
+    from ctpn_tpu_torch.training.graphs import TrainGraphs
+    from ctpn_tpu_torch.training.train_step import (
+        Batch,
+        build_train_step,
+        create_train_state,
+    )
+    from ctpn_tpu_torch.utils.weights import params_from_jax
+
+    reset_cfg()
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.TRAIN.SOLVER, cfg.TRAIN.LEARNING_RATE = "Adam", 1e-4
+    h, w = TRAIN_PARITY_BUCKET
+    host = Batch.from_numpy(train_arrays(13, 2, (h, w)), pin=True)
+    state_dict = params_from_jax(init_params(cfg.RNG_SEED))
+    gen = torch.Generator().manual_seed(7)
+    draws = [torch.rand((2, 2, num_anchors(h // 16, w // 16)), generator=gen)
+             for _ in range(4)]
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        dev_batch = host.to(dev)
+        eager_model = fresh_train_model(dev, state_dict)
+        eager_state = create_train_state(eager_model)
+        eager_step = build_train_step(eager_model, h // 16, w // 16)
+        free_model = fresh_train_model(dev, state_dict)  # four eager steps alone
+        free_state = create_train_state(free_model)
+        free_step = build_train_step(free_model, h // 16, w // 16)
+        model = fresh_train_model(dev, state_dict)
+        graphs = TrainGraphs(create_train_state(model), dev)
+        steps = []
+        for i, d in enumerate(draws):
+            rewind(eager_state, keep(graphs.state))
+            before = [p.detach().clone() for p in model.parameters()]
+            ref = step_record(eager_model, before, eager_step(eager_state, dev_batch, d))
+            got = step_record(model, before, graphs(host, d))
+            free_step(free_state, dev_batch, d)
+            rel = {k: abs(got["metrics"][k] - ref["metrics"][k]) / abs(ref["metrics"][k])
+                   for k in ("total_loss", "model_loss", "grad_norm")}
+            what = f"captured step {i + 1} ({'replayed' if i else 'warm-up'}) against eager"
+            if max(rel.values()) > 1e-4:
+                raise AssertionError(f"{what}: relative differences {rel}")
+            worst, worst_noisy, n_noisy = compare_updates(ref, got, cfg.TRAIN.LEARNING_RATE,
+                                                          what)
+            steps.append({"step": i + 1, "replayed": i > 0, "rel_diff": rel,
+                          "update_max_abs_diff": worst,
+                          "noisy_update_max_abs_diff": worst_noisy,
+                          "elements_grad_le_1e-6": n_noisy,
+                          "update_bit_equal": bool(torch.equal(ref["delta"], got["delta"]))})
+        free_diff = max(float((a.detach() - b.detach()).abs().max())
+                        for a, b in zip(free_model.parameters(), model.parameters()))
+        report = {"bucket": f"2x{h}x{w}", "dtype": "float32, TF32 off",
+                  "eager_steps": graphs.eager_steps,
+                  "replays": len(draws) - graphs.eager_steps, "steps": steps,
+                  "rel_diff_worst": max(max(r["rel_diff"].values()) for r in steps),
+                  "update_max_abs_diff": max(r["update_max_abs_diff"] for r in steps),
+                  "updates_bit_equal": all(r["update_bit_equal"] for r in steps),
+                  "free_running_params_max_abs_diff": free_diff}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        reset_cfg()
+    log("  captured parity " + json.dumps(report))
+    return report
+
+
+def time_captured_steps(dev, batch_sizes=CAPTURED_TRAIN_BATCHES, iters: int = 10) -> list:
+    """Full width, 608x912, bf16, Adam, at each batch size, ``TPU.REMAT``
+    off and on, from the same parameters: eager steps (the bucket's
+    ``TrainStep`` on the batch on the card, after two warm-ups) against
+    replayed steps (``TrainGraphs`` on the pinned host batch, after its
+    first call). Per setting: ms per step over ``iters`` (host clock, ended
+    by a fetch and a synchronize), :func:`profile_steps` of both (busy
+    share, kernels per step), the capture's seconds, the graph pool's MiB,
+    the peak of ``max_memory_allocated`` over an eager step and over the
+    first call (warm-up and capture); then three replayed steps issued with
+    host syncs made an error (the fetch outside)."""
+    from ctpn_tpu_torch.config import cfg, reset_cfg
+    from ctpn_tpu_torch.models.factory import init_params
+    from ctpn_tpu_torch.training.graphs import TrainGraphs
+    from ctpn_tpu_torch.training.train_step import Batch, create_train_state
+    from ctpn_tpu_torch.utils.weights import params_from_jax
+
+    reset_cfg()
+    cfg.TRAIN.SOLVER = "Adam"
+    h, w = TRAIN_BUCKET
+    arrays = train_arrays(14, max(batch_sizes), (h, w))
+    state_dict = params_from_jax(init_params(cfg.RNG_SEED))
+    rows = []
+    for n in batch_sizes:
+        host = Batch.from_numpy([a[:n] for a in arrays], pin=True)
+        dev_batch = host.to(dev)
+        for remat in (False, True):
+            cfg.TPU.REMAT = remat
+            model = fresh_train_model(dev, state_dict)
+            state = create_train_state(model)
+            graphs = TrainGraphs(state, dev)
+            step = graphs.step_fn(h, w)
+
+            def eager():
+                return step(state, dev_batch)
+
+            def replayed():
+                return graphs(host)
+
+            eager()
+            eager()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            eager()
+            torch.cuda.synchronize()
+            eager_peak = torch.cuda.max_memory_allocated(dev)
+            eager_ms = time_steps(eager, iters)
+            eager_prof = profile_steps(eager)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            replayed()  # the eager warm-up step, then the capture
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            first_peak = torch.cuda.max_memory_allocated(dev)
+            replayed()
+            replay_ms = time_steps(replayed, iters)
+            replay_prof = profile_steps(replayed)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                outs = [replayed() for _ in range(3)]
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            losses = [float(m["total_loss"]) for m in outs]  # the fetch, outside
+            if not np.isfinite(losses).all():
+                raise AssertionError(f"batch {n}, REMAT {remat}: replayed losses {losses}")
+            (entry,) = graphs.graphs.values()
+            rows.append({
+                "batch": n, "remat": remat, "bucket": f"{h}x{w}", "dtype": "bfloat16",
+                "eager_ms_per_step": eager_ms, "replayed_ms_per_step": replay_ms,
+                "eager_img_per_s": n / eager_ms * 1e3,
+                "replayed_img_per_s": n / replay_ms * 1e3,
+                "eager_device_busy_share": eager_prof["device_busy_share"],
+                "replayed_device_busy_share": replay_prof["device_busy_share"],
+                "device_ms_per_step": replay_prof["device_ms_per_step"],
+                "eager_device_ms_per_step": eager_prof["device_ms_per_step"],
+                "kernels_per_step": eager_prof["kernels_per_step"],
+                "first_call_s": first_s, "capture_s": entry.capture_s,
+                "pool_mib": graphs.pool_mib(), "eager_peak_mib": eager_peak / 2**20,
+                "first_call_peak_mib": first_peak / 2**20,
+                "host_syncs_per_step": 0, "losses": losses, "iters": iters,
+                "top_kernels": replay_prof["top_kernels"][:3]})
+            log("  captured step " + json.dumps(rows[-1]))
+            del model, state, graphs, step, entry, eager, replayed
+            torch.cuda.empty_cache()
+    reset_cfg()
+    return rows
+
+
 # ------------------------------------------------------------- multi-card
 
 
@@ -2400,7 +2633,8 @@ def drive_multicard() -> dict:
     log("  multicard " + json.dumps({
         "cards": report["cards"], "replicas": report["replicas"],
         "ranks": report["ranks"], "card_line": report["card_line"],
-        "descent_losses": train["descent"]["losses"],
+        "descent": {k: train["descent"].get(k) for k in
+                    ("losses", "step", "eager_steps", "replayed_steps")},
         "parity": train["parity"], "ddp_steps": train["ddp_steps"],
         "inference": report["inference"], "frozen": report["frozen"],
         "dp_detect": report["dp_detect"], "launches_in_phase": counts,
@@ -2418,7 +2652,7 @@ def main(argv=()) -> int:
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()
-    log(f"[1/17] device: {torch.cuda.get_device_name(0)} | {card} | "
+    log(f"[1/19] device: {torch.cuda.get_device_name(0)} | {card} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     # a checkout from before the resolve kernel (timed with --kernels-only
@@ -2427,7 +2661,7 @@ def main(argv=()) -> int:
     t0 = time.perf_counter()
     logs = _build.build(["nms_fused", "nms_bitmask", "stem_fused"]
                         + ["nms_resolve"] * has_resolve)
-    log(f"[2/17] build: {time.perf_counter() - t0:.2f} s")
+    log(f"[2/19] build: {time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
         for line in text.splitlines():
             # registers, shared memory, spills, and ptxas's performance
@@ -2435,7 +2669,7 @@ def main(argv=()) -> int:
             if any(k in line for k in ("registers", "smem", "spill", "(C75")):
                 log(f"  {name}: {line.strip()}")
 
-    log("[3/17] kernels against their plain versions")
+    log("[3/19] kernels against their plain versions")
     entries = [check_nms_kernel(dev), check_bitmask_kernel(dev), check_stem_kernel(dev)]
     if has_resolve:
         entries.append(check_resolve_kernel(dev))
@@ -2448,45 +2682,46 @@ def main(argv=()) -> int:
     if not has_resolve:
         raise AssertionError("ctpn_tpu_torch/ops/csrc/nms_resolve.cu is missing")
 
-    log("[4/17] main path (default config)")
+    log("[4/19] main path (default config)")
     default_recs = drive_main_path(dev, entries[0])
 
-    log("[5/17] serving path (TPU.NMS_FUSED False, TPU.FUSED_STEM True)")
+    log("[5/19] serving path (TPU.NMS_FUSED False, TPU.FUSED_STEM True)")
     drive_serving_path(dev, entries[1], entries[3], entries[2], default_recs)
     for entry in entries:
         if not entry["launches"]:
             raise AssertionError(f"{entry['name']} was never launched on its path")
 
-    log("[6/17] serve CLI")
+    log("[6/19] serve CLI")
     check_cli()
 
     shutil.rmtree(OUT, ignore_errors=True)
     try:
-        log("[7/17] O mode")
+        log("[7/19] O mode")
         drive_o_mode(dev)
 
-        log("[8/17] host post-processing (detect_image_host, H and O)")
+        log("[8/19] host post-processing (detect_image_host, H and O)")
         drive_host_path(dev)
 
-        log("[9/17] frozen artifacts (default and served routes)")
+        log("[9/19] frozen artifacts (default and served routes)")
         frozen = drive_frozen(dev)
 
-        log("[10/17] CLIs: demo, eval, export --frozen, demo --frozen, serve frozen")
+        log("[10/19] CLIs: demo, eval, export --frozen, demo --frozen, serve frozen")
         check_clis(frozen)
     finally:
         shutil.rmtree(OUT, ignore_errors=True)
 
-    log("[11/17] training: one step on the card against the CPU")
+    log("[11/19] training: one step on the card against the CPU")
     zero_launch_counts()
     t0 = time.perf_counter()
     train = {"parity": check_train_parity(dev)}
     seconds = {"parity": time.perf_counter() - t0}
-    log("[12/17] training: full-width steps at 608x912, batch 1 and 2, REMAT off and on")
+    log("[12/19] training: full-width steps at 608x912, batch 1 and 2, REMAT off and "
+        "on, eager and replayed")
     t0 = time.perf_counter()
-    train["steps"] = time_train_steps(dev)
+    train["steps"] = full_size_steps(dev)
     seconds["steps"] = time.perf_counter() - t0
     expect_launches(launch_counts(), {}, "training phases 11-12")
-    log("[13/17] training: data, overfit, train, restore, export --ckpt, demo")
+    log("[13/19] training: data, overfit, train, restore, export --ckpt, demo")
     t0 = time.perf_counter()
     try:
         train["entry_points"] = drive_training_entry_points(dev)
@@ -2496,7 +2731,7 @@ def main(argv=()) -> int:
     train["seconds"] = seconds
     log("  train " + json.dumps(train))
 
-    log("[14/17] training quality: synthetic fine-tune, holdout before and after; "
+    log("[14/19] training quality: synthetic fine-tune, holdout before and after; "
         "native host ops")
     t0 = time.perf_counter()
     try:
@@ -2507,20 +2742,31 @@ def main(argv=()) -> int:
     quality["seconds"] = time.perf_counter() - t0
     log("  quality " + json.dumps(quality))
 
-    log("[15/17] multi-card: DP training, DP detection on both routes, DP frozen "
+    log("[15/19] multi-card: DP training, DP detection on both routes, DP frozen "
         "artifact (every visible card)")
     zero_launch_counts()
     t0 = time.perf_counter()
     drive_multicard()
     log(f"  multi-card phase {time.perf_counter() - t0:.1f} s")
 
-    log("[16/17] captured programs: default route, served route, O mode, frozen "
+    log("[16/19] captured programs: default route, served route, O mode, frozen "
         "default route (CUDA graphs replayed against the eager program)")
     t0 = time.perf_counter()
     drive_captured(dev)
     log(f"  captured-program phase {time.perf_counter() - t0:.1f} s")
 
-    log(f"[17/17] result (all phases {time.perf_counter() - t_start:.1f} s)")
+    zero_launch_counts()
+    log("[17/19] captured training: three replayed steps against three eager "
+        "steps (2x256x384, f32)")
+    t0 = time.perf_counter()
+    check_captured_parity(dev)
+    log("[18/19] captured training at 608x912, batch 1, 2 and 8, REMAT off and on: "
+        "eager against replayed, host syncs an error")
+    time_captured_steps(dev)
+    expect_launches(launch_counts(), {}, "captured training, phases 17-18")
+    log(f"  captured-training phases {time.perf_counter() - t0:.1f} s")
+
+    log(f"[19/19] result (all phases {time.perf_counter() - t_start:.1f} s)")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,9 @@ counterpart of the persistent cache.
 
 :class:`DetectGraphs` wraps a detect callable ``(images, im_info) ->``
 outputs (``(Proposals, TextLines)``, or the frozen program's flat tuple).
+Its machinery, :class:`CapturedPrograms` (static inputs per key, warm-up,
+capture, replay, launch accounting), is shared with the captured train
+step (``training/graphs.py::TrainGraphs``).
 
 * On a CUDA device, the first call for a key (device, batch, height,
   width, input dtype and the caller's ``variant``: the mode and the NMS
@@ -86,6 +89,12 @@ class CudaGraphBackend:
         with torch.cuda.stream(self.stream):
             return fn()
 
+    def follow_caller(self) -> None:
+        """Order the wrapper's stream after the work the caller's stream
+        holds so far (a program that reads what the caller wrote: the
+        train step reads the parameters)."""
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+
     def capture(self, fn: Callable[[], Any]) -> Tuple[torch.cuda.CUDAGraph, Any]:
         graph = torch.cuda.CUDAGraph()
         # thread_local: the other replicas' threads keep running while one
@@ -128,7 +137,73 @@ class Captured:
         self.capture_s = capture_s
 
 
-class DetectGraphs:
+class CapturedPrograms:
+    """One captured program per key on ``device``, replayed; eager on the
+    CPU. The shared part of :class:`DetectGraphs` and the train step's
+    ``training/graphs.py::TrainGraphs``: a subclass forms the key and the
+    program and calls :meth:`_run`. ``graphs`` maps each key to its
+    :class:`Captured`; ``warmup_context`` is entered around each warm-up
+    run and capture."""
+
+    def __init__(self, device: torch.device, backend: Optional[Any] = None,
+                 warmup_context: Callable[[], Any] = contextlib.nullcontext):
+        self.device = torch.device(device)
+        if backend is None and self.device.type == "cuda":
+            backend = CudaGraphBackend(self.device)
+        self.backend = backend
+        self.warmup_context = warmup_context
+        self.graphs: Dict[tuple, Captured] = {}
+        self._staged: Dict[tuple, Tuple[torch.Tensor, ...]] = {}
+        self._lock = threading.Lock()
+
+    def _guard(self):
+        return (torch.cuda.device(self.device) if self.device.type == "cuda"
+                else contextlib.nullcontext())
+
+    def _run(self, key: tuple, host: Tuple[torch.Tensor, ...],
+             program: Callable[..., Any], capture: bool = True) -> Any:
+        """``program(*static inputs)`` for the host tensors ``host``: a
+        replay of the key's graph once it has one (outputs cloned), else an
+        eager run on the wrapper's stream that answers the call, followed,
+        when ``capture``, by the capture of ``program``. A key's static
+        inputs are allocated at its first call."""
+        entry = self.graphs.get(key)
+        if entry is not None:
+            for static, x in zip(entry.inputs, host):
+                self.backend.upload(static, x)
+            self.backend.replay(entry.graph)
+            _launches.add(entry.launches)
+            # the next replay writes the same memory: hand out copies
+            return self.backend.run(lambda: tree_map(torch.clone, entry.outputs))
+        inputs = self._staged.get(key)
+        if inputs is None:
+            inputs = tuple(torch.empty(x.shape, dtype=x.dtype, device=self.device)
+                           for x in host)
+            self._staged[key] = inputs
+        for static, x in zip(inputs, host):
+            self.backend.upload(static, x)
+
+        def run():
+            return program(*inputs)
+
+        with _CAPTURE_LOCK, self.warmup_context():
+            out = self.backend.run(run)  # the warm-up answers this call
+            if capture:
+                t0 = time.perf_counter()
+                with _launches.recording() as rec:
+                    graph, static_out = self.backend.capture(run)
+                self.graphs[key] = Captured(graph, self._staged.pop(key), static_out,
+                                            rec, time.perf_counter() - t0)
+        return out
+
+    def pool_mib(self) -> Optional[float]:
+        """MiB of the wrapper's graph memory pool (None off the card)."""
+        if not isinstance(self.backend, CudaGraphBackend):
+            return None
+        return self.backend.pool_bytes() / 2**20
+
+
+class DetectGraphs(CapturedPrograms):
     """``detect(images, im_info)`` captured per shape on ``device`` and
     replayed (see the module's docstring); eager on the CPU.
 
@@ -141,14 +216,9 @@ class DetectGraphs:
     def __init__(self, detect: Callable, device: torch.device,
                  variant: Optional[Callable[[], Hashable]] = None,
                  backend: Optional[Any] = None):
+        super().__init__(device, backend, warmup_context=full_f32_matmul)
         self.detect = detect
-        self.device = torch.device(device)
         self.variant = variant
-        if backend is None and self.device.type == "cuda":
-            backend = CudaGraphBackend(self.device)
-        self.backend = backend
-        self.graphs: Dict[tuple, Captured] = {}
-        self._lock = threading.Lock()
 
     def key(self, images: torch.Tensor) -> tuple:
         extra = self.variant() if self.variant is not None else ()
@@ -160,42 +230,6 @@ class DetectGraphs:
             raise ValueError("DetectGraphs takes host arrays (numpy or CPU tensors)")
         if self.backend is None:  # the CPU: the eager program
             return self.detect(x, info)
-        guard = (torch.cuda.device(self.device) if self.device.type == "cuda"
-                 else contextlib.nullcontext())
-        with self._lock, guard, torch.inference_mode():
-            key = self.key(x)
-            entry = self.graphs.get(key)
-            if entry is None:
-                out = self._first_call(key, x, info)
-            else:
-                self.backend.upload(entry.inputs[0], x)
-                self.backend.upload(entry.inputs[1], info)
-                self.backend.replay(entry.graph)
-                _launches.add(entry.launches)
-                # the next replay writes the same memory: hand out copies
-                out = self.backend.run(lambda: tree_map(torch.clone, entry.outputs))
+        with self._lock, self._guard(), torch.inference_mode():
+            out = self._run(self.key(x), (x, info), self.detect)
             return self.backend.finish(out)
-
-    def _first_call(self, key: tuple, x: torch.Tensor, info: torch.Tensor):
-        inputs = (torch.empty(x.shape, dtype=x.dtype, device=self.device),
-                  torch.empty(info.shape, dtype=info.dtype, device=self.device))
-        self.backend.upload(inputs[0], x)
-        self.backend.upload(inputs[1], info)
-
-        def program():
-            return self.detect(*inputs)
-
-        with _CAPTURE_LOCK, full_f32_matmul():
-            out = self.backend.run(program)  # the warm-up answers this call
-            t0 = time.perf_counter()
-            with _launches.recording() as rec:
-                graph, static_out = self.backend.capture(program)
-        self.graphs[key] = Captured(graph, inputs, static_out, rec,
-                                    time.perf_counter() - t0)
-        return out
-
-    def pool_mib(self) -> Optional[float]:
-        """MiB of the wrapper's graph memory pool (None off the card)."""
-        if not isinstance(self.backend, CudaGraphBackend):
-            return None
-        return self.backend.pool_bytes() / 2**20

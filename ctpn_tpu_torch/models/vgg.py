@@ -77,12 +77,15 @@ class VGG16Trunk(nn.Module):
 
     def forward(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
         """``remat`` keeps only each block's input for the backward pass and
-        recomputes the block there (training; same values)."""
+        recomputes the block there (training; same values). A block draws
+        no random numbers, so the generator's state is not stashed: that
+        would read the CUDA generator inside a captured step."""
         for block, reps, _ in self.stages:
             if block == 1 and self.fused_stem and reps == 2:
                 x = self._fused_block1(x)
             elif remat:
-                x = checkpoint(self._block, block, reps, x, use_reentrant=False)
+                x = checkpoint(self._block, block, reps, x, use_reentrant=False,
+                               preserve_rng_state=False)
             else:
                 x = self._block(block, reps, x)
         return x

@@ -31,11 +31,13 @@ from __future__ import annotations
 
 from typing import NamedTuple, Sequence
 
+import numpy as np
 import torch
 
 from ctpn_tpu_torch.ops.anchors import NUM_ANCHORS, shifted_anchors
 from ctpn_tpu_torch.ops.boxes import bbox_transform
 from ctpn_tpu_torch.ops.iou import pairwise_intersection_frac, pairwise_iou
+from ctpn_tpu_torch.utils.device import device_constant
 
 
 class AnchorTargets(NamedTuple):
@@ -83,7 +85,8 @@ def anchor_target_layer(
     ohem: bool = False,
 ) -> AnchorTargets:
     dev = gt_boxes.device
-    anchors = torch.from_numpy(shifted_anchors(feat_h, feat_w).copy()).to(dev)
+    anchors = device_constant(("anchors", feat_h, feat_w), dev,
+                              lambda: shifted_anchors(feat_h, feat_w))
     b, k = gt_boxes.shape[0], anchors.shape[0]
     im_h, im_w = im_info[:, 0:1], im_info[:, 1:2]
 
@@ -156,7 +159,8 @@ def anchor_target_layer(
     targets = torch.where(inside[:, :, None], targets, 0.0).to(torch.float32)
 
     is_fg = (labels == 1)[:, :, None]
-    iw = torch.tensor(list(inside_weights), dtype=torch.float32, device=dev)
+    iw = device_constant(("inside_weights", tuple(inside_weights)), dev,
+                         lambda: np.array(inside_weights, np.float32))
     bbox_inside = torch.where(is_fg, iw, 0.0)
     bbox_outside = torch.where(is_fg, 1.0, 0.0).expand(b, k, 4)
 

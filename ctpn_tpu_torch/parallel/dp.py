@@ -59,11 +59,21 @@ def init_data_parallel(device: torch.device) -> Tuple[int, int]:
 
 
 def wrap_model(model: nn.Module, device: torch.device) -> nn.Module:
-    """``model`` under ``DistributedDataParallel`` (gradients averaged)."""
+    """``model`` under ``DistributedDataParallel`` (gradients averaged). On
+    a card the wrapper is built on a side stream, as PyTorch requires of a
+    DDP model whose backward is captured in a CUDA graph
+    (``training/graphs.py``)."""
     from torch.nn.parallel import DistributedDataParallel
 
-    ids = [device.index] if device.type == "cuda" else None
-    return DistributedDataParallel(model, device_ids=ids)
+    if device.type != "cuda":
+        return DistributedDataParallel(model)
+    caller = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(caller)
+    with torch.cuda.stream(side):
+        ddp = DistributedDataParallel(model, device_ids=[device.index])
+    caller.wait_stream(side)
+    return ddp
 
 
 def shard_batch(batch: Batch, rank: int, world: int) -> Batch:

@@ -9,14 +9,19 @@ Four legs, every gate raising ``AssertionError``:
 (a) training. The module starts the ranks itself, each as ``torchrun``
     starts one (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``
     and ``MASTER_PORT`` in its environment): NCCL on cards, gloo with
-    ``--device cpu``. Six Momentum steps on a fixed batch with fixed
-    anchor-target draws, one image per rank, full VGG16 width at 608x912 in
-    bf16, from ``init_params(3)``:
-    the last loss below the first, and the whole back half below the
-    first. Then one step at 2 ranks, 2x256x384, f32 with TF32 off, against
-    one process on the same global batch: loss and gradient norm within
-    1e-4 relative, the update within 1e-3 * lr wherever the gradient
-    exceeds 1e-6.
+    ``--device cpu``. Every rank steps through
+    ``training/graphs.py::TrainGraphs``: on cards its first 11 steps run
+    eagerly (PyTorch's DDP warm-up before a capture), the 11th captures
+    the step with its NCCL all-reduces, and the later steps replay it; on
+    the CPU every step is eager. The report says which step ran. Momentum
+    steps on a fixed batch with fixed anchor-target draws (six on the CPU;
+    on cards the 11 eager steps and five replayed ones), one image per
+    rank, full VGG16 width at 608x912 in bf16, from ``init_params(3)``:
+    the last loss below the first, the whole back half below the first,
+    and on cards the last five steps replayed. Then one step at 2 ranks,
+    2x256x384, f32 with TF32 off, against one process on the same global
+    batch: loss and gradient norm within 1e-4 relative, the update within
+    1e-3 * lr wherever the gradient exceeds 1e-6.
 (b) detection. ``parallel/dp.py::shard_detect_fn`` over the devices, on
     the default route and the served route (``TPU.NMS_FUSED False
     TPU.FUSED_STEM True``), with the shipped weights, on the five committed
@@ -41,8 +46,9 @@ Four legs, every gate raising ``AssertionError``:
     eager program called directly, and with several replicas also at a
     0.1 ms thread switch interval); the cards' kernel overlap in one DP
     call at global batch 32 over all cards (``kernel_overlap``);
-    DDP ms per step at 2 images per rank over 1, 2 and all ranks, with the
-    NCCL kernels' share of a step from ``torch.profiler``; the card line of
+    DDP ms per step at 2 images per rank over 1, 2 and all ranks, replayed
+    (the eager warm-up steps timed beside it), with the NCCL kernels' share
+    of a replayed step from ``torch.profiler``; the card line of
     ``nvidia-smi``.
 
 With one card visible, (b) and (c) run two replicas on ``cuda:0`` (the
@@ -80,7 +86,8 @@ ARTIFACT = REPO / "data" / "artifacts" / "ctpn_synth_f16.npz"
 COMMITTED = REPO / "docs" / "demo_results" / "H"
 PHOTOS = [COMMITTED / n for n in ("006.jpg", "007.jpg", "008.jpg", "009.jpg", "010.png")]
 SERVED_ROUTE = ["TPU.NMS_FUSED", "False", "TPU.FUSED_STEM", "True"]
-DESCENT_STEPS = 6
+DESCENT_STEPS = 6  # on the CPU; on cards the DDP warm-up and REPLAYED_STEPS
+REPLAYED_STEPS = 5
 # the warning of CUDA's sync debug mode at each synchronizing operation
 SYNC_WARNING = "called a synchronizing CUDA operation"
 RANK_TIMEOUT = 900  # seconds for one group of ranks
@@ -325,21 +332,28 @@ def _step_record(model, before: list, metrics: dict) -> dict:
 
 def _ddp_setup(bucket: tuple, dtype: str, n_global: int, seed: int, dev,
                rank: int, world: int):
-    """A fresh DDP model, its state, step function and this rank's slice of
-    a fixed global batch of ``n_global`` scenes."""
+    """A fresh DDP model, its state, its ``TrainGraphs`` and this rank's
+    slice of a fixed global batch of ``n_global`` scenes (host memory,
+    pinned on cards)."""
     from ctpn_tpu_torch.config import cfg, reset_cfg
     from ctpn_tpu_torch.parallel.dp import shard_batch, wrap_model
-    from ctpn_tpu_torch.training.train_step import (Batch, build_train_step,
-                                                    create_train_state)
+    from ctpn_tpu_torch.training.graphs import TrainGraphs
+    from ctpn_tpu_torch.training.train_step import Batch, create_train_state
 
     reset_cfg()
     cfg.TRAIN.SOLVER = "Momentum"
     model = _train_model(dev, dtype)
     ddp = wrap_model(model, dev)
     state = create_train_state(ddp)
-    step = build_train_step(ddp, bucket[0] // 16, bucket[1] // 16, rank, world)
-    batch = Batch.from_numpy(scene_arrays(seed, n_global, bucket))
-    return model, state, step, shard_batch(batch, rank, world).to(dev)
+    graphs = TrainGraphs(state, dev, rank, world)
+    batch = Batch.from_numpy(scene_arrays(seed, n_global, bucket), pin=dev.type == "cuda")
+    return model, state, graphs, shard_batch(batch, rank, world)
+
+
+def _which_step(graphs) -> dict:
+    """Which step the wrapper ran: its eager steps, whether it captured."""
+    return {"eager_steps": graphs.eager_steps, "captured": bool(graphs.graphs),
+            "step": "replayed" if graphs.graphs else "eager"}
 
 
 def _task_descent(spec, dev, rank, world) -> dict:
@@ -349,23 +363,25 @@ def _task_descent(spec, dev, rank, world) -> dict:
     from ctpn_tpu_torch.ops.anchor_target import num_anchors
 
     bucket = tuple(spec["train"])
-    _, state, step, batch = _ddp_setup(bucket, spec["dtype"], world, 21, dev,
-                                       rank, world)
+    _, state, graphs, batch = _ddp_setup(bucket, spec["dtype"], world, 21, dev,
+                                         rank, world)
     k = num_anchors(bucket[0] // 16, bucket[1] // 16)
     draws = torch.rand((2, world, k), generator=torch.Generator().manual_seed(24))
     draws = draws[:, rank:rank + 1]
-    losses = [float(step(state, batch, draws)["total_loss"])
-              for _ in range(DESCENT_STEPS)]
+    n = DESCENT_STEPS if dev.type == "cpu" else graphs.warmup_steps + REPLAYED_STEPS
+    losses = [float(graphs(batch, draws)["total_loss"]) for _ in range(n)]
     return {"losses": losses, "bucket": list(bucket), "dtype": spec["dtype"],
-            "images_per_rank": 1}
+            "images_per_rank": 1, **_which_step(graphs),
+            "replayed_steps": n - graphs.eager_steps}
 
 
 def _task_parity(spec, dev, rank, world) -> dict:
     bucket = tuple(spec["parity"])
     with no_tf32():
-        model, state, step, batch = _ddp_setup(bucket, "float32", 2, 22, dev, rank, world)
+        model, state, graphs, batch = _ddp_setup(bucket, "float32", 2, 22, dev, rank,
+                                                 world)
         before = [p.detach().clone() for p in model.parameters()]
-        rec = _step_record(model, before, step(state, batch))
+        rec = _step_record(model, before, graphs(batch))
     if rank == 0:
         torch.save(rec, Path(spec["work"]) / f"parity_{world}.pt")
     return {"metrics": rec["metrics"], "bucket": list(bucket)}
@@ -377,18 +393,29 @@ def _sync(dev) -> None:
 
 
 def _task_timing(spec, dev, rank, world) -> dict:
-    """ms per DDP step at 2 images per rank (bf16, the training bucket),
-    then a profiled window: the NCCL kernels' device time per step."""
+    """ms per DDP step at 2 images per rank (bf16, the training bucket):
+    the eager warm-up steps after the first two, then replayed steps once
+    the wrapper has captured; then a profiled window of two replayed steps:
+    the NCCL kernels' device time per step."""
     bucket = tuple(spec["train"])
-    _, state, step, batch = _ddp_setup(bucket, "bfloat16", 2 * world, 23, dev,
-                                       rank, world)
+    _, state, graphs, batch = _ddp_setup(bucket, "bfloat16", 2 * world, 23, dev,
+                                         rank, world)
     for _ in range(2):
-        step(state, batch)
+        graphs(batch)
     _sync(dev)
+    # the eager steps before the one that captures
+    t0, n_eager = time.perf_counter(), graphs.warmup_steps - graphs.eager_steps - 1
+    for _ in range(n_eager):
+        m = graphs(batch)
+    if n_eager > 0:
+        float(m["total_loss"])
+    _sync(dev)
+    eager_ms = (time.perf_counter() - t0) / n_eager * 1e3 if n_eager > 0 else None
+    graphs(batch)  # the last eager step, and the capture
     iters = spec["timing_iters"]
     t0 = time.perf_counter()
     for _ in range(iters):
-        m = step(state, batch)
+        m = graphs(batch)
     float(m["total_loss"])
     _sync(dev)
     ms = (time.perf_counter() - t0) / iters * 1e3
@@ -397,7 +424,7 @@ def _task_timing(spec, dev, rank, world) -> dict:
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(n_prof):
-            m = step(state, batch)
+            m = graphs(batch)
         float(m["total_loss"])
         _sync(dev)
         window_ms = (time.perf_counter() - t0) * 1e3
@@ -407,6 +434,7 @@ def _task_timing(spec, dev, rank, world) -> dict:
     nccl_ms = sum(e.self_device_time_total for e in events
                   if "nccl" in e.key.lower()) / 1e3
     return {"ranks": world, "images_per_rank": 2, "bucket": list(bucket),
+            **_which_step(graphs), "eager_ms_per_step": eager_ms,
             "ms_per_step": ms, "img_per_s": 2 * world / ms * 1e3, "iters": iters,
             "device_ms_per_step": dev_ms / n_prof, "nccl_ms_per_step": nccl_ms / n_prof,
             "nccl_share_of_step": nccl_ms / window_ms,
@@ -505,11 +533,16 @@ def leg_training(dev_type: str, n_ranks: int, sizes: dict, work: Path,
         raise AssertionError(f"non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not decrease: {losses}")
-    if not all(v < losses[0] for v in losses[DESCENT_STEPS // 2:]):
+    if not all(v < losses[0] for v in losses[len(losses) // 2:]):
         raise AssertionError(f"loss trajectory not decreasing: {losses}")
+    descent = results[n_ranks]["descent"]
+    if dev_type == "cuda" and not (descent["captured"]
+                                   and descent["replayed_steps"] == REPLAYED_STEPS):
+        raise AssertionError(f"the DDP step was not replayed: {descent}")
     log(f"  (a) descent, {n_ranks} rank(s), one image each at "
-        f"{sizes['train'][0]}x{sizes['train'][1]}: loss "
-        + " -> ".join(f"{v:.4f}" for v in losses))
+        f"{sizes['train'][0]}x{sizes['train'][1]}, {descent['eager_steps']} eager "
+        f"then {descent['replayed_steps']} replayed steps ({descent['step']} step): "
+        "loss " + " -> ".join(f"{v:.4f}" for v in losses))
 
     dev = torch.device("cuda", 0) if dev_type == "cuda" else torch.device("cpu")
     ref = parity_reference(tuple(sizes["parity"]), dev)

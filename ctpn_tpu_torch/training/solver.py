@@ -14,7 +14,9 @@
   ``CTPN_TPU_TENSORBOARD=1``, rank 0 also writes six of its scalars as
   TensorBoard summaries (the reference's `train.py:83-88`) into the log
   directory;
-* one step function per shape bucket;
+* one captured step per shape bucket on the card, replayed
+  (``training/graphs.py::TrainGraphs``; eager on the CPU): the loader's
+  pinned batch is copied into the graph's static inputs;
 * data parallel over ``torch.distributed`` when the process runs under
   ``torchrun`` with ``WORLD_SIZE > 1`` (``parallel/dp.py``); the global
   batch is ``max(IMS_PER_BATCH, world size)`` and each rank steps on its
@@ -42,12 +44,8 @@ from ctpn_tpu_torch.parallel.dp import (
     wrap_model,
 )
 from ctpn_tpu_torch.training import checkpoint
-from ctpn_tpu_torch.training.train_step import (
-    TrainState,
-    build_train_step,
-    create_train_state,
-    unwrap,
-)
+from ctpn_tpu_torch.training.graphs import TrainGraphs
+from ctpn_tpu_torch.training.train_step import TrainState, create_train_state, unwrap
 from ctpn_tpu_torch.utils.device import resolve_device
 from ctpn_tpu_torch.utils.timer import Stopwatch
 
@@ -125,9 +123,10 @@ class SolverWrapper:
         })
 
     def restore(self, state: TrainState) -> TrainState:
-        """Load the latest checkpoint into ``state`` (unchanged if none).
-        Data-parallel ranks meet at a barrier first: only rank 0 writes
-        checkpoints."""
+        """Load the latest checkpoint into ``state`` (unchanged if none),
+        copying into the state's own tensors: a captured step holds them,
+        and its next replay starts from the restored values. Data-parallel
+        ranks meet at a barrier first: only rank 0 writes checkpoints."""
         if self.world > 1:
             dist.barrier()
         if checkpoint.latest_step(self.output_dir) is None:
@@ -139,10 +138,14 @@ class SolverWrapper:
                              f"{ckpt['solver']} solver, not {state.opt.solver}")
         if ckpt["param_names"] != [n for n, _ in model.named_parameters()]:
             raise ValueError("checkpoint parameters do not match the model")
-        model.load_state_dict(ckpt["params"])
-        state.opt_state = {
-            k: [t.to(self.device) for t in v] if isinstance(v, list) else v
-            for k, v in ckpt["opt_state"].items()}
+        model.load_state_dict(ckpt["params"])  # copies into the parameters
+        with torch.no_grad():
+            for k, v in ckpt["opt_state"].items():
+                if isinstance(v, list):
+                    for t, saved in zip(state.opt_state[k], v):
+                        t.copy_(saved)
+                else:
+                    state.opt_state[k] = v
         state.step = int(ckpt["step"])
         state.gen.set_state(ckpt["gen"])
         return state
@@ -178,8 +181,8 @@ class SolverWrapper:
         if restore:
             state = self.restore(state)
 
-        # the feature extent depends on the batch's bucket: a step per bucket
-        step_fns: Dict = {}
+        # one captured step per bucket (the feature extent depends on it)
+        graphs = TrainGraphs(state, self.device, self.rank, self.world)
         self._tb = self._open_tensorboard()
         timer = Stopwatch()
         last: Dict[str, float] = {}
@@ -190,12 +193,7 @@ class SolverWrapper:
                     batch = loader.get()
                     if self.world > 1:
                         batch = shard_batch(batch, self.rank, self.world)
-                    batch = batch.to(self.device, non_blocking=True)
-                    bh, bw = batch.images.shape[1:3]
-                    if (bh, bw) not in step_fns:
-                        step_fns[(bh, bw)] = build_train_step(
-                            step_model, bh // 16, bw // 16, self.rank, self.world)
-                    metrics = step_fns[(bh, bw)](state, batch)
+                    metrics = graphs(batch)
 
                 if (it + 1) % log_every == 0 or it == start_iter:
                     last = {k: float(v) for k, v in metrics.items()}
