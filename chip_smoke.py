@@ -8,7 +8,9 @@ synthetic fine-tune scored on a holdout before and after), builds the
 native host library, runs the data-parallel paths (training over NCCL,
 sharded detection, a data-parallel frozen artifact) over every visible
 card, holds the captured detect programs and the captured train step (CUDA
-graphs, replayed) against the eager ones, and checks what comes out.
+graphs, replayed) against the eager ones, holds the card's records against
+the CPU's, runs the serving and streaming load scripts and the server
+under load, and checks what comes out.
 
 On the card every ``run_batch`` of the predictors and of the frozen
 artifacts replays a captured program after the first call of its shape
@@ -184,7 +186,37 @@ Phases (any failure exits non-zero and prints no result line):
     and of the first call; three replayed steps issued with host syncs made
     an error (the fetch outside) and finite losses. Phases 17-18 launch
     none of the four kernels (counts zeroed before 17).
-19. prints one ``{"kernels": [...]}`` line (four kernels), the card line,
+19. card against CPU (ROADMAP D1): ``detect_image`` on the five photos in
+    float32 with TF32 off, once on the card and once with
+    ``device="cpu"`` (the kernels' plain versions: the program the CPU
+    tests hold against the JAX package): counts equal and records paired
+    one-to-one within 0.5 px. The card's bf16 records of phase 4 against
+    the f32 CPU records: largest difference printed, not gated.
+20. load: the port's three load scripts as child processes through
+    ``run_counted``: ``scripts/torch_bench_serving.py`` (an in-process
+    HTTP server, burst 32, sustained 48 mixed-bucket requests) on both
+    routes, ``scripts/torch_bench_serving_sustained.py`` (the batcher
+    driven directly for 8 s against the replayed rate) and
+    ``scripts/torch_bench_streaming.py`` (64 synthetic scenes, then batch-1
+    latency). Each: 0 errors, 0 shed, every request answered (200, ``count
+    == len(boxes)``, finite records); the burst coalesced; launches in the
+    child exactly the route's per program run (2 fused NMS on the default
+    route; 2 bitmask, 2 resolve, 1 stem on the served route). Then, on each
+    route, an in-process server: the five photos and three repeats in one
+    burst with 16 noise requests, each photo's answer equal to its direct
+    run (``run_padded`` alone at the same batch: counts exact, records
+    within 0.5 px, the largest difference printed), >= 75 % of the
+    committed lines; each bucket's photos run alone and in the last slots
+    of a batch behind noise give the same raw records bit for bit (the
+    stride-16 convs run per image; batched, cuDNN sums the
+    last slots' images in another order and a record moved by up to 6.84
+    px); and, while 16 clients send 48 requests, one 600x600
+    scene in the 608x608 bucket, which nothing warmed: its program is run
+    and captured under load, it is answered with its direct run's records,
+    and no other request fails (its latency and capture seconds printed).
+    Prints p50/p95/p99 and img/s per route and phase, the batcher's
+    efficiency, streaming img/s and batch-1 latency beside the card line.
+21. prints one ``{"kernels": [...]}`` line (four kernels), the card line,
     and last ``{"ok": true, "device": {...}}``.
 
 Every recall gate counts lines as ``ctpn-torch-eval`` does
@@ -196,6 +228,7 @@ Imports nothing of JAX and nothing of the JAX package ``ctpn_tpu``.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import queue
@@ -1107,12 +1140,15 @@ def zero_launch_counts() -> None:
     _launches.init(*counted_wrappers().values())
 
 
-def check_route_launches(counts: dict, batches: int, what: str) -> None:
-    want = {"nms_bitmask": 2 * batches, "nms_resolve": 2 * batches,
-            "stem_fused": batches, "nms_fused": 0}
-    if counts != want:
-        raise AssertionError(f"{what}: launches {counts}, expected {want} "
-                             f"for {batches} batches")
+# kernel launches per program run (one padded batch) on each route
+ROUTE_LAUNCHES = {"default": {"nms_fused": 2},
+                  "served": {"nms_bitmask": 2, "nms_resolve": 2, "stem_fused": 1}}
+
+
+def check_route_launches(counts: dict, batches: int, what: str,
+                         route: str = "served") -> None:
+    want = {name: n * batches for name, n in ROUTE_LAUNCHES[route].items()}
+    expect_launches(counts, want, f"{what}, {batches} batches")
 
 
 def drive_serving_path(dev, bitmask_entry: dict, resolve_entry: dict,
@@ -1952,7 +1988,7 @@ def full_size_steps(dev) -> list:
 
 
 COUNTED_MAIN = r"""
-import importlib, json, os, subprocess, sys
+import importlib, importlib.util, json, os, subprocess, sys
 from ctpn_tpu_torch.ops import nms_bitmask, nms_fused, nms_resolve, stem_fused
 _run = subprocess.run
 def _counted_run(cmd, *args, **kwargs):
@@ -1962,7 +1998,13 @@ def _counted_run(cmd, *args, **kwargs):
         cmd = [cmd[0], "-c", os.environ["CHIP_SMOKE_COUNTED_MAIN"], *cmd[2:]]
     return _run(cmd, *args, **kwargs)
 subprocess.run = _counted_run
-importlib.import_module(sys.argv[1]).main(sys.argv[2:])
+if sys.argv[1].endswith(".py"):  # a script of the repo, by path
+    spec = importlib.util.spec_from_file_location("__counted__", sys.argv[1])
+    target = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(target)
+else:
+    target = importlib.import_module(sys.argv[1])
+target.main(sys.argv[2:])
 print("LAUNCHES " + json.dumps({
     "nms_bitmask": nms_bitmask.suppression_bitmask.LAUNCHES,
     "nms_resolve": nms_resolve.nms_resolve.LAUNCHES,
@@ -1973,7 +2015,8 @@ print("LAUNCHES " + json.dumps({
 
 def run_counted(module: str, args: list, timeout: int = 600) -> tuple:
     """``module``'s ``main(args)`` in a new process (the entry point a
-    console script calls); returns (stdout, the kernels' launch counts in
+    console script calls; ``module`` may also be the path of a script with
+    a ``main(argv)``); returns (stdout, the kernels' launch counts in
     that process). A child process that runs a module of the package with
     ``subprocess.run([python, "-m", ...])`` prints its own counts on a
     ``LAUNCHES`` line before the parent's (``launch_lines``)."""
@@ -2643,6 +2686,383 @@ def drive_multicard() -> dict:
     return report
 
 
+# ------------------------------------------------------------- card against CPU
+
+
+def record_diffs(a: np.ndarray, b: np.ndarray) -> list:
+    """Greedy one-to-one pairing of the rows of ``a`` with the rows of ``b``
+    (nearest first, no limit): the max abs difference of each pair."""
+    used = np.zeros(len(b), bool)
+    diffs = []
+    for row in a:
+        if used.all():
+            break
+        d = np.abs(b - row[None]).max(axis=1)
+        d[used] = np.inf
+        j = int(d.argmin())
+        used[j] = True
+        diffs.append(float(d[j]))
+    return diffs
+
+
+def check_card_against_cpu(dev, bf16_recs: list) -> dict:
+    """ROADMAP D1: ``detect_image`` on the five photos in float32 with TF32
+    off, once on the card and once on the CPU (the kernels' plain versions,
+    the program the CPU tests hold against the JAX package): records paired
+    one-to-one within 0.5 px. Then the card's bf16 records of phase 4
+    against the f32 CPU records, reported, not gated."""
+    from ctpn_tpu_torch.config import cfg, reset_cfg
+    from ctpn_tpu_torch.inference.pipeline import CTPNPredictor
+    from ctpn_tpu_torch.utils.image import load_image_bgr
+    from ctpn_tpu_torch.utils.weights import load_params
+
+    images = [load_image_bgr(str(p)) for p in PHOTOS]
+    reset_cfg()
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        card = CTPNPredictor(load_params(str(ARTIFACT), device=dev), device=dev)
+        card_recs = [card.detect_image(im) for im in images]
+        del card
+        host = CTPNPredictor(load_params(str(ARTIFACT), device="cpu"), device="cpu")
+        t0 = time.perf_counter()
+        host_recs = [host.detect_image(im) for im in images]
+        host_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        reset_cfg()
+    worst, bf16_worst = 0.0, []
+    for photo, a, b, c in zip(PHOTOS, card_recs, host_recs, bf16_recs):
+        w = rows_match(a, b, 0.5)  # counts equal, every record paired
+        worst = max(worst, w)
+        diffs = record_diffs(c, b)
+        bf16_worst.append(max(diffs, default=0.0))
+        log(f"  {photo.name}: f32 card {len(a)} records, CPU {len(b)}, worst pair "
+            f"{w} px; bf16 card {len(c)} records, {len(diffs)} paired with the f32 "
+            f"CPU records, largest difference {bf16_worst[-1]} px, "
+            f"{sum(d <= 0.5 for d in diffs)} within 0.5 px")
+    report = {"f32_card_vs_cpu_worst_px": worst,
+              "f32_records": sum(len(r) for r in card_recs),
+              "bf16_card_vs_f32_cpu_largest_px": max(bf16_worst),
+              "bf16_records": sum(len(r) for r in bf16_recs),
+              "cpu_s_per_photo": host_s / len(PHOTOS)}
+    log("  card against CPU " + json.dumps(report))
+    return report
+
+
+# ------------------------------------------------------------- load
+
+
+ROUTE_SETS = {"default": [], "served": SERVED_ROUTE}
+LOAD_SERVING = ["--clients", "32", "--sustained", "48"]
+LOAD_SUSTAINED = ["--seconds", "8"]
+LOAD_STREAMING = ["--images", "64", "--latency", "--artifact", str(ARTIFACT)]
+LOAD_BUCKETS = ((608, 912), (912, 608))  # what the scripts and servers warm
+COLD_SHAPE, COLD_BUCKET = (600, 600), (608, 608)  # a bucket no phase warms
+
+
+def load_script(name: str):
+    """``scripts/<name>`` as a module: its helpers, without running main."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"chip_smoke_{Path(name).stem}", REPO / "scripts" / name)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def run_load_script(name: str, args: list, route: str, card: str) -> dict:
+    """``scripts/<name>`` through ``run_counted`` on ``route``: its JSON lines
+    by metric. Gates every line: no error, nothing shed, every request
+    answered, the route and card it names, and the kernels' launches in the
+    child exactly the route's per program run."""
+    sets = ["--set", *ROUTE_SETS[route]] if ROUTE_SETS[route] else []
+    t0 = time.perf_counter()
+    out, counts = run_counted(str(REPO / "scripts" / name), args + sets, timeout=600)
+    lines = {}
+    for ln in out.splitlines():
+        if ln.startswith("{"):
+            line = json.loads(ln)
+            lines[line["metric"]] = line
+    if not lines:
+        raise AssertionError(f"{name} printed no JSON line:\n{out}")
+    for metric, line in lines.items():
+        if line["route"] != route or line["card"] != card:
+            raise AssertionError(f"{name} {metric}: ran on {line['route']}, {line['card']}")
+        if line.get("errors", 0) or line.get("shed", 0) or line.get("ok") != line.get("sent"):
+            raise AssertionError(f"{name} {metric}: {line}")
+    runs = max(line["program_runs"] for line in lines.values())
+    check_route_launches(counts, runs, f"{name}, {route} route", route)
+    log(f"  {name} ({route} route, {time.perf_counter() - t0:.1f} s): launches "
+        f"{counts} over {runs} program runs")
+    return lines
+
+
+def drive_load_scripts(card: str) -> dict:
+    """The three load scripts in child processes, the HTTP one on both
+    routes; returns their JSON lines."""
+    out = {}
+    for route in ("default", "served"):
+        line = run_load_script("torch_bench_serving.py", LOAD_SERVING, route,
+                               card)["serving_http_p50_ms"]
+        burst = line["burst"]
+        if burst["batches"] >= burst["ok"]:
+            raise AssertionError(f"HTTP burst, {route} route: {burst['batches']} batches "
+                                 f"for {burst['ok']} requests: no coalescing")
+        if line["program_runs"] != line["warm_runs"] + line["batches_run"]:
+            raise AssertionError(f"HTTP, {route} route: {line['program_runs']} program "
+                                 f"runs, {line['warm_runs']} warm-ups and "
+                                 f"{line['batches_run']} batches")
+        out[f"serving_{route}"] = line
+        for phase in ("burst", "sustained"):
+            log(f"  HTTP {phase}, {route} route: " + json.dumps(line[phase]))
+    out.update(run_load_script("torch_bench_serving_sustained.py", LOAD_SUSTAINED,
+                               "default", card))
+    out.update(run_load_script("torch_bench_streaming.py", LOAD_STREAMING, "default", card))
+    if "ctpn_single_image_latency_p50" not in out:
+        raise AssertionError("the streaming script printed no latency line")
+    return out
+
+
+def handler_prep(body: bytes) -> tuple:
+    """The server handler's work on a request body: decode, resize, pad.
+    Returns (padded image, im_info, resize factor, top pad)."""
+    from ctpn_tpu_torch.config import cfg
+    from ctpn_tpu_torch.serving import _decode_image
+    from ctpn_tpu_torch.utils.image import prep_image, resize_im
+
+    resized, f1 = resize_im(_decode_image(body), cfg.TEXT.SCALE, cfg.TEXT.MAX_SCALE)
+    data, info, pad = prep_image(resized)
+    return data, info, f1, pad
+
+
+def raw_records(pred, items: list, max_batch: int) -> list:
+    """``run_padded`` of prepped ``items`` (``handler_prep`` tuples) at
+    ``max_batch``: each item's records as the program returns them."""
+    _, lines = pred.run_padded([it[0] for it in items], [it[1] for it in items], max_batch)
+    counts, recs = lines.count.cpu().numpy(), lines.recs.cpu().numpy()
+    return [recs[b, :int(counts[b])] for b in range(len(items))]
+
+
+def direct_records(pred, body: bytes, max_batch: int) -> np.ndarray:
+    """What the server answers for ``body``, computed alone: the handler's
+    decode, resize and padding, the image alone through ``run_padded`` at
+    ``max_batch`` (padded with copies of itself), the completer's
+    ``unscale_records`` and the handler's rounding."""
+    from ctpn_tpu_torch.inference.records import unscale_records
+
+    item = handler_prep(body)
+    (recs,) = raw_records(pred, [item], max_batch)
+    _, info, f1, pad = item
+    recs = unscale_records(recs, len(recs), f1, info, y_off=pad)
+    return np.asarray([[round(v, 2) for v in rec] for rec in recs], np.float64).reshape(-1, 9)
+
+
+def batch_dependence(pred, bodies: list, noise: dict, max_batch: int) -> dict:
+    """Per bucket, the program's raw records of each body run alone (padded
+    with copies of itself, read from slot 0), alone again, and in one batch
+    behind ``noise[bucket]`` bodies (so in the last slots, beside other
+    images): the largest difference between two alone runs (run to run) and
+    between alone and batched. Fails unless both are 0.0 with equal counts:
+    an image's records may not depend on its slot or its neighbours (the
+    stride-16 convs run per image, ``models/vgg.py``)."""
+    items = {}
+    for body in bodies:
+        item = handler_prep(body)
+        items.setdefault(item[0].shape[:2], []).append(item)
+    out = {}
+    for bucket, group in items.items():
+        fill = [handler_prep(b) for b in noise[bucket][:max_batch - len(group)]]
+        alone = [raw_records(pred, [it], max_batch)[0] for it in group]
+        again = [raw_records(pred, [it], max_batch)[0] for it in group]
+        mixed = raw_records(pred, fill + group, max_batch)[len(fill):]
+        row = {"images": len(group), "slots": [len(fill), max_batch - 1]}
+        for name, other in (("run_to_run", again), ("alone_vs_batched", mixed)):
+            diffs = [float(np.abs(a - b).max(initial=0.0)) if a.shape == b.shape
+                     else f"counts {len(a)} and {len(b)}" for a, b in zip(alone, other)]
+            row[name] = diffs
+        out["x".join(map(str, bucket))] = row
+    if any(d != 0.0 for row in out.values() for name in ("run_to_run", "alone_vs_batched")
+           for d in row[name]):
+        raise AssertionError(f"records depend on the batch slot or run: {out}")
+    return out
+
+
+def drive_load_in_process(dev, route: str, card: str) -> dict:
+    """An in-process server on ``route`` under load, its answers held
+    against direct runs:
+
+    * the five photos and three repeats in one burst with 16 noise requests
+      (a quarter portrait): each photo's answer equals its direct run
+      (counts exact, records paired within 0.5 px, the largest difference
+      printed), >= 75 % of the committed lines; then each bucket's photos
+      run alone and behind noise, in the last slots of a batch: raw records
+      equal bit for bit (``batch_dependence``);
+    * 16 clients sending 48 fresh requests (a third portrait) and, while
+      they run, one 600x600 scene in the 608x608 bucket, which no phase
+      warmed: its program is run and captured while other batches are in
+      flight; it is answered 200 with its direct run's records, and no
+      other request fails.
+
+    Launch counts over the phase: exactly the route's per program run."""
+    from ctpn_tpu_torch.config import cfg_from_list, reset_cfg
+    from ctpn_tpu_torch.data.synth import render_image
+    from ctpn_tpu_torch.inference.pipeline import CTPNPredictor
+    from ctpn_tpu_torch.serving import DetectionServer
+    from ctpn_tpu_torch.utils.weights import load_params
+
+    from PIL import Image
+
+    bench = load_script("torch_bench_serving.py")
+    reset_cfg()
+    cfg_from_list(ROUTE_SETS[route])
+    max_batch = 8
+    pred = CTPNPredictor(load_params(str(ARTIFACT), device=dev), device=dev)
+    for bucket in LOAD_BUCKETS:
+        pred.warmup(bucket, batch=max_batch)
+
+    def cold_keys():
+        return [k for k in pred.graphs.graphs if tuple(k[2:4]) == COLD_BUCKET]
+
+    if cold_keys():
+        raise AssertionError(f"the {COLD_BUCKET} bucket was warm before the cold request")
+    rng = np.random.RandomState(23)
+    photos = [p.read_bytes() for p in PHOTOS]
+    burst = [(i, photos[i]) for i in list(range(len(PHOTOS))) + [4, 1, 2]]
+    burst += [(None, bench.fresh_jpeg(rng, bench.PORTRAIT if k % 4 == 0 else bench.LANDSCAPE))
+              for k in range(16)]
+    burst = [burst[k] for k in rng.permutation(len(burst))]
+    buf = io.BytesIO()
+    Image.fromarray(render_image(rng, width=COLD_SHAPE[1], height=COLD_SHAPE[0])[0]).save(
+        buf, format="PNG")
+    cold_body = buf.getvalue()
+
+    runs = bench.count_runs(pred)
+    srv = DetectionServer(pred, host="127.0.0.1", port=0, max_batch=max_batch, window_ms=5.0)
+    serve_thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    serve_thread.start()
+    host, port = srv.server_address
+    url = f"http://{host}:{port}/detect"
+    answers = [None] * len(burst)
+    load = {}
+
+    def client(slot):
+        answers[slot] = bench.post(url, burst[slot][1])
+
+    def sustained():
+        load["lat"], load["wall"], load["errors"] = bench.run_phase(
+            url, 16, 48, np.random.RandomState(29), mixed=True)
+
+    try:
+        zero_launch_counts()  # counts of this phase's program runs only
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(i,)) for i in range(len(burst))]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=600)
+        burst_wall = time.perf_counter() - t0
+        burst_batches = srv.batcher.batches_run
+        loader = threading.Thread(target=sustained)
+        loader.start()
+        deadline = time.monotonic() + 120
+        while srv.batcher.batches_run < burst_batches + 2 and time.monotonic() < deadline:
+            time.sleep(0.005)
+        in_flight_from = srv.batcher.batches_run - burst_batches
+        t0 = time.perf_counter()
+        cold = bench.post(url, cold_body)
+        cold_s = time.perf_counter() - t0
+        load_running = loader.is_alive()
+        loader.join(timeout=600)
+        torch.cuda.synchronize()
+        counts, program_runs = launch_counts(), runs[0]
+        batches, shed = srv.batcher.batches_run, srv.batcher.shed
+    finally:
+        srv.shutdown()
+        srv.batcher.join(timeout=60)
+        serve_thread.join(timeout=60)
+        srv.server_close()
+    check_route_launches(counts, program_runs, f"in-process load, {route} route", route)
+    if load.get("errors") or shed or len(load.get("lat", ())) != 48:
+        raise AssertionError(f"sustained load, {route} route: errors {load.get('errors')}, "
+                             f"shed {shed}, {len(load.get('lat', ()))} of 48 answered")
+    if burst_batches >= len(burst):
+        raise AssertionError(f"{burst_batches} batches for a burst of {len(burst)}")
+    got = {}
+    for slot, (photo, _body) in enumerate(burst):
+        if answers[slot] is None:
+            raise AssertionError(f"burst request {slot} got no answer")
+        recs = bench.check_response(*answers[slot])
+        if photo is not None:
+            got.setdefault(photo, []).append(recs)
+    cold_recs = bench.check_response(*cold)
+    (cold_key,) = cold_keys()
+    capture_s = pred.graphs.graphs[cold_key].capture_s
+
+    worst = 0.0
+    hits = n_ref = 0
+    for i, photo in enumerate(PHOTOS):
+        want = direct_records(pred, photos[i], max_batch)
+        diffs = [rows_match(recs, want, 0.5) for recs in got[i]]
+        worst = max([worst] + diffs)
+        hit, n = recall_vs_committed(got[i][0], photo)
+        hits, n_ref = hits + hit, n_ref + n
+        log(f"  {photo.name} under load ({len(got[i])} answers): {len(want)} records, "
+            f"paired with its direct run, largest difference {diffs} px; committed "
+            f"lines {hit}/{n}")
+    if hits < 0.75 * n_ref:
+        raise AssertionError(f"only {hits}/{n_ref} committed reference lines found")
+    cold_worst = rows_match(cold_recs, direct_records(pred, cold_body, max_batch), 0.5)
+    # each bucket's photos batched behind noise, against each alone
+    noise = {LOAD_BUCKETS[0]: [bench.fresh_jpeg(rng) for _ in range(max_batch)],
+             LOAD_BUCKETS[1]: [bench.fresh_jpeg(rng, bench.PORTRAIT) for _ in range(max_batch)]}
+    dependence = batch_dependence(pred, photos, noise, max_batch)
+    report = {
+        "route": route, "card": card, "burst_requests": len(burst),
+        "burst_batches": burst_batches, "burst_wall_s": burst_wall,
+        "photo_records_largest_diff": worst, "committed_recall": f"{hits}/{n_ref}",
+        "raw_records_largest_diff": dependence,
+        "sustained": bench.phase_summary(load["lat"], load["wall"], load["errors"],
+                                         batches - burst_batches, 49),
+        "cold_bucket": {"bucket": list(COLD_BUCKET), "records": len(cold_recs),
+                        "largest_diff": cold_worst, "latency_s": cold_s,
+                        "capture_s": capture_s, "batches_before": in_flight_from,
+                        "sustained_still_running": load_running},
+        "program_runs": program_runs, "launches": counts}
+    log("  in-process load " + json.dumps(report))
+    reset_cfg()
+    return report
+
+
+def drive_load(dev, card: str) -> dict:
+    """Phase 20: the load scripts in child processes, then the in-process
+    server under load on both routes; prints the numbers beside the card."""
+    report = {"scripts": drive_load_scripts(card),
+              "in_process": [drive_load_in_process(dev, r, card)
+                             for r in ("default", "served")]}
+    s = report["scripts"]
+    summary = {"card": card}
+    for route in ("default", "served"):
+        line = s[f"serving_{route}"]
+        summary[f"http_{route}"] = {
+            phase: {k: line[phase][k] for k in ("p50_ms", "p95_ms", "p99_ms", "img_per_s",
+                                                "img_per_batch")}
+            for phase in ("burst", "sustained")}
+        summary[f"http_{route}"]["host_ms_per_request"] = line["host_ms_per_request"]
+    batcher = s["serving_batcher_sustained_throughput"]
+    summary["batcher"] = {k: batcher[k] for k in (
+        "value", "jit_rate", "batcher_efficiency", "p50_ms", "p99_ms", "img_per_batch")}
+    summary["streaming_img_per_s"] = s["ctpn_streaming_serving_throughput"]["value"]
+    latency = s["ctpn_single_image_latency_p50"]
+    summary["batch1_latency_ms"] = {"p50": latency["value"], "p90": latency["p90_ms"],
+                                    "max": latency["max_ms"]}
+    summary["cold_bucket"] = {r["route"]: r["cold_bucket"] for r in report["in_process"]}
+    log("  load " + json.dumps(summary))
+    return report
+
+
 def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2652,7 +3072,7 @@ def main(argv=()) -> int:
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()
-    log(f"[1/19] device: {torch.cuda.get_device_name(0)} | {card} | "
+    log(f"[1/21] device: {torch.cuda.get_device_name(0)} | {card} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     # a checkout from before the resolve kernel (timed with --kernels-only
@@ -2661,7 +3081,7 @@ def main(argv=()) -> int:
     t0 = time.perf_counter()
     logs = _build.build(["nms_fused", "nms_bitmask", "stem_fused"]
                         + ["nms_resolve"] * has_resolve)
-    log(f"[2/19] build: {time.perf_counter() - t0:.2f} s")
+    log(f"[2/21] build: {time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
         for line in text.splitlines():
             # registers, shared memory, spills, and ptxas's performance
@@ -2669,7 +3089,7 @@ def main(argv=()) -> int:
             if any(k in line for k in ("registers", "smem", "spill", "(C75")):
                 log(f"  {name}: {line.strip()}")
 
-    log("[3/19] kernels against their plain versions")
+    log("[3/21] kernels against their plain versions")
     entries = [check_nms_kernel(dev), check_bitmask_kernel(dev), check_stem_kernel(dev)]
     if has_resolve:
         entries.append(check_resolve_kernel(dev))
@@ -2682,46 +3102,46 @@ def main(argv=()) -> int:
     if not has_resolve:
         raise AssertionError("ctpn_tpu_torch/ops/csrc/nms_resolve.cu is missing")
 
-    log("[4/19] main path (default config)")
+    log("[4/21] main path (default config)")
     default_recs = drive_main_path(dev, entries[0])
 
-    log("[5/19] serving path (TPU.NMS_FUSED False, TPU.FUSED_STEM True)")
+    log("[5/21] serving path (TPU.NMS_FUSED False, TPU.FUSED_STEM True)")
     drive_serving_path(dev, entries[1], entries[3], entries[2], default_recs)
     for entry in entries:
         if not entry["launches"]:
             raise AssertionError(f"{entry['name']} was never launched on its path")
 
-    log("[6/19] serve CLI")
+    log("[6/21] serve CLI")
     check_cli()
 
     shutil.rmtree(OUT, ignore_errors=True)
     try:
-        log("[7/19] O mode")
+        log("[7/21] O mode")
         drive_o_mode(dev)
 
-        log("[8/19] host post-processing (detect_image_host, H and O)")
+        log("[8/21] host post-processing (detect_image_host, H and O)")
         drive_host_path(dev)
 
-        log("[9/19] frozen artifacts (default and served routes)")
+        log("[9/21] frozen artifacts (default and served routes)")
         frozen = drive_frozen(dev)
 
-        log("[10/19] CLIs: demo, eval, export --frozen, demo --frozen, serve frozen")
+        log("[10/21] CLIs: demo, eval, export --frozen, demo --frozen, serve frozen")
         check_clis(frozen)
     finally:
         shutil.rmtree(OUT, ignore_errors=True)
 
-    log("[11/19] training: one step on the card against the CPU")
+    log("[11/21] training: one step on the card against the CPU")
     zero_launch_counts()
     t0 = time.perf_counter()
     train = {"parity": check_train_parity(dev)}
     seconds = {"parity": time.perf_counter() - t0}
-    log("[12/19] training: full-width steps at 608x912, batch 1 and 2, REMAT off and "
+    log("[12/21] training: full-width steps at 608x912, batch 1 and 2, REMAT off and "
         "on, eager and replayed")
     t0 = time.perf_counter()
     train["steps"] = full_size_steps(dev)
     seconds["steps"] = time.perf_counter() - t0
     expect_launches(launch_counts(), {}, "training phases 11-12")
-    log("[13/19] training: data, overfit, train, restore, export --ckpt, demo")
+    log("[13/21] training: data, overfit, train, restore, export --ckpt, demo")
     t0 = time.perf_counter()
     try:
         train["entry_points"] = drive_training_entry_points(dev)
@@ -2731,7 +3151,7 @@ def main(argv=()) -> int:
     train["seconds"] = seconds
     log("  train " + json.dumps(train))
 
-    log("[14/19] training quality: synthetic fine-tune, holdout before and after; "
+    log("[14/21] training quality: synthetic fine-tune, holdout before and after; "
         "native host ops")
     t0 = time.perf_counter()
     try:
@@ -2742,31 +3162,43 @@ def main(argv=()) -> int:
     quality["seconds"] = time.perf_counter() - t0
     log("  quality " + json.dumps(quality))
 
-    log("[15/19] multi-card: DP training, DP detection on both routes, DP frozen "
+    log("[15/21] multi-card: DP training, DP detection on both routes, DP frozen "
         "artifact (every visible card)")
     zero_launch_counts()
     t0 = time.perf_counter()
     drive_multicard()
     log(f"  multi-card phase {time.perf_counter() - t0:.1f} s")
 
-    log("[16/19] captured programs: default route, served route, O mode, frozen "
+    log("[16/21] captured programs: default route, served route, O mode, frozen "
         "default route (CUDA graphs replayed against the eager program)")
     t0 = time.perf_counter()
     drive_captured(dev)
     log(f"  captured-program phase {time.perf_counter() - t0:.1f} s")
 
     zero_launch_counts()
-    log("[17/19] captured training: three replayed steps against three eager "
+    log("[17/21] captured training: three replayed steps against three eager "
         "steps (2x256x384, f32)")
     t0 = time.perf_counter()
     check_captured_parity(dev)
-    log("[18/19] captured training at 608x912, batch 1, 2 and 8, REMAT off and on: "
+    log("[18/21] captured training at 608x912, batch 1, 2 and 8, REMAT off and on: "
         "eager against replayed, host syncs an error")
     time_captured_steps(dev)
     expect_launches(launch_counts(), {}, "captured training, phases 17-18")
     log(f"  captured-training phases {time.perf_counter() - t0:.1f} s")
 
-    log(f"[19/19] result (all phases {time.perf_counter() - t_start:.1f} s)")
+    log("[19/21] card against CPU: detect_image on the photos in float32, TF32 off "
+        "(ROADMAP D1); bf16 against it, reported")
+    t0 = time.perf_counter()
+    check_card_against_cpu(dev, default_recs)
+    log(f"  card-against-CPU phase {time.perf_counter() - t0:.1f} s")
+
+    log("[20/21] load: the three load scripts (HTTP on both routes, the batcher, "
+        "streaming), records under load against direct runs, a cold bucket under load")
+    t0 = time.perf_counter()
+    drive_load(dev, card)
+    log(f"  load phase {time.perf_counter() - t0:.1f} s")
+
+    log(f"[21/21] result (all phases {time.perf_counter() - t_start:.1f} s)")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -37,6 +37,9 @@ class CTPN(nn.Module):
     ``dtype`` is the compute dtype of the convs and the BiLSTM projections;
     the recurrence and the heads run in float32. ``trunk_stages``,
     ``lstm_hidden`` and ``rpn_channels`` default to the published widths.
+    ``per_image_tail`` runs the stride-16 convs (the last block and
+    ``rpn_conv``) one image at a time, so that an image's outputs do not
+    depend on its slot in the batch (``vgg.Conv3x3``).
     """
 
     def __init__(
@@ -47,12 +50,15 @@ class CTPN(nn.Module):
         trunk_stages: Optional[Tuple[Tuple[int, int, int], ...]] = None,
         rpn_channels: int = 512,
         fused_stem: bool = False,
+        per_image_tail: bool = False,
     ):
         super().__init__()
         self.num_anchors = num_anchors
         self.dtype = dtype
-        self.trunk = VGG16Trunk(trunk_stages or VGG_STAGES, fused_stem=fused_stem)
-        self.rpn_conv = Conv3x3(self.trunk.out_channels, rpn_channels)
+        self.trunk = VGG16Trunk(trunk_stages or VGG_STAGES, fused_stem=fused_stem,
+                                per_image_tail=per_image_tail)
+        self.rpn_conv = Conv3x3(self.trunk.out_channels, rpn_channels,
+                                per_image=per_image_tail)
         self.bilstm = BiLSTM(rpn_channels, hidden=lstm_hidden, d_out=rpn_channels)
         self.rpn_bbox_pred = nn.Linear(rpn_channels, num_anchors * 4)
         self.rpn_cls_score = nn.Linear(rpn_channels, num_anchors * 2)

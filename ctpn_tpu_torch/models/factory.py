@@ -19,7 +19,9 @@ def get_network(name: str, device: Union[str, torch.device] = "cuda") -> CTPN:
 
     ``TPU.FUSED_STEM`` routes block 1 of the test network (inference only)
     through the fused stem kernel. ``TPU.PACKED_STEM`` needs nothing: the packed block equals the
-    stock convs, which run either way.
+    stock convs, which run either way. The test network runs its stride-16
+    convs one image at a time (``CTPN``'s ``per_image_tail``), so that a
+    served image's records do not depend on its slot in the padded batch.
     """
     if name not in ("VGGnet_train", "VGGnet_test", "ctpn"):
         raise KeyError(f"Unknown network: {name}")
@@ -29,6 +31,7 @@ def get_network(name: str, device: Union[str, torch.device] = "cuda") -> CTPN:
     model = CTPN(
         dtype=DTYPES[cfg.TPU.COMPUTE_DTYPE],
         fused_stem=bool(cfg.TPU.FUSED_STEM) and name == "VGGnet_test",
+        per_image_tail=name == "VGGnet_test",
     )
     return model.to(dev).eval()
 

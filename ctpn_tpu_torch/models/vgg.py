@@ -17,6 +17,10 @@ The JAX package's two block-1 variants map as follows:
 * ``packed_stem`` packs image pairs into channels through block-diagonal
   weights, a TPU lane-layout trick whose output equals the stock block;
   here it runs the stock convs.
+
+``per_image_tail`` runs the last block's convs (stride 16) one image at a
+time (``Conv3x3``), so that an image's features do not depend on its slot
+in the batch.
 """
 
 from __future__ import annotations
@@ -41,15 +45,26 @@ VGG_STAGES: Tuple[Tuple[int, int, int], ...] = (
 
 
 class Conv3x3(nn.Conv2d):
-    """3x3 SAME conv whose float32 parameters cast to the input's dtype."""
+    """3x3 SAME conv whose float32 parameters cast to the input's dtype.
 
-    def __init__(self, cin: int, cout: int):
+    ``per_image`` runs one conv per image of the batch. cuDNN splits the
+    reduction of a small-spatial conv (the stride-16 layers, 38x57 at
+    608x912) by output tile, so at batch 8 the images at the end of the
+    batch are summed in another order than the others: an image's features,
+    and so its line records, would depend on its slot in the batch. One
+    image per conv gives every slot the same sums.
+    """
+
+    def __init__(self, cin: int, cout: int, per_image: bool = False):
         super().__init__(cin, cout, 3, padding=1)
+        self.per_image = per_image
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(
-            x, self.weight.to(x.dtype), self.bias.to(x.dtype), padding=1
-        )
+        w, b = self.weight.to(x.dtype), self.bias.to(x.dtype)
+        if self.per_image and x.shape[0] > 1:
+            return torch.cat([F.conv2d(x[i:i + 1], w, b, padding=1)
+                              for i in range(x.shape[0])])
+        return F.conv2d(x, w, b, padding=1)
 
 
 class VGG16Trunk(nn.Module):
@@ -64,14 +79,17 @@ class VGG16Trunk(nn.Module):
         self,
         stages: Tuple[Tuple[int, int, int], ...] = VGG_STAGES,
         fused_stem: bool = False,
+        per_image_tail: bool = False,
     ):
         super().__init__()
         self.stages = tuple(stages)
         self.fused_stem = fused_stem
+        last = self.stages[-1][0]
         cin = 3  # BGR
         for block, reps, ch in self.stages:
             for rep in range(1, reps + 1):
-                self.add_module(f"conv{block}_{rep}", Conv3x3(cin, ch))
+                conv = Conv3x3(cin, ch, per_image=per_image_tail and block == last)
+                self.add_module(f"conv{block}_{rep}", conv)
                 cin = ch
         self.out_channels = cin
 

@@ -1,5 +1,6 @@
-"""The port stands alone: ``ctpn_tpu_torch`` and ``chip_smoke.py`` import
-neither JAX, flax nor any module of ``ctpn_tpu``, TensorFlow only inside
+"""The port stands alone: ``ctpn_tpu_torch``, ``chip_smoke.py`` and the
+port's scripts (``scripts/torch_*.py``) import neither JAX, flax nor any
+module of ``ctpn_tpu``, TensorFlow only inside
 the two reference readers of ``cli/convert_reference.py``, and the entry
 points never drop to the CPU quietly.
 
@@ -8,6 +9,7 @@ already (``tests/conftest.py``).
 """
 
 import ast
+import glob
 import os
 import os.path as osp
 import pkgutil
@@ -18,14 +20,18 @@ import ctpn_tpu_torch
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ctpn_tpu")
+SCRIPTS = sorted(glob.glob(osp.join(REPO, "scripts", "torch_*.py")))
 
 _PROBE = """
-import importlib, pkgutil, sys
+import importlib, importlib.util, pkgutil, sys
 import ctpn_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
     ctpn_tpu_torch.__path__, "ctpn_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+for i, path in enumerate({scripts!r}):  # the scripts, loaded by path
+    spec = importlib.util.spec_from_file_location(f"_script{{i}}", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in {forbidden!r})
 print(len(names))
@@ -41,7 +47,8 @@ def _module_names():
 
 def test_package_imports_no_jax_and_no_ctpn_tpu():
     out = subprocess.run(
-        [sys.executable, "-c", _PROBE.format(forbidden=set(FORBIDDEN))],
+        [sys.executable, "-c", _PROBE.format(forbidden=set(FORBIDDEN),
+                                             scripts=["chip_smoke.py", *SCRIPTS])],
         cwd=REPO, capture_output=True, text=True, timeout=120, check=True,
         env=dict(os.environ, PYTHONPATH=REPO),
     ).stdout.splitlines()
@@ -76,9 +83,12 @@ def _imported_roots(path):
 
 
 def test_sources_name_no_forbidden_import():
-    """AST check of chip_smoke.py and every module of the package (catches
-    imports inside functions that the subprocess probe never runs)."""
-    paths = [osp.join(REPO, "chip_smoke.py")]
+    """AST check of chip_smoke.py, the port's scripts and every module of
+    the package (catches imports inside functions that the subprocess probe
+    never runs)."""
+    assert {"torch_bench_serving.py", "torch_bench_serving_sustained.py",
+            "torch_bench_streaming.py"} <= {osp.basename(p) for p in SCRIPTS}
+    paths = [osp.join(REPO, "chip_smoke.py"), *SCRIPTS]
     for name in _module_names():
         rel = name.replace(".", osp.sep)
         pkg = osp.join(REPO, rel, "__init__.py")
