@@ -217,10 +217,31 @@ Phases (any failure exits non-zero and prints no result line):
     Prints p50/p95/p99 and img/s per route and phase, the batcher's
     efficiency, streaming img/s and batch-1 latency beside the card line.
 21. prints one ``{"kernels": [...]}`` line (four kernels), the card line,
-    and last ``{"ok": true, "device": {...}}``.
+    and last ``{"ok": true, "device": {...}}``; it runs after phase 22.
+22. orbax artifacts (``utils/orbax_io.py``, ``ops/csrc/zstd_decode.cpp``):
+    builds the zstd decoder with the host compiler (timed); the committed
+    JAX-written fixture (``tests/data/orbax/artifact``, OCDBT and zstd)
+    equal to the shipped ``.npz`` widened to float32 bit for bit, and the
+    JAX solver step (``tests/data/orbax/solver``) through
+    ``ctpn-torch-export --ckpt`` (subprocess) equal to its
+    ``state.params``; ``ctpn-torch-export --npy <the .npz> --out <dir>``
+    read back on the card, 38 leaves equal to the ``.npz`` route; the
+    fixture's leaves overlaid with ``load_pretrained_into`` and
+    ``CTPNPredictor`` on those weights over the photos with counts zeroed
+    just before: records equal to phase 4's bit for bit, exactly 2
+    fused-NMS launches per image and no other kernel, the committed-line
+    gates; ``ctpn-torch-serve`` (batch 1) started on the directory and on
+    the ``.npz`` answers a POST of 007.jpg with the same records, paired
+    with phase 9's within 0.5 px (worst printed). Prints the host seconds to read the
+    plain directory, the decoder's MB/s on the fixture and each server's
+    seconds to its first answer, beside the card line.
 
 Every recall gate counts lines as ``ctpn-torch-eval`` does
 (``eval.match_boxes``: one-to-one, IoU >= 0.5, integer corner boxes).
+The photo phases (4, 5, 7-10, 22) also gate precision, the lines matched
+over the lines emitted, at ``PRECISION_FLOOR``, and each photo's lines at
+twice its committed lines plus three (``line_budget``), as
+``tests/test_artifact_quality.py`` gates the JAX package (ROADMAP D2).
 
 Imports nothing of JAX and nothing of the JAX package ``ctpn_tpu``.
 """
@@ -1011,6 +1032,34 @@ def recall_vs_committed(recs: np.ndarray, photo: Path, ref_dir: Path = None) -> 
     return match_boxes(boxes.reshape(-1, 4), ref, 0.5), len(ref)
 
 
+# Precision floor of the photo phases (ROADMAP D2): committed lines matched
+# at IoU 0.5 over the lines emitted, on the five photos. Measured 45/46 =
+# 0.978 in each of phases 4, 5, 7-10 and 22 (this script on an NVIDIA H100
+# 80GB HBM3 at 700 W, two runs); each unmatched line costs about 0.02, so
+# the floor allows three more.
+PRECISION_FLOOR = 0.90
+
+
+def line_budget(n_ref: int) -> int:
+    """Most lines one photo may emit: twice its committed lines plus three,
+    the JAX package's per-image box budget (tests/test_artifact_quality.py).
+    Measured worst: 20 lines against 22 committed (008.jpg)."""
+    return 2 * n_ref + 3
+
+
+def check_precision(hits: int, lines: int, what: str) -> None:
+    if lines == 0 or hits < PRECISION_FLOOR * lines:
+        raise AssertionError(f"{what}: precision {hits}/{lines} below {PRECISION_FLOOR}")
+    log(f"  {what}: precision {hits}/{lines} = {hits / lines:.3f} "
+        f"(floor {PRECISION_FLOOR})")
+
+
+def check_budget(name: str, lines: int, n_ref: int, what: str) -> None:
+    if lines > line_budget(n_ref):
+        raise AssertionError(f"{what} {name}: {lines} lines, budget {line_budget(n_ref)} "
+                             f"({n_ref} committed)")
+
+
 def drive_main_path(dev, kernel_entry: dict) -> list:
     from ctpn_tpu_torch.config import cfg
     from ctpn_tpu_torch.inference.pipeline import CTPNPredictor
@@ -1038,6 +1087,7 @@ def drive_main_path(dev, kernel_entry: dict) -> list:
         hit, n_ref = recall_vs_committed(recs, photo)
         log(f"  {photo.name}: {len(recs)} lines, nms_fused launches +{step}, "
             f"committed reference lines matched at IoU 0.5: {hit}/{n_ref}")
+        check_budget(photo.name, len(recs), n_ref, "main path")
         results.append((recs, hit, n_ref))
     launches = NF.nms_keep_sorted_fused.LAUNCHES
     kernel_entry["launches"] = launches
@@ -1053,6 +1103,7 @@ def drive_main_path(dev, kernel_entry: dict) -> list:
         raise AssertionError(f"the default route launched other kernels: {others}")
     if hits < 0.75 * n_ref:
         raise AssertionError(f"only {hits}/{n_ref} committed reference lines found")
+    check_precision(hits, total, "main path")
     log(f"  main path: {total} lines on {len(PHOTOS)} photos, "
         f"nms_fused launches {launches}, reference recall {hits}/{n_ref}")
 
@@ -1275,7 +1326,7 @@ def drive_serving_path(dev, bitmask_entry: dict, resolve_entry: dict,
         serve_thread.join(timeout=60)
     log(f"  HTTP: {len(requests)} concurrent POSTs answered in {wall:.3f} s, "
         f"{batches} batches, launches {counts}")
-    hits = n_ref = 0
+    hits = n_ref = n_lines = 0
     for slot, res in enumerate(results):
         if res is None:
             raise AssertionError(f"request {slot} got no response")
@@ -1288,7 +1339,8 @@ def drive_serving_path(dev, bitmask_entry: dict, resolve_entry: dict,
             raise AssertionError(f"{photo.name}: bad records")
         if slot < len(PHOTOS):
             hit, n = recall_vs_committed(recs, photo)
-            hits, n_ref = hits + hit, n_ref + n
+            hits, n_ref, n_lines = hits + hit, n_ref + n, n_lines + len(recs)
+            check_budget(photo.name, len(recs), n, "served path")
             ref = default_recs[slot]
             log(f"  {photo.name}: {len(recs)} lines over HTTP, reference lines "
                 f"{hit}/{n}; {paired_within(recs, ref, 0.5)} of {len(ref)} default-"
@@ -1298,6 +1350,7 @@ def drive_serving_path(dev, bitmask_entry: dict, resolve_entry: dict,
     check_route_launches(counts, batches, "served path")
     if hits < 0.75 * n_ref:
         raise AssertionError(f"only {hits}/{n_ref} committed reference lines found")
+    check_precision(hits, n_lines, "served path")
     bitmask_entry["launches"] = counts["nms_bitmask"]
     resolve_entry["launches"] = counts["nms_resolve"]
     stem_entry["launches"] = counts["stem_fused"]
@@ -1377,11 +1430,13 @@ OUT = REPO / "output" / "chip_smoke"  # git-ignored; removed at the end
 FROZEN_SHAPES = [(1, 608, 912), (1, 912, 608), (8, 608, 912), (8, 912, 608)]
 SERVED_SHAPES = [(8, 608, 912)]
 SERVED_ROUTE = ["TPU.NMS_FUSED", "False", "TPU.FUSED_STEM", "True"]
+FROZEN_PHOTO_RECS: dict = {}  # phase 9's default-route artifact on the photos
 
 
 def recall_over_photos(detect, ref_dir: Path, what: str) -> tuple:
     """``detect(photo) -> records`` over the five photos against the committed
-    lines in ``ref_dir``; fails below 75 %. Returns (hits, n_ref, lines)."""
+    lines in ``ref_dir``; fails below 75 % recall, below the precision floor
+    or past a photo's line budget. Returns (hits, n_ref, lines)."""
     hits = n_ref = lines = 0
     for photo in PHOTOS:
         recs = detect(photo)
@@ -1391,8 +1446,10 @@ def recall_over_photos(detect, ref_dir: Path, what: str) -> tuple:
         hits, n_ref, lines = hits + hit, n_ref + n, lines + len(recs)
         log(f"  {what} {photo.name}: {len(recs)} lines, committed lines matched "
             f"{hit}/{n}")
+        check_budget(photo.name, len(recs), n, what)
     if hits < 0.75 * n_ref:
         raise AssertionError(f"{what}: only {hits}/{n_ref} committed lines found")
+    check_precision(hits, lines, what)
     log(f"  {what}: {lines} lines, {hits}/{n_ref} of {ref_dir.relative_to(REPO)} found")
     return hits, n_ref, lines
 
@@ -1601,6 +1658,7 @@ def drive_frozen(dev) -> Path:
              for name in routes}
     recall_over_photos(lambda p: arrays[f"photo/{p}"], COMMITTED / "H",
                        "frozen detect_image")
+    FROZEN_PHOTO_RECS.update({p.name: arrays[f"photo/{p}"] for p in PHOTOS})
     log("  e2e " + json.dumps({"frozen_max_float_diff": diffs,
                                "meta_device": report["default"]["meta"].get("device_name")}))
     return routes["default"][0]
@@ -1616,11 +1674,19 @@ def run_cli(args: list, timeout: int = 600) -> str:
 
 
 def eval_dir(out_dir: Path, ref_dir: Path, what: str) -> dict:
-    """``ctpn-torch-eval`` on a result directory: recall >= 0.75."""
+    """``ctpn-torch-eval`` on a result directory: recall >= 0.75, precision
+    at least the floor, every photo within its line budget."""
+    from ctpn_tpu_torch.eval import read_res_txt
+
     score = json.loads(run_cli(["ctpn_tpu_torch.eval", str(out_dir), str(ref_dir)]))
     log(f"  ctpn-torch-eval {what} against {ref_dir.relative_to(REPO)}: " + json.dumps(score))
     if score["recall"] < 0.75:
         raise AssertionError(f"{what}: recall {score['recall']} < 0.75")
+    check_precision(score["matched"], score["candidate_boxes"], what)
+    for photo in PHOTOS:
+        res = f"res_{photo.stem}.txt"
+        check_budget(photo.name, len(read_res_txt(str(out_dir / res))),
+                     len(read_res_txt(str(ref_dir / res))), what)
     return score
 
 
@@ -3063,6 +3129,172 @@ def drive_load(dev, card: str) -> dict:
     return report
 
 
+# ------------------------------------------------------------- orbax artifacts
+
+ORBAX_FIXTURE = REPO / "tests" / "data" / "orbax"  # written by the JAX package
+ORBAX_OUT = REPO / "output" / "chip_smoke_orbax"  # git-ignored; removed at the end
+
+
+def bits_equal(a, b) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def nested_tree(flat: dict) -> dict:
+    """Flat ``a/b/c`` tensors -> the nested JAX-layout tree of numpy arrays."""
+    tree: dict = {}
+    for key, value in flat.items():
+        *path, leaf = key.split("/")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = value.cpu().numpy()
+    return tree
+
+
+def zstd_decode_rate(root: Path, reps: int = 5) -> tuple:
+    """MB/s of ``zstd.decompress`` over the zarr chunks of the OCDBT
+    checkpoint at ``root`` (the decoder alone: the frames are read first)."""
+    from ctpn_tpu_torch.utils import orbax_io, zstd
+
+    store = orbax_io.OcdbtStore(str(root))
+    frames = []
+    for keys, _ in orbax_io.leaf_paths(str(root)):
+        name = ".".join(keys)
+        z = json.loads(store.get(f"{name}/.zarray"))
+        size = int(np.prod(z["chunks"])) * orbax_io.DTYPES[z["dtype"]].itemsize
+        frames.append((store.get(f"{name}/{'.'.join('0' * len(z['chunks']))}"), size))
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for frame, size in frames:
+            zstd.decompress(frame, size=size)
+    sec = time.perf_counter() - t0
+    decoded = reps * sum(size for _, size in frames)
+    return decoded / sec / 1e6, sum(len(f) for f, _ in frames), decoded // reps
+
+
+def drive_orbax(dev, default_recs: list, card: str) -> dict:
+    """Phase 22: orbax artifact directories, read and written without JAX.
+    The committed JAX-written fixtures against the shipped ``.npz``, the
+    full-width export read back on the card, ``CTPNPredictor`` on orbax-read
+    weights against phase 4's records (tolerance 0) with its launches, the
+    serve CLI on a directory; host times beside the card line."""
+    from ctpn_tpu_torch.config import reset_cfg
+    from ctpn_tpu_torch.inference.pipeline import CTPNPredictor
+    from ctpn_tpu_torch.ops import _build
+    from ctpn_tpu_torch.ops import nms_fused as NF
+    from ctpn_tpu_torch.training import checkpoint
+    from ctpn_tpu_torch.utils import zstd
+    from ctpn_tpu_torch.utils.image import load_image_bgr
+    from ctpn_tpu_torch.utils.weights import load_params, load_pretrained_into
+
+    report = {"card": card}
+    ORBAX_OUT.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    _build.build(["zstd_decode"])
+    report["zstd_build_s"] = time.perf_counter() - t0
+    log(f"  zstd_decode built by the host compiler in {report['zstd_build_s']:.2f} s")
+
+    with np.load(ARTIFACT) as npz:
+        shipped = {k: npz[k].astype(np.float32) for k in npz.files}
+    zstd.MODES.clear()
+    fixture = load_params(str(ORBAX_FIXTURE / "artifact"), device="cpu")
+    bad = [k for k, v in fixture.items() if not bits_equal(v.numpy(), shipped[k])]
+    if bad or not fixture:
+        raise AssertionError(f"committed orbax fixture differs from the .npz: {bad}")
+    log(f"  committed JAX-written fixture: {len(fixture)} leaves equal to the shipped "
+        f".npz widened to float32, bit for bit; zstd modes {dict(zstd.MODES)}")
+    solver = ORBAX_FIXTURE / "solver"
+    step = checkpoint.latest_step(str(solver))
+    want = checkpoint.load_jax_params(str(solver), step)
+    out = run_cli(["ctpn_tpu_torch.cli.export_model", "--ckpt", str(solver),
+                   "--out", str(ORBAX_OUT / "solver.npz")])
+    if f"restored step {step}" not in out:
+        raise AssertionError(f"ctpn-torch-export --ckpt on the JAX solver step: {out}")
+    with np.load(ORBAX_OUT / "solver.npz") as got:
+        flat = {f"{a}/{b}": v for a, leaves in want.items() for b, v in leaves.items()}
+        if sorted(got.files) != sorted(flat) or not all(
+                bits_equal(got[k].astype(np.float32), flat[k]) for k in flat):
+            raise AssertionError("ctpn-torch-export --ckpt: the .npz differs from "
+                                 "the JAX solver step's state.params")
+    log(f"  ctpn-torch-export --ckpt on the JAX solver step {step} (subprocess): "
+        f"{len(flat)} leaves equal to its state.params")
+
+    art = ORBAX_OUT / "artifact"
+    run_cli(["ctpn_tpu_torch.cli.export_model", "--npy", str(ARTIFACT), "--out", str(art)])
+    t0 = time.perf_counter()
+    host = load_params(str(art), device="cpu")
+    report["plain_read_s"] = time.perf_counter() - t0
+    report["plain_mb"] = sum(t.nbytes for t in host.values()) / 1e6
+    npz_params = load_params(str(ARTIFACT), device=dev)
+    params = load_params(str(art), device=dev)
+    if sorted(params) != sorted(npz_params) or len(params) != 38 or not all(
+            torch.equal(params[k], npz_params[k]) for k in params):
+        raise AssertionError("the orbax export read on the card differs from the .npz")
+    log(f"  ctpn-torch-export --out <dir>: {len(params)} leaves, "
+        f"{report['plain_mb']:.1f} MB plain layout, read on the host in "
+        f"{report['plain_read_s']:.3f} s; on the card equal to the .npz route")
+    report["decode_mb_s"], frames_b, decoded_b = zstd_decode_rate(
+        ORBAX_FIXTURE / "artifact" / "params")
+    log(f"  zstd decode of the fixture's chunks: {frames_b} bytes of frames -> "
+        f"{decoded_b} bytes, {report['decode_mb_s']:.1f} MB/s")
+
+    # the fixture's leaves overlaid on the export: the same weights as the .npz
+    weights = load_pretrained_into(nested_tree(params), str(ORBAX_FIXTURE / "artifact"),
+                                   ignore_missing=False)
+    reset_cfg()
+    pred = CTPNPredictor(weights, device=dev)
+    pred.warmup((608, 912))
+    zero_launch_counts()  # counts of this path only
+    hits = n_ref = lines = 0
+    for photo, want_recs in zip(PHOTOS, default_recs):
+        before = NF.nms_keep_sorted_fused.LAUNCHES
+        recs = pred.detect_image(load_image_bgr(str(photo)))
+        torch.cuda.synchronize()
+        if NF.nms_keep_sorted_fused.LAUNCHES - before != 2:
+            raise AssertionError(f"{photo.name}: nms_fused launched "
+                                 f"{NF.nms_keep_sorted_fused.LAUNCHES - before} times, not 2")
+        if not bits_equal(recs, want_recs):
+            raise AssertionError(f"{photo.name}: records of orbax-read weights differ "
+                                 "from phase 4's")
+        hit, n = recall_vs_committed(recs, photo)
+        check_budget(photo.name, len(recs), n, "orbax weights")
+        hits, n_ref, lines = hits + hit, n_ref + n, lines + len(recs)
+        log(f"  orbax weights {photo.name}: {len(recs)} lines equal to phase 4's bit "
+            f"for bit, nms_fused +2, committed lines {hit}/{n}")
+    expect_launches(launch_counts(), {"nms_fused": 2 * len(PHOTOS)}, "orbax weights")
+    if hits < 0.75 * n_ref:
+        raise AssertionError(f"orbax weights: only {hits}/{n_ref} committed lines found")
+    check_precision(hits, lines, "orbax weights")
+    report["launches"] = launch_counts()
+    del pred
+
+    answers, first_s = {}, {}
+    for name, source in (("npz", ARTIFACT), ("orbax", art)):
+        def one_post(port, name=name):
+            status, out = post(f"http://127.0.0.1:{port}/detect", PHOTOS[1].read_bytes())
+            first_s[name] = time.perf_counter() - t0
+            if status != 200 or out.get("count", 0) <= 0:
+                raise AssertionError(f"ctpn-torch-serve on the {name} artifact: {status} {out}")
+            answers[name] = np.asarray(out["boxes"], np.float64).reshape(-1, 9)
+
+        t0 = time.perf_counter()
+        # batch 1, as phase 9's detect_image ran: records move with the batch
+        serve_subprocess(["--artifact", str(source), "--no-warmup", "--max-batch", "1"],
+                         one_post)
+    if not bits_equal(answers["orbax"], answers["npz"]):
+        raise AssertionError("ctpn-torch-serve: the directory's answer differs from the .npz's")
+    frozen = FROZEN_PHOTO_RECS.get(PHOTOS[1].name)  # absent when phase 9 did not run
+    worst = rows_match(answers["orbax"], frozen, 0.5) if frozen is not None else None
+    report["first_answer_s"] = first_s
+    log(f"  ctpn-torch-serve --artifact <dir>: {PHOTOS[1].name} answered with "
+        f"{len(answers['orbax'])} lines, equal to the server on the .npz; paired with "
+        f"phase 9's records, worst {worst} px; first answer {first_s['orbax']:.2f} s "
+        f"(.npz {first_s['npz']:.2f} s)")
+    log("  orbax " + json.dumps(report))
+    return report
+
+
 def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3072,7 +3304,7 @@ def main(argv=()) -> int:
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()
-    log(f"[1/21] device: {torch.cuda.get_device_name(0)} | {card} | "
+    log(f"[1/22] device: {torch.cuda.get_device_name(0)} | {card} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     # a checkout from before the resolve kernel (timed with --kernels-only
@@ -3081,7 +3313,7 @@ def main(argv=()) -> int:
     t0 = time.perf_counter()
     logs = _build.build(["nms_fused", "nms_bitmask", "stem_fused"]
                         + ["nms_resolve"] * has_resolve)
-    log(f"[2/21] build: {time.perf_counter() - t0:.2f} s")
+    log(f"[2/22] build: {time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
         for line in text.splitlines():
             # registers, shared memory, spills, and ptxas's performance
@@ -3089,7 +3321,7 @@ def main(argv=()) -> int:
             if any(k in line for k in ("registers", "smem", "spill", "(C75")):
                 log(f"  {name}: {line.strip()}")
 
-    log("[3/21] kernels against their plain versions")
+    log("[3/22] kernels against their plain versions")
     entries = [check_nms_kernel(dev), check_bitmask_kernel(dev), check_stem_kernel(dev)]
     if has_resolve:
         entries.append(check_resolve_kernel(dev))
@@ -3102,46 +3334,46 @@ def main(argv=()) -> int:
     if not has_resolve:
         raise AssertionError("ctpn_tpu_torch/ops/csrc/nms_resolve.cu is missing")
 
-    log("[4/21] main path (default config)")
+    log("[4/22] main path (default config)")
     default_recs = drive_main_path(dev, entries[0])
 
-    log("[5/21] serving path (TPU.NMS_FUSED False, TPU.FUSED_STEM True)")
+    log("[5/22] serving path (TPU.NMS_FUSED False, TPU.FUSED_STEM True)")
     drive_serving_path(dev, entries[1], entries[3], entries[2], default_recs)
     for entry in entries:
         if not entry["launches"]:
             raise AssertionError(f"{entry['name']} was never launched on its path")
 
-    log("[6/21] serve CLI")
+    log("[6/22] serve CLI")
     check_cli()
 
     shutil.rmtree(OUT, ignore_errors=True)
     try:
-        log("[7/21] O mode")
+        log("[7/22] O mode")
         drive_o_mode(dev)
 
-        log("[8/21] host post-processing (detect_image_host, H and O)")
+        log("[8/22] host post-processing (detect_image_host, H and O)")
         drive_host_path(dev)
 
-        log("[9/21] frozen artifacts (default and served routes)")
+        log("[9/22] frozen artifacts (default and served routes)")
         frozen = drive_frozen(dev)
 
-        log("[10/21] CLIs: demo, eval, export --frozen, demo --frozen, serve frozen")
+        log("[10/22] CLIs: demo, eval, export --frozen, demo --frozen, serve frozen")
         check_clis(frozen)
     finally:
         shutil.rmtree(OUT, ignore_errors=True)
 
-    log("[11/21] training: one step on the card against the CPU")
+    log("[11/22] training: one step on the card against the CPU")
     zero_launch_counts()
     t0 = time.perf_counter()
     train = {"parity": check_train_parity(dev)}
     seconds = {"parity": time.perf_counter() - t0}
-    log("[12/21] training: full-width steps at 608x912, batch 1 and 2, REMAT off and "
+    log("[12/22] training: full-width steps at 608x912, batch 1 and 2, REMAT off and "
         "on, eager and replayed")
     t0 = time.perf_counter()
     train["steps"] = full_size_steps(dev)
     seconds["steps"] = time.perf_counter() - t0
     expect_launches(launch_counts(), {}, "training phases 11-12")
-    log("[13/21] training: data, overfit, train, restore, export --ckpt, demo")
+    log("[13/22] training: data, overfit, train, restore, export --ckpt, demo")
     t0 = time.perf_counter()
     try:
         train["entry_points"] = drive_training_entry_points(dev)
@@ -3151,7 +3383,7 @@ def main(argv=()) -> int:
     train["seconds"] = seconds
     log("  train " + json.dumps(train))
 
-    log("[14/21] training quality: synthetic fine-tune, holdout before and after; "
+    log("[14/22] training quality: synthetic fine-tune, holdout before and after; "
         "native host ops")
     t0 = time.perf_counter()
     try:
@@ -3162,43 +3394,52 @@ def main(argv=()) -> int:
     quality["seconds"] = time.perf_counter() - t0
     log("  quality " + json.dumps(quality))
 
-    log("[15/21] multi-card: DP training, DP detection on both routes, DP frozen "
+    log("[15/22] multi-card: DP training, DP detection on both routes, DP frozen "
         "artifact (every visible card)")
     zero_launch_counts()
     t0 = time.perf_counter()
     drive_multicard()
     log(f"  multi-card phase {time.perf_counter() - t0:.1f} s")
 
-    log("[16/21] captured programs: default route, served route, O mode, frozen "
+    log("[16/22] captured programs: default route, served route, O mode, frozen "
         "default route (CUDA graphs replayed against the eager program)")
     t0 = time.perf_counter()
     drive_captured(dev)
     log(f"  captured-program phase {time.perf_counter() - t0:.1f} s")
 
     zero_launch_counts()
-    log("[17/21] captured training: three replayed steps against three eager "
+    log("[17/22] captured training: three replayed steps against three eager "
         "steps (2x256x384, f32)")
     t0 = time.perf_counter()
     check_captured_parity(dev)
-    log("[18/21] captured training at 608x912, batch 1, 2 and 8, REMAT off and on: "
+    log("[18/22] captured training at 608x912, batch 1, 2 and 8, REMAT off and on: "
         "eager against replayed, host syncs an error")
     time_captured_steps(dev)
     expect_launches(launch_counts(), {}, "captured training, phases 17-18")
     log(f"  captured-training phases {time.perf_counter() - t0:.1f} s")
 
-    log("[19/21] card against CPU: detect_image on the photos in float32, TF32 off "
+    log("[19/22] card against CPU: detect_image on the photos in float32, TF32 off "
         "(ROADMAP D1); bf16 against it, reported")
     t0 = time.perf_counter()
     check_card_against_cpu(dev, default_recs)
     log(f"  card-against-CPU phase {time.perf_counter() - t0:.1f} s")
 
-    log("[20/21] load: the three load scripts (HTTP on both routes, the batcher, "
+    log("[20/22] load: the three load scripts (HTTP on both routes, the batcher, "
         "streaming), records under load against direct runs, a cold bucket under load")
     t0 = time.perf_counter()
     drive_load(dev, card)
     log(f"  load phase {time.perf_counter() - t0:.1f} s")
 
-    log(f"[21/21] result (all phases {time.perf_counter() - t_start:.1f} s)")
+    log("[22/22] orbax artifacts: the JAX package's directories read without JAX, "
+        "the port's written, detection on orbax-read weights, serve on a directory")
+    t0 = time.perf_counter()
+    try:
+        drive_orbax(dev, default_recs, card)
+    finally:
+        shutil.rmtree(ORBAX_OUT, ignore_errors=True)
+    log(f"  orbax phase {time.perf_counter() - t0:.1f} s")
+
+    log(f"[21/22] result (all phases {time.perf_counter() - t_start:.1f} s)")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

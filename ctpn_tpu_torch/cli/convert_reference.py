@@ -1,4 +1,4 @@
-"""Convert reference TF1 weights into the port's ``.npz`` inference artifact
+"""Convert reference TF1 weights into the port's inference artifact
 (port of ``ctpn_tpu.cli.convert_reference``).
 
 Reads both reference weight formats:
@@ -10,12 +10,14 @@ Reads both reference weight formats:
 
     ctpn-torch-convert --tf-ckpt checkpoints/VGGnet_fast_rcnn_iter_50000.ckpt --out ctpn.npz
     ctpn-torch-convert --pb data/ctpn.pb --out ctpn.npz
+    ctpn-torch-convert --pb data/ctpn.pb --out ctpn_dir   # orbax directory
 
 TensorFlow is imported only inside the two readers. The mapping (gate
 order, HWIO layout) is ``utils/weights.py::convert_tf_vars``. The artifact
 is written in float32, so the reference weights stay exact; ``load_params``
-of either package reads it. The JAX converter writes an orbax directory,
-which the port does not write (ROADMAP E2).
+of either package reads it. An ``--out`` that does not end in ``.npz`` is
+written as an orbax artifact directory (``<out>/params``, float32), what the
+JAX converter writes.
 """
 
 from __future__ import annotations
@@ -70,18 +72,17 @@ def main(argv=None):
     p.add_argument("--cfg", default=None)
     p.add_argument("--tf-ckpt", default=None, help="TF1 checkpoint prefix")
     p.add_argument("--pb", default=None, help="frozen ctpn.pb path")
-    p.add_argument("--out", required=True, help="output .npz artifact")
+    p.add_argument("--out", required=True,
+                   help="output .npz artifact or orbax artifact directory")
     args = p.parse_args(argv)
     if not args.tf_ckpt and not args.pb:
         raise SystemExit("pass --tf-ckpt or --pb")
-    if not args.out.endswith(".npz"):
-        raise SystemExit(f"--out {args.out}: a directory (orbax) artifact is not "
-                         "written by the port (ROADMAP E2); pass an .npz path")
 
     from ctpn_tpu_torch.config import cfg_from_file
     from ctpn_tpu_torch.models.factory import get_network
     from ctpn_tpu_torch.utils.weights import (
         convert_tf_vars,
+        export_params,
         export_params_npz,
         params_to_jax,
     )
@@ -100,7 +101,8 @@ def main(argv=None):
     # the model only provides the parameter skeleton convert_tf_vars fills
     params = params_to_jax(get_network("VGGnet_test", "cpu").state_dict())
     params = convert_tf_vars(params, tf_vars)
-    out = export_params_npz(params, args.out, dtype=np.float32)
+    out = (export_params_npz(params, args.out, dtype=np.float32)
+           if args.out.endswith(".npz") else export_params(params, args.out))
     print(f"wrote artifact to {out}")
 
 

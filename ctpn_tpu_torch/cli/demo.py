@@ -61,7 +61,8 @@ def main(argv=None):
     p = argparse.ArgumentParser(description="CTPN text detection demo")
     p.add_argument("--cfg", default=None)
     p.add_argument("--artifact", default=None,
-                   help=".npz weights artifact (ctpn-torch-export output)")
+                   help="weights artifact: .npz or orbax directory "
+                        "(ctpn-torch-export output, or the JAX package's)")
     p.add_argument("--images", default="data/demo")
     p.add_argument("--output", default="data/results")
     p.add_argument("--mode", default=None, choices=[None, "H", "O"])

@@ -2,11 +2,12 @@
 `ctpn/generate_pb.py:13-41`).
 
 Writes an inference artifact from random weights (seed 0), overlaid in
-order by a source ``.npz`` artifact, ``VGG_imagenet.npy`` and a TF1
-variable dump:
+order by a source artifact (``.npz`` or orbax directory), a solver
+checkpoint, ``VGG_imagenet.npy`` and a TF1 variable dump:
 
     ctpn-torch-export --artifact data/artifacts/ctpn_synth_f16.npz \
         --out artifact.npz                      # f16 weights .npz
+    ctpn-torch-export --artifact ... --out artifact_dir   # orbax directory
     ctpn-torch-export --artifact ... --out frozen.npz --frozen \
         [--frozen-shapes 1x608x912,8x608x912] [--frozen-dp N] [--device cuda]
     ctpn-torch-export --ckpt <solver output dir> --out f.npz   # latest step
@@ -14,13 +15,16 @@ variable dump:
     --npy VGG_imagenet.npy           (backbone bootstrap)
     --tf-vars vars.npz               ({tf_var_name: array} dump of a TF ckpt)
 
-``--ckpt`` reads the latest checkpoint of the port's solver
-(``training/checkpoint.py``; an orbax directory of the JAX package is
-refused). ``--frozen`` exports the detect programs for ``--device`` (the
-card by default); they run only on a device of that type. ``--frozen-dp
-N`` exports them data-parallel over N devices (each shape's batch split
-on dim 0; the loader needs N devices). A directory
-``--out`` (the JAX package's orbax artifact) is not written: ROADMAP E2.
+``--ckpt`` reads the latest checkpoint under ``<dir>/checkpoints``: the
+port's solver's (``training/checkpoint.py``), or the JAX package's solver's
+(an orbax step ``<step>/default``, whose ``state.params`` it takes, as
+``ctpn_tpu.cli.export_model --ckpt`` does). This is how a JAX training run
+moves to the card. An ``--out`` that does not end in ``.npz`` is written as
+an orbax artifact directory (``<out>/params``, float32), which both
+packages' ``load_params`` read. ``--frozen`` exports the detect programs
+for ``--device`` (the card by default); they run only on a device of that
+type. ``--frozen-dp N`` exports them data-parallel over N devices (each
+shape's batch split on dim 0; the loader needs N devices).
 """
 
 from __future__ import annotations
@@ -57,13 +61,16 @@ def main(argv=None):
     p = argparse.ArgumentParser(description="Export CTPN inference artifact")
     p.add_argument("--cfg", default=None)
     p.add_argument("--artifact", default=None,
-                   help="source .npz weights artifact to start from")
+                   help="source weights artifact (.npz or orbax directory) "
+                        "to start from")
     p.add_argument("--ckpt", default=None,
-                   help="solver output dir (its latest checkpoint)")
+                   help="solver output dir of either package (its latest "
+                        "checkpoint)")
     p.add_argument("--npy", default=None, help="VGG_imagenet.npy to convert")
     p.add_argument("--tf-vars", default=None, help="npz of {tf_var_name: array}")
     p.add_argument("--out", required=True,
-                   help="output .npz (f16 weights, or the frozen artifact)")
+                   help="output .npz (f16 weights, or the frozen artifact), "
+                        "or an orbax artifact directory")
     p.add_argument(
         "--frozen", action="store_true",
         help="write a self-contained frozen artifact (torch.export programs "
@@ -90,14 +97,12 @@ def main(argv=None):
 
     shapes = (parse_frozen_shapes(p, args.frozen_shapes)
               if args.frozen and args.frozen_shapes else None)
-    if not args.out.endswith(".npz"):
-        raise SystemExit(f"--out {args.out}: a directory (orbax) artifact is not "
-                         "written by the port (ROADMAP E2); pass an .npz path")
 
     from ctpn_tpu_torch.config import cfg_from_file, cfg_from_list
     from ctpn_tpu_torch.models.factory import init_params
     from ctpn_tpu_torch.utils.weights import (
         convert_tf_vars,
+        export_params,
         export_params_npz,
         load_pretrained_into,
     )
@@ -115,12 +120,16 @@ def main(argv=None):
         from ctpn_tpu_torch.training import checkpoint
         from ctpn_tpu_torch.utils.weights import params_to_jax
 
+        step = checkpoint.latest_step(args.ckpt)
         try:
-            ckpt = checkpoint.load(args.ckpt)
+            if step is not None and checkpoint.is_jax_step(args.ckpt, step):
+                params = checkpoint.load_jax_params(args.ckpt, step)
+            else:
+                ckpt = checkpoint.load(args.ckpt)
+                step, params = ckpt["step"], params_to_jax(ckpt["params"])
         except (FileNotFoundError, ValueError) as e:
             raise SystemExit(f"--ckpt {args.ckpt}: {e}") from e
-        params = params_to_jax(ckpt["params"])
-        print(f"restored step {ckpt['step']} from {args.ckpt}")
+        print(f"restored step {step} from {args.ckpt}")
     if args.npy:
         params = load_pretrained_into(params, args.npy)
         print(f"merged pretrained weights from {args.npy}")
@@ -134,8 +143,10 @@ def main(argv=None):
 
         out = export_frozen(params, args.out, shapes=shapes,
                             dp_devices=args.frozen_dp, device=args.device)
-    else:
+    elif args.out.endswith(".npz"):
         out = export_params_npz(params, args.out)
+    else:
+        out = export_params(params, args.out)
     print(f"wrote inference artifact to {out}")
 
 

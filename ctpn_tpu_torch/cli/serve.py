@@ -17,7 +17,8 @@ import argparse
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--artifact", required=True,
-                   help=".npz weights artifact, or a frozen artifact "
+                   help=".npz weights artifact, an orbax artifact "
+                        "directory, or a frozen artifact "
                         "(ctpn-torch-export --frozen)")
     p.add_argument("--host", default="127.0.0.1",
                    help="bind address (pass 0.0.0.0 to expose externally)")

@@ -12,9 +12,9 @@ images -> box-level P/R/F against the synthetic ground truth
 Where the port differs from the JAX script:
 
 * the export is the ``.npz`` artifact ``<root>/artifact.npz``; the JAX
-  script exports an orbax directory ``<root>/artifact``, which the port
-  does not write (ROADMAP E2). ``--init-artifact`` takes an ``.npz`` for
-  the same reason;
+  script exports an orbax directory ``<root>/artifact``.
+  ``--init-artifact`` takes either (an ``.npz`` or an orbax artifact
+  directory);
 * ``--segment-iters`` runs each segment as a child process that resumes
   from the newest ``<root>/output/checkpoints/<step>`` (the port's
   checkpoints keep the JAX solver's layout), one straight after another;
@@ -73,8 +73,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--restore", action="store_true",
                    help="resume training from the newest checkpoint")
     p.add_argument("--init-artifact", default=None,
-                   help="initialize params from an exported .npz inference "
-                        "artifact before training: fine-tune from shipped "
+                   help="initialize params from an exported inference "
+                        "artifact (.npz or orbax directory) before training: "
+                        "fine-tune from shipped "
                         "weights instead of from scratch (superseded once "
                         "--restore finds a checkpoint)")
     p.add_argument("--train-only", action="store_true",

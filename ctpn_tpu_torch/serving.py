@@ -352,7 +352,8 @@ def serve(artifact: str, host: str = "127.0.0.1", port: int = 8000,
     """Build the predictor on ``device``, optionally warm up at
     ``max_batch``, and serve until interrupted.
 
-    ``artifact`` is a weights ``.npz`` (``utils.weights.load_params``) or a
+    ``artifact`` is a weights ``.npz`` or an orbax artifact directory
+    (``utils.weights.load_params``), or a
     frozen artifact of the port (``ctpn-torch-export --frozen``), which
     needs a program per served shape (``--frozen-shapes
     {max_batch}x<bucket>,...``); its warm-up runs every exported

@@ -1,11 +1,15 @@
 """The port's training checkpoints: one ``torch.save`` of a plain dict per
 step, at ``<solver output>/checkpoints/<step>/state.pt``.
 
-The JAX package writes orbax directories at the same place; the card
-machine has no orbax, so the port keeps its own format and refuses an orbax
-step directory with a message that says so. A checkpoint holds the step,
-the solver's name and state, the model's ``state_dict`` (float32, on the
-CPU) and the anchor-target draw generator's state.
+The JAX package writes orbax directories at the same place
+(``<step>/default``, tree ``{"state": TrainState}``). The port keeps its own
+format and does not resume from a JAX step, as the JAX solver resumes only
+from its own: optax's optimizer state is not carried over.
+:func:`load_jax_params` reads a JAX step's parameters (through
+``utils/orbax_io.py``), which is what ``ctpn-torch-export --ckpt`` exports.
+A checkpoint holds the step, the solver's name and state, the model's
+``state_dict`` (float32, on the CPU) and the anchor-target draw generator's
+state.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch
 FORMAT = "ctpn-torch-ckpt-v1"
 STATE_FILE = "state.pt"
 KEEP = 100  # newest steps kept (the reference's max_to_keep)
+JAX_ITEM = "default"  # orbax CheckpointManager's directory of a StandardSave
 
 
 def checkpoint_root(output_dir: str) -> str:
@@ -62,14 +67,32 @@ def load(output_dir: str, step: Optional[int] = None) -> Dict[str, Any]:
         raise FileNotFoundError(f"no checkpoints under {checkpoint_root(output_dir)}")
     step_dir = osp.join(checkpoint_root(output_dir), str(step))
     path = osp.join(step_dir, STATE_FILE)
-    if not osp.exists(path):
+    if not osp.exists(path) and is_jax_step(output_dir, step):
         raise ValueError(
-            f"{step_dir} holds no {STATE_FILE}: an orbax checkpoint of the JAX "
-            "package's solver? The port reads only its own checkpoints "
-            "(torch.save); export the JAX one to .npz with ctpn-export and "
-            "pass that as pretrained weights"
+            f"{step_dir} is an orbax checkpoint of the JAX package's solver: "
+            "the port resumes only from its own checkpoints, as the JAX solver "
+            "does. Carry the parameters over with `ctpn-torch-export --ckpt "
+            f"{output_dir} --out w.npz` and pass w.npz as pretrained weights"
         )
+    if not osp.exists(path):
+        raise ValueError(f"{step_dir} holds no {STATE_FILE}")
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if ckpt.get("format") != FORMAT:
         raise ValueError(f"{path}: not a {FORMAT} checkpoint")
     return ckpt
+
+
+def is_jax_step(output_dir: str, step: int) -> bool:
+    """True if step ``step`` under ``output_dir`` was saved by the JAX
+    package's solver (an orbax ``StandardSave`` item)."""
+    return osp.isfile(osp.join(checkpoint_root(output_dir), str(step), JAX_ITEM,
+                               "_METADATA"))
+
+
+def load_jax_params(output_dir: str, step: int) -> Dict[str, Any]:
+    """The parameter tree (``state.params``, nested dicts of numpy arrays) of
+    the JAX solver's step ``step`` under ``output_dir``."""
+    from ctpn_tpu_torch.utils.orbax_io import read_tree
+
+    return read_tree(osp.join(checkpoint_root(output_dir), str(step), JAX_ITEM),
+                     select=("state", "params"))

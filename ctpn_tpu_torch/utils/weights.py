@@ -17,10 +17,17 @@ both packages: :func:`load_pretrained_into` (``VGG_imagenet.npy`` or an
 ``.npz`` artifact) and :func:`convert_tf_vars` (a ``{tf_name: array}``
 dump of the reference's TF1 checkpoint). :func:`export_params_npz` writes
 the shipped f16 ``.npz`` format that both packages' ``load_params`` read.
+
+Orbax directories, the JAX package's default artifact (``<dir>/params``),
+are read and written through ``utils/orbax_io.py``: :func:`load_params` and
+:func:`load_pretrained_into` take one wherever they take an ``.npz``, and
+:func:`export_params` writes one that the JAX package's ``load_params``
+reads.
 """
 
 from __future__ import annotations
 
+import os
 import os.path as osp
 from typing import Any, Dict, Iterator, Mapping, Optional, Tuple, Union
 
@@ -34,19 +41,49 @@ _TRUNK_SCOPE = "VGG16Trunk_0"
 ArrayLike = Union[np.ndarray, torch.Tensor]
 
 
+def read_artifact(artifact: str) -> Dict[str, np.ndarray]:
+    """The leaves of an ``.npz`` artifact or an orbax artifact directory (its
+    ``params`` tree), as flat ``a/b/c`` keys -> float32 numpy arrays."""
+    if osp.isdir(artifact):
+        from ctpn_tpu_torch.utils.orbax_io import read_tree
+
+        return {k: np.asarray(v, np.float32)
+                for k, v in _flatten(read_tree(osp.join(artifact, "params")))}
+    if not artifact.endswith(".npz"):
+        raise ValueError(
+            f"expected an .npz artifact or an orbax artifact directory, got {artifact}")
+    with np.load(artifact) as flat:
+        return {k: flat[k].astype(np.float32) for k in flat.files}
+
+
 def load_params(
     artifact: str, device: Union[str, torch.device] = "cuda"
 ) -> Dict[str, torch.Tensor]:
-    """Load an ``.npz`` artifact: flat ``a/b/c`` keys -> float32 tensors on
-    ``device`` (float16 storage widens to float32, as the JAX loader does)."""
+    """Load an ``.npz`` artifact or an orbax artifact directory (``<artifact>/
+    params``, as the JAX package's ``load_params``): flat ``a/b/c`` keys ->
+    float32 tensors on ``device`` (float16 and bfloat16 storage widen to
+    float32, as the JAX loader does for ``.npz``)."""
     dev = resolve_device(device)
-    if not artifact.endswith(".npz"):
-        raise ValueError(f"expected an .npz artifact, got {artifact}")
-    with np.load(artifact) as flat:
-        return {
-            k: torch.from_numpy(flat[k].astype(np.float32)).to(dev)
-            for k in flat.files
-        }
+    return {k: torch.from_numpy(v).to(dev) for k, v in read_artifact(artifact).items()}
+
+
+def export_params(params: Mapping[str, Any], out_dir: str) -> str:
+    """Orbax artifact directory (counterpart of the JAX package's
+    ``export_params``): ``params`` (a JAX-layout tree, nested or flat ``a/b/c``,
+    of numpy arrays or tensors, kept in their dtype) is written to
+    ``<out_dir>/params``, which ``load_params`` of either package reads."""
+    from ctpn_tpu_torch.utils.orbax_io import write_tree
+
+    tree: Dict[str, Any] = {}
+    for key, value in _flatten(params):
+        *path, leaf = key.split("/")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    os.makedirs(out_dir, exist_ok=True)
+    write_tree(tree, osp.join(out_dir, "params"))
+    return osp.abspath(out_dir)
 
 
 def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator:
@@ -186,24 +223,17 @@ def load_pretrained_into(params: Mapping[str, Any], npy_path: str,
     The .npy holds ``{layer: {"weights": w, "biases": b}}`` with HWIO conv
     kernels. Layers that do not exist in the model (fc6/fc7/fc8 classifier
     heads) are skipped, mirroring ``ignore_missing=True``. An ``.npz``
-    artifact is also accepted: its leaves share the tree's paths, so the
-    overlay is exact. Orbax directories are not read (ROADMAP E2).
+    artifact or an orbax artifact directory is also accepted: its leaves
+    share the tree's paths, so the overlay is exact.
     """
-    if osp.isdir(npy_path):
-        raise ValueError(
-            f"{npy_path}: orbax artifact directories are not read by the port "
-            "(ROADMAP E2); pass an .npz artifact"
-        )
-    if npy_path.endswith(".npz"):
+    if osp.isdir(npy_path) or npy_path.endswith(".npz"):
         target = _tree_copy(params)
         applied = 0
-        with np.load(npy_path) as donor:
-            for key in donor.files:
-                value = donor[key].astype(np.float32)
-                if _set_in(target, tuple(key.split("/")), value):
-                    applied += 1
-                elif not ignore_missing:
-                    raise KeyError(f"artifact leaf {key} not found in model")
+        for key, value in read_artifact(npy_path).items():
+            if _set_in(target, tuple(key.split("/")), value):
+                applied += 1
+            elif not ignore_missing:
+                raise KeyError(f"artifact leaf {key} not found in model")
         if applied == 0:
             raise ValueError(
                 f"artifact {npy_path} applied zero leaves to the model tree "

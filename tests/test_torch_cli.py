@@ -150,15 +150,22 @@ def test_export_frozen_shapes_validation(tmp_path, bad):
 
 def test_export_refuses_what_needs_the_solver(tmp_path):
     """``--ckpt`` needs a solver directory with a checkpoint; a directory
-    ``--out`` (orbax) is not written by the port (ROADMAP E2)."""
+    ``--out`` writes an orbax artifact that the JAX package's
+    ``load_params`` reads, bit for bit against the port's source leaves."""
+    from ctpn_tpu.utils.weights import load_params as jax_load_params
     from ctpn_tpu_torch.cli.export_model import main as export_main
+    from ctpn_tpu_torch.utils.weights import load_params
 
-    for argv, msg in (
-            (["--ckpt", str(tmp_path), "--out", str(tmp_path / "x.npz")],
-             "no checkpoints under"),
-            (["--out", str(tmp_path / "orbax_dir")], "ROADMAP E2")):
-        with pytest.raises(SystemExit, match=msg):
-            export_main(argv)
+    with pytest.raises(SystemExit, match="no checkpoints under"):
+        export_main(["--ckpt", str(tmp_path), "--out", str(tmp_path / "x.npz")])
+    out = tmp_path / "orbax_dir"
+    export_main(["--artifact", ARTIFACT, "--out", str(out)])
+    assert (out / "params" / "_METADATA").exists()
+    want = {k: v.numpy() for k, v in load_params(ARTIFACT, device="cpu").items()}
+    got = dict(_flat(jax_load_params(str(out))))
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].dtype == np.float32 and got[k].tobytes() == want[k].tobytes(), k
 
 
 def _cli(*args):

@@ -116,8 +116,13 @@ def test_cli_npz_is_the_jax_conversion(sources, fmt, tmp_path, capsys):
     _assert_same(_flat(jax_weights.load_params(out)), want)
 
 
-def test_cli_refuses_what_it_cannot_write(tmp_path):
+def test_cli_refuses_what_it_cannot_write(sources, tmp_path):
+    """Without a source the converter exits; a directory ``--out`` is an
+    orbax artifact that the JAX package's ``load_params`` reads as the JAX
+    converter's arrays, bit for bit."""
     with pytest.raises(SystemExit, match="pass --tf-ckpt or --pb"):
         convert.main(["--out", str(tmp_path / "a.npz")])
-    with pytest.raises(SystemExit, match="ROADMAP E2"):
-        convert.main(["--pb", "unused.pb", "--out", str(tmp_path / "artifact")])
+    args, _, jax_reader, path = sources["pb"]
+    out = str(tmp_path / "artifact")
+    convert.main(args + ["--out", out])
+    _assert_same(_flat(jax_weights.load_params(out)), _jax_converted(jax_reader(path)))

@@ -19,7 +19,8 @@ import sys
 import ctpn_tpu_torch
 
 REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ctpn_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore", "zstandard",
+             "ctpn_tpu")
 SCRIPTS = sorted(glob.glob(osp.join(REPO, "scripts", "torch_*.py")))
 
 _PROBE = """
@@ -67,7 +68,8 @@ def test_package_imports_no_jax_and_no_ctpn_tpu():
         "ctpn_tpu_torch.cli.train_synth", "ctpn_tpu_torch.cli.eval_holdout",
         "ctpn_tpu_torch.cli.convert_reference", "ctpn_tpu_torch.parallel.mesh",
         "ctpn_tpu_torch.parallel.dp", "ctpn_tpu_torch.parallel.multicard",
-        "ctpn_tpu_torch.ops._launches",
+        "ctpn_tpu_torch.ops._launches", "ctpn_tpu_torch.utils.orbax_io",
+        "ctpn_tpu_torch.utils.zstd",
     } <= set(_module_names())
 
 

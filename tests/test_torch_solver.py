@@ -113,15 +113,26 @@ def test_checkpoints_keep_the_newest(tmp_path, monkeypatch):
 
 
 def test_orbax_checkpoint_refused(tmp_path):
-    step_dir = tmp_path / "checkpoints" / "5"
-    (step_dir / "state").mkdir(parents=True)
-    (step_dir / "_CHECKPOINT_METADATA").write_text("{}")
-    with pytest.raises(ValueError, match="orbax"):
-        checkpoint.load(str(tmp_path))
+    """A step of the JAX solver (the committed fixture, written by
+    ``ctpn_tpu``'s ``CheckpointManager``): resuming from it is refused with a
+    message naming the export that carries the parameters over, and that
+    export (``--ckpt``) writes its ``state.params``."""
+    import shutil
+
+    shutil.copytree(osp.join(REPO, "tests", "data", "orbax", "solver"), tmp_path / "run")
+    run = str(tmp_path / "run")
+    with pytest.raises(ValueError, match="orbax.*ctpn-torch-export --ckpt"):
+        checkpoint.load(run)
     from ctpn_tpu_torch.cli.export_model import main as export_main
 
-    with pytest.raises(SystemExit, match="orbax"):
-        export_main(["--ckpt", str(tmp_path), "--out", str(tmp_path / "x.npz")])
+    export_main(["--ckpt", run, "--out", str(tmp_path / "x.npz")])
+    want = checkpoint.load_jax_params(run, checkpoint.latest_step(run))
+    with np.load(tmp_path / "x.npz") as got:
+        assert sorted(got.files) == ["rpn_bbox_pred/bias", "rpn_bbox_pred/kernel",
+                                     "rpn_cls_score/bias", "rpn_cls_score/kernel"]
+        for k in got.files:
+            a, b = k.split("/")
+            assert np.array_equal(got[k], want[a][b].astype(np.float16)), k
 
 
 def test_train_refuses_without_cuda():
