@@ -109,19 +109,21 @@ Phases (any failure exits non-zero and prints no result line):
 12. full-size steps: 608x912, bf16, Adam, batch 1 and 2, ``TPU.REMAT``
     off and on, through ``TrainGraphs``: the first call (the eager warm-up
     step and the capture), then the state rewound in place and the same
-    step replayed; peak ``max_memory_allocated`` over the first call;
-    REMAT must give plain's loss and update (as in phase 11) on the eager
-    and on the replayed step, at a lower peak. Phases 11-12 launch none of
-    the four kernels.
+    step replayed, twice: the two replayed steps equal bit for bit; peak
+    ``max_memory_allocated`` over the first call; REMAT must give plain's
+    loss and update (as in phase 11) on the eager and on the replayed
+    step, at a lower peak. Phases 11-12 launch none of the four kernels.
 13. training entry points, in a temporary ``ROOT_DIR``: the port's
-    ``synth.generate_dataset``, ``ctpn-torch-prepare --link``, 30 steps of
-    ``SolverWrapper`` on one image (the mean model loss of the last 5 below
-    that of the first 5), ``ctpn-torch-train`` for 10 steps with a snapshot
-    at 5, ``--restore`` to 20 (first logged iteration 11; the solver's
-    steps replay their captured step), ``ctpn-torch-export
-    --ckpt``, ``ctpn-torch-demo`` on the export: 2 fused-NMS launches per
-    photo plus 2 for its warm-up, no other kernel; the training runs launch
-    none.
+    ``synth.generate_dataset`` (one image), ``ctpn-torch-prepare --link``,
+    30 steps of ``SolverWrapper`` on it (the mean model loss of the last 5
+    below that of the first 5), ``ctpn-torch-train`` for 10 steps with a
+    snapshot at 5, then, with checkpoint 10 set aside, ``--restore`` to 10
+    (first logged iteration 6; the solver's steps replay their captured
+    step): steps 6-10 log the uninterrupted run's metrics and the state
+    saved at 10 (parameters, moments, draw generator) is its state, bit
+    for bit; ``ctpn-torch-export --ckpt``, ``ctpn-torch-demo`` on the
+    export: 2 fused-NMS launches per photo plus 2 for its warm-up, no other
+    kernel; the training runs launch none.
 14. training quality and host ops: the native host library built by the
     host compiler and held against the numpy oracles (the cases of
     ``tests/test_torch_native.py``: keep lists and successors identical,
@@ -141,7 +143,8 @@ Phases (any failure exits non-zero and prints no result line):
     replicas on it, one NCCL rank), with its gates: sixteen NCCL DDP steps
     at 608x912 in bf16, one image per rank, with a falling loss, the first
     11 eager (DDP's warm-up) and the last five replaying the captured step
-    with its all-reduces; one step at
+    with its all-reduces, then the same sixteen steps from a new DDP model
+    on the same parameters, equal bit for bit; one step at
     min(2, cards) ranks, 2x256x384, f32, against one process (phase 11's
     tolerances); ``shard_detect_fn`` on the photo batch of 8, both routes,
     equal bit for bit to one card's ``run_batch`` slice by slice, counts
@@ -175,10 +178,12 @@ Phases (any failure exits non-zero and prints no result line):
     batch (the eager warm-up step, then three replayed steps) against
     eager steps of the bucket's ``TrainStep``, each set to the captured
     side's state before its step: every step's loss and gradient norm
-    within 1e-4 relative and its update within phase 11's tolerance;
-    bit-equality of each update and the drift of an eager model that took
-    the four steps on its own are printed, not gated (cuDNN's backward may
-    round differently from run to run).
+    within 1e-4 relative and its update within phase 11's tolerance; and
+    bit for bit (the step runs only reproducible kernels,
+    ``train_step.reproducible``): each eager step taken twice from one
+    state, each eager step against the captured one (metrics, update,
+    gradients), and an eager model that took the four steps on its own
+    against the captured model (drift exactly 0.0).
 18. captured training at full width: 608x912, bf16, Adam, batch 1, 2 and
     8, ``TPU.REMAT`` off and on: eager against replayed ms per step,
     busy share and kernels per step (``torch.profiler``), capture seconds,
@@ -217,7 +222,7 @@ Phases (any failure exits non-zero and prints no result line):
     Prints p50/p95/p99 and img/s per route and phase, the batcher's
     efficiency, streaming img/s and batch-1 latency beside the card line.
 21. prints one ``{"kernels": [...]}`` line (four kernels), the card line,
-    and last ``{"ok": true, "device": {...}}``; it runs after phase 22.
+    and last ``{"ok": true, "device": {...}}``; it runs after phase 23.
 22. orbax artifacts (``utils/orbax_io.py``, ``ops/csrc/zstd_decode.cpp``):
     builds the zstd decoder with the host compiler (timed); the committed
     JAX-written fixture (``tests/data/orbax/artifact``, OCDBT and zstd)
@@ -235,6 +240,17 @@ Phases (any failure exits non-zero and prints no result line):
     with phase 9's within 0.5 px (worst printed). Prints the host seconds to read the
     plain directory, the decoder's MB/s on the fixture and each server's
     seconds to its first answer, beside the card line.
+
+23. slot independence in every bucket (``drive_slot_buckets``): the five
+    buckets of ``cfg.TPU.BUCKETS`` (608x608, 608x912, 608x1024, 912x608,
+    1024x608), each with the photos that land in it and two renders of
+    ``data/synth.py`` sized into it, on the default route, the served
+    route and in O mode, at batch 8 (the server's) and 16
+    (``stream_detect``'s): each image's raw records in the first slots of
+    a batch and in its last slots behind noise JPEGs, equal bit for bit
+    (``scripts/torch_slot_dependence.py::slot_runs``), with records in every
+    bucket. One capture per shape, by a batch of noise, so that both
+    compared batches replay it; freed after it.
 
 Every recall gate counts lines as ``ctpn-torch-eval`` does
 (``eval.match_boxes``: one-to-one, IoU >= 0.5, integer corner boxes).
@@ -1982,7 +1998,9 @@ def full_size_steps(dev) -> list:
     """Full width, 608x912, bf16 compute: the Adam step at batch 1 and 2,
     ``TPU.REMAT`` off and on, from the same parameters and draws, through
     ``TrainGraphs``: the first call (the eager warm-up step, then the
-    capture), then the state rewound in place and the same step replayed.
+    capture), then the state rewound in place and the same step replayed,
+    twice: the two replayed steps must be equal bit for bit (metrics,
+    update, gradients; whether the eager step equals them is printed).
     Per setting: the peak of ``max_memory_allocated`` over the first call.
     REMAT must give plain's loss (1e-6 relative), its gradient norm (1e-3)
     and its update (as :func:`compare_updates` holds the card to the CPU),
@@ -2020,13 +2038,18 @@ def full_size_steps(dev) -> list:
             peak = torch.cuda.max_memory_allocated(dev)
             rewind(state, saved)
             replayed = step_record(model, before, graphs(batch, draws))
+            rewind(state, saved)
+            again = step_record(model, before, graphs(batch, draws))
+            if not same_step(replayed, again):
+                raise AssertionError(
+                    f"batch {n}, REMAT {remat}: two replayed steps from one state differ "
+                    f"(update by {float((replayed['delta'] - again['delta']).abs().max())})")
             (entry,) = graphs.graphs.values()
             recs[remat] = (eager, replayed)
             rows.append({"batch": n, "remat": remat, "peak_mib": peak / 2**20,
                          "capture_s": entry.capture_s, "pool_mib": graphs.pool_mib(),
                          "total_loss": replayed["metrics"]["total_loss"],
-                         "replayed_equals_eager": bool(
-                             torch.equal(eager["delta"], replayed["delta"]))})
+                         "replayed_equals_eager": same_step(eager, replayed)})
             log("  full-size step " + json.dumps(rows[-1]))
             del model, state, graphs, entry, before, saved
             torch.cuda.empty_cache()
@@ -2110,15 +2133,63 @@ def iter_lines(out: str) -> list:
     return rows
 
 
+def compare_resumed(root: Path, first_dir: Path, resumed_dir: Path, n_iters: int) -> dict:
+    """A run resumed from the snapshot at ``n_iters // 2`` against the run
+    that went on: the metrics the two logged for each step after the
+    snapshot (``metrics.jsonl`` of each run's log directory: losses,
+    gradient and update norms, learning rate) and the state each saved at
+    ``n_iters`` (parameters, Adam's moments and count, the draw
+    generator), equal bit for bit."""
+    from ctpn_tpu_torch.training.checkpoint import STATE_FILE
+    from ctpn_tpu_torch.training.train_step import METRICS
+
+    rows = [json.loads(ln) for f in sorted(root.glob("logs/**/metrics.jsonl"))
+            for ln in f.read_text().splitlines()]
+    half = n_iters // 2
+    first, again = rows[:n_iters], rows[n_iters:]
+    if [r["step"] for r in first] != list(range(1, n_iters + 1)) or \
+            [r["step"] for r in again] != list(range(half + 1, n_iters + 1)):
+        raise AssertionError(f"logged steps {[r['step'] for r in rows]}")
+    keys = METRICS + ("learning_rate",)
+    for a, b in zip(first[half:], again):
+        if any(a[k] != b[k] for k in keys):
+            raise AssertionError(f"step {a['step']}: the resumed run logged "
+                                 f"{ {k: b[k] for k in keys} }, the uninterrupted run "
+                                 f"{ {k: a[k] for k in keys} }")
+    want = torch.load(first_dir / STATE_FILE, map_location="cpu", weights_only=True)
+    got = torch.load(resumed_dir / STATE_FILE, map_location="cpu", weights_only=True)
+    moments = [k for k, v in want["opt_state"].items() if isinstance(v, list)]
+    diffs = {"params": max(float((want["params"][k] - got["params"][k]).abs().max())
+                           for k in want["params"]),
+             **{k: max(float((a - b).abs().max())
+                       for a, b in zip(want["opt_state"][k], got["opt_state"][k]))
+                for k in moments}}
+    same = (want["step"] == got["step"]
+            and all(torch.equal(want["params"][k], got["params"][k]) for k in want["params"])
+            and all(torch.equal(a, b) for k in moments
+                    for a, b in zip(want["opt_state"][k], got["opt_state"][k]))
+            and want["opt_state"].get("count") == got["opt_state"].get("count")
+            and torch.equal(want["gen"], got["gen"]))
+    if not same:
+        raise AssertionError(f"the resumed run's state at step {n_iters} is not the "
+                             f"uninterrupted run's: largest differences {diffs}")
+    return {"steps_compared": [r["step"] for r in again],
+            "total_loss": [r["total_loss"] for r in again], "max_abs_diff": diffs}
+
+
 def drive_training_entry_points(dev, n_iters: int = 10) -> dict:
     """Data to a trained, exported checkpoint through the entry points, in
     a temporary ``ROOT_DIR`` (devkit, roidb cache and output stay out of
     the repo): the port's ``synth.generate_dataset``; ``ctpn-torch-prepare
-    --link``; an overfit run of ``SolverWrapper`` on one image (Adam, lr
-    1e-4 by ``--set``, 30 steps: the mean model loss of the last 5 steps
+    --link`` (one image); an overfit run of ``SolverWrapper`` on it (Adam,
+    lr 1e-4 by ``--set``, 30 steps: the mean model loss of the last 5 steps
     below that of the first 5); ``ctpn-torch-train`` for ``n_iters`` steps
-    with a snapshot on the way, then ``--restore`` to ``2 * n_iters``, whose
-    first logged iteration is ``n_iters + 1``; ``ctpn-torch-export --ckpt``;
+    with a snapshot half way, then, with the last checkpoint set aside,
+    ``--restore`` to ``n_iters``, whose first logged iteration is
+    ``n_iters // 2 + 1`` and which must log the uninterrupted run's metrics
+    for those steps and save its state bit for bit (:func:`compare_resumed`;
+    the image unflipped, so both runs see the same batches);
+    ``ctpn-torch-export --ckpt``;
     ``ctpn-torch-demo`` on the export over the five photos (finite records,
     exactly 2 fused-NMS launches per photo plus 2 for its warm-up batch, no
     other kernel). The training runs launch no kernel."""
@@ -2134,7 +2205,7 @@ def drive_training_entry_points(dev, n_iters: int = 10) -> dict:
     (root / "data").mkdir(parents=True)
     report = {}
     t0 = time.perf_counter()
-    images, labels = generate_dataset(str(root / "raw"), n_images=4, seed=3)
+    images, labels = generate_dataset(str(root / "raw"), n_images=1, seed=3)
     devkit = root / "data" / "VOCdevkit2007"
     run_cli(["ctpn_tpu_torch.cli.prepare_data", "--images", images, "--labels", labels,
              "--out", str(root / "TEXTVOC"), "--link", str(devkit)])
@@ -2164,7 +2235,7 @@ def drive_training_entry_points(dev, n_iters: int = 10) -> dict:
 
     train = ["ctpn_tpu_torch.cli.train_net", "--cfg", str(REPO / "configs" / "text.yml"),
              "--set", "ROOT_DIR", str(root), "TRAIN.SNAPSHOT_ITERS", str(n_iters // 2),
-             "TRAIN.DISPLAY", "1"]
+             "TRAIN.DISPLAY", "1", "TRAIN.USE_FLIPPED", "False"]
     t0 = time.perf_counter()
     out, counts = run_counted(train[0], ["--max-iters", str(n_iters)] + train[1:])
     report["train_s"] = time.perf_counter() - t0
@@ -2174,20 +2245,27 @@ def drive_training_entry_points(dev, n_iters: int = 10) -> dict:
             not np.isfinite([l for _, l in first_run]).all():
         raise AssertionError(f"ctpn-torch-train logged {first_run}")
     solver_dir = root / "output" / "ctpn_end2end" / "voc_2007_trainval"
-    steps = sorted(int(p.name) for p in (solver_dir / "checkpoints").iterdir())
+    ckpts = solver_dir / "checkpoints"
+    steps = sorted(int(p.name) for p in ckpts.iterdir())
     if steps != [n_iters // 2, n_iters]:
         raise AssertionError(f"checkpoints at {steps}")
+    # the uninterrupted run's last step, set aside: --restore resumes from
+    # the snapshot half way and retakes the steps after it
+    uninterrupted = root / f"uninterrupted_{n_iters}"
+    shutil.move(str(ckpts / str(n_iters)), str(uninterrupted))
     t0 = time.perf_counter()
-    out, counts = run_counted(train[0], ["--max-iters", str(2 * n_iters), "--restore"]
+    out, counts = run_counted(train[0], ["--max-iters", str(n_iters), "--restore"]
                               + train[1:])
     report["train_restore_s"] = time.perf_counter() - t0
     expect_launches(counts, {}, "ctpn-torch-train --restore")
     resumed = iter_lines(out)
-    if not resumed or resumed[0][0] != n_iters + 1 or resumed[-1][0] != 2 * n_iters:
+    if not resumed or resumed[0][0] != n_iters // 2 + 1 or resumed[-1][0] != n_iters:
         raise AssertionError(f"ctpn-torch-train --restore logged {resumed}")
+    report["resume"] = compare_resumed(root, uninterrupted, ckpts / str(n_iters), n_iters)
     log(f"  ctpn-torch-train: iterations 1-{n_iters} in {report['train_s']:.1f} s, "
         f"checkpoints {steps}; --restore resumed at {resumed[0][0]} and ran to "
-        f"{resumed[-1][0]} (total loss {resumed[0][1]:.4f} -> {resumed[-1][1]:.4f})")
+        f"{resumed[-1][0]}: logged metrics and final state bit for bit those of the "
+        f"uninterrupted run ({json.dumps(report['resume'])})")
 
     npz = root / "trained.npz"
     run_cli(["ctpn_tpu_torch.cli.export_model", "--ckpt", str(solver_dir),
@@ -2554,6 +2632,13 @@ def drive_captured(dev) -> dict:
 CAPTURED_TRAIN_BATCHES = (1, 2, 8)
 
 
+def same_step(a: dict, b: dict) -> bool:
+    """Two :func:`step_record` results equal bit for bit: metrics, update and
+    raw gradients."""
+    return (a["metrics"] == b["metrics"] and torch.equal(a["delta"], b["delta"])
+            and torch.equal(a["grad"], b["grad"]))
+
+
 def check_captured_parity(dev) -> dict:
     """Three replayed steps against three eager steps: 2x256x384, f32 with
     TF32 off, Adam at lr 1e-4, from the same parameters and draws. The
@@ -2564,10 +2649,12 @@ def check_captured_parity(dev) -> dict:
     place, so that each pair of steps starts from one state. Each step:
     loss and gradient norm within 1e-4 relative and the update as
     :func:`compare_updates` holds the card to the CPU (phase 11's
-    tolerances). Whether each update came out equal bit for bit is
-    reported, not gated (cuDNN's backward may round differently from run
-    to run), and so is the largest parameter difference of a second eager
-    model that took the four steps on its own."""
+    tolerances); and, since the step runs only reproducible kernels
+    (``train_step.reproducible``), bit for bit: the eager step taken twice
+    from one state, and the eager step against the captured one (metrics,
+    update and gradients); a second eager model that took the four steps
+    on its own must end with the captured model's parameters exactly
+    (drift 0.0)."""
     from ctpn_tpu_torch.config import cfg, reset_cfg
     from ctpn_tpu_torch.models.factory import init_params
     from ctpn_tpu_torch.ops.anchor_target import num_anchors
@@ -2602,9 +2689,14 @@ def check_captured_parity(dev) -> dict:
         graphs = TrainGraphs(create_train_state(model), dev)
         steps = []
         for i, d in enumerate(draws):
-            rewind(eager_state, keep(graphs.state))
+            start = keep(graphs.state)
             before = [p.detach().clone() for p in model.parameters()]
-            ref = step_record(eager_model, before, eager_step(eager_state, dev_batch, d))
+            eager = []
+            for _ in range(2):  # the eager step, twice from one state
+                rewind(eager_state, start)
+                eager.append(step_record(eager_model, before,
+                                         eager_step(eager_state, dev_batch, d)))
+            ref = eager[0]
             got = step_record(model, before, graphs(host, d))
             free_step(free_state, dev_batch, d)
             rel = {k: abs(got["metrics"][k] - ref["metrics"][k]) / abs(ref["metrics"][k])
@@ -2614,19 +2706,26 @@ def check_captured_parity(dev) -> dict:
                 raise AssertionError(f"{what}: relative differences {rel}")
             worst, worst_noisy, n_noisy = compare_updates(ref, got, cfg.TRAIN.LEARNING_RATE,
                                                           what)
+            if not same_step(eager[0], eager[1]):
+                raise AssertionError(f"step {i + 1}: two eager steps from one state differ "
+                                     f"(update by {float((eager[0]['delta'] - eager[1]['delta']).abs().max())})")
+            if not same_step(ref, got):
+                raise AssertionError(f"{what}: not bit for bit (update by {worst}, "
+                                     f"{worst_noisy} where |g| <= 1e-6)")
             steps.append({"step": i + 1, "replayed": i > 0, "rel_diff": rel,
                           "update_max_abs_diff": worst,
                           "noisy_update_max_abs_diff": worst_noisy,
-                          "elements_grad_le_1e-6": n_noisy,
-                          "update_bit_equal": bool(torch.equal(ref["delta"], got["delta"]))})
+                          "elements_grad_le_1e-6": n_noisy})
         free_diff = max(float((a.detach() - b.detach()).abs().max())
                         for a, b in zip(free_model.parameters(), model.parameters()))
+        if free_diff != 0.0:
+            raise AssertionError(f"four free-running eager steps drifted {free_diff} from "
+                                 "four captured steps")
         report = {"bucket": f"2x{h}x{w}", "dtype": "float32, TF32 off",
                   "eager_steps": graphs.eager_steps,
                   "replays": len(draws) - graphs.eager_steps, "steps": steps,
                   "rel_diff_worst": max(max(r["rel_diff"].values()) for r in steps),
                   "update_max_abs_diff": max(r["update_max_abs_diff"] for r in steps),
-                  "updates_bit_equal": all(r["update_bit_equal"] for r in steps),
                   "free_running_params_max_abs_diff": free_diff}
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
@@ -2743,7 +2842,8 @@ def drive_multicard() -> dict:
         "cards": report["cards"], "replicas": report["replicas"],
         "ranks": report["ranks"], "card_line": report["card_line"],
         "descent": {k: train["descent"].get(k) for k in
-                    ("losses", "step", "eager_steps", "replayed_steps")},
+                    ("losses", "step", "eager_steps", "replayed_steps",
+                     "rerun_params_max_abs_diff")},
         "parity": train["parity"], "ddp_steps": train["ddp_steps"],
         "inference": report["inference"], "frozen": report["frozen"],
         "dp_detect": report["dp_detect"], "launches_in_phase": counts,
@@ -3129,6 +3229,58 @@ def drive_load(dev, card: str) -> dict:
     return report
 
 
+# ------------------------------------------------------------- slot independence
+
+def drive_slot_buckets(dev, card: str) -> dict:
+    """Phase 23: in every bucket of ``cfg.TPU.BUCKETS``, on the default
+    route, the served route and in O mode, at batch 8 and 16, the images
+    of ``scripts/torch_slot_dependence.py::bucket_content`` (the photos that
+    land in the bucket and two renders sized into it, prepped as the
+    server's handler preps them) in the first slots of a batch and in its
+    last slots behind noise: each image's raw records equal bit for bit
+    (counts and values), and each bucket's images give records. One
+    capture per shape: a batch of noise runs and captures the program, and
+    both compared batches replay it, as the server does; each shape's graph
+    is freed after it."""
+    from ctpn_tpu_torch.config import cfg_from_list, reset_cfg
+    from ctpn_tpu_torch.inference.pipeline import CTPNPredictor
+    from ctpn_tpu_torch.utils.weights import load_params
+
+    slot = load_script("torch_slot_dependence.py")
+    reset_cfg()
+    t0 = time.perf_counter()
+    content = slot.bucket_content()
+    prep_s = time.perf_counter() - t0
+    params = load_params(str(ARTIFACT), device=dev)
+    rows = []
+    try:
+        for route, (sets, mode) in slot.ROUTES.items():
+            reset_cfg()
+            cfg_from_list(sets)
+            pred = CTPNPredictor(params, mode=mode, device=dev)
+            for bucket, (images, noise) in content.items():
+                for batch in slot.BATCHES:
+                    row = slot.slot_runs(pred, images, noise, batch)
+                    pred.graphs.graphs.clear()  # one shape's graph at a time
+                    torch.cuda.empty_cache()
+                    rows.append({"route": route, "bucket": "x".join(map(str, bucket)),
+                                 "batch": batch, **row})
+                    if any(d != 0.0 for d in row["records"]) or not sum(row["counts"]):
+                        raise AssertionError(f"records depend on the batch slot: {rows[-1]}")
+            del pred
+    finally:
+        reset_cfg()
+    report = {"card": card, "content_prep_s": prep_s, "keys": len(rows),
+              "images": sum(len(r["records"]) for r in rows),
+              "records": sum(sum(r["counts"]) for r in rows),
+              "largest_record_diff": max(d for r in rows for d in r["records"]),
+              "rois_equal": all(d == 0.0 for r in rows for d in r["rois"]),
+              "rows": [{k: r[k] for k in ("route", "bucket", "batch", "slots_last",
+                                          "counts", "records")} for r in rows]}
+    log("  slot independence " + json.dumps(report))
+    return report
+
+
 # ------------------------------------------------------------- orbax artifacts
 
 ORBAX_FIXTURE = REPO / "tests" / "data" / "orbax"  # written by the JAX package
@@ -3304,7 +3456,7 @@ def main(argv=()) -> int:
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()
-    log(f"[1/22] device: {torch.cuda.get_device_name(0)} | {card} | "
+    log(f"[1/23] device: {torch.cuda.get_device_name(0)} | {card} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     # a checkout from before the resolve kernel (timed with --kernels-only
@@ -3313,7 +3465,7 @@ def main(argv=()) -> int:
     t0 = time.perf_counter()
     logs = _build.build(["nms_fused", "nms_bitmask", "stem_fused"]
                         + ["nms_resolve"] * has_resolve)
-    log(f"[2/22] build: {time.perf_counter() - t0:.2f} s")
+    log(f"[2/23] build: {time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
         for line in text.splitlines():
             # registers, shared memory, spills, and ptxas's performance
@@ -3321,7 +3473,7 @@ def main(argv=()) -> int:
             if any(k in line for k in ("registers", "smem", "spill", "(C75")):
                 log(f"  {name}: {line.strip()}")
 
-    log("[3/22] kernels against their plain versions")
+    log("[3/23] kernels against their plain versions")
     entries = [check_nms_kernel(dev), check_bitmask_kernel(dev), check_stem_kernel(dev)]
     if has_resolve:
         entries.append(check_resolve_kernel(dev))
@@ -3334,46 +3486,46 @@ def main(argv=()) -> int:
     if not has_resolve:
         raise AssertionError("ctpn_tpu_torch/ops/csrc/nms_resolve.cu is missing")
 
-    log("[4/22] main path (default config)")
+    log("[4/23] main path (default config)")
     default_recs = drive_main_path(dev, entries[0])
 
-    log("[5/22] serving path (TPU.NMS_FUSED False, TPU.FUSED_STEM True)")
+    log("[5/23] serving path (TPU.NMS_FUSED False, TPU.FUSED_STEM True)")
     drive_serving_path(dev, entries[1], entries[3], entries[2], default_recs)
     for entry in entries:
         if not entry["launches"]:
             raise AssertionError(f"{entry['name']} was never launched on its path")
 
-    log("[6/22] serve CLI")
+    log("[6/23] serve CLI")
     check_cli()
 
     shutil.rmtree(OUT, ignore_errors=True)
     try:
-        log("[7/22] O mode")
+        log("[7/23] O mode")
         drive_o_mode(dev)
 
-        log("[8/22] host post-processing (detect_image_host, H and O)")
+        log("[8/23] host post-processing (detect_image_host, H and O)")
         drive_host_path(dev)
 
-        log("[9/22] frozen artifacts (default and served routes)")
+        log("[9/23] frozen artifacts (default and served routes)")
         frozen = drive_frozen(dev)
 
-        log("[10/22] CLIs: demo, eval, export --frozen, demo --frozen, serve frozen")
+        log("[10/23] CLIs: demo, eval, export --frozen, demo --frozen, serve frozen")
         check_clis(frozen)
     finally:
         shutil.rmtree(OUT, ignore_errors=True)
 
-    log("[11/22] training: one step on the card against the CPU")
+    log("[11/23] training: one step on the card against the CPU")
     zero_launch_counts()
     t0 = time.perf_counter()
     train = {"parity": check_train_parity(dev)}
     seconds = {"parity": time.perf_counter() - t0}
-    log("[12/22] training: full-width steps at 608x912, batch 1 and 2, REMAT off and "
+    log("[12/23] training: full-width steps at 608x912, batch 1 and 2, REMAT off and "
         "on, eager and replayed")
     t0 = time.perf_counter()
     train["steps"] = full_size_steps(dev)
     seconds["steps"] = time.perf_counter() - t0
     expect_launches(launch_counts(), {}, "training phases 11-12")
-    log("[13/22] training: data, overfit, train, restore, export --ckpt, demo")
+    log("[13/23] training: data, overfit, train, restore, export --ckpt, demo")
     t0 = time.perf_counter()
     try:
         train["entry_points"] = drive_training_entry_points(dev)
@@ -3383,7 +3535,7 @@ def main(argv=()) -> int:
     train["seconds"] = seconds
     log("  train " + json.dumps(train))
 
-    log("[14/22] training quality: synthetic fine-tune, holdout before and after; "
+    log("[14/23] training quality: synthetic fine-tune, holdout before and after; "
         "native host ops")
     t0 = time.perf_counter()
     try:
@@ -3394,43 +3546,43 @@ def main(argv=()) -> int:
     quality["seconds"] = time.perf_counter() - t0
     log("  quality " + json.dumps(quality))
 
-    log("[15/22] multi-card: DP training, DP detection on both routes, DP frozen "
+    log("[15/23] multi-card: DP training, DP detection on both routes, DP frozen "
         "artifact (every visible card)")
     zero_launch_counts()
     t0 = time.perf_counter()
     drive_multicard()
     log(f"  multi-card phase {time.perf_counter() - t0:.1f} s")
 
-    log("[16/22] captured programs: default route, served route, O mode, frozen "
+    log("[16/23] captured programs: default route, served route, O mode, frozen "
         "default route (CUDA graphs replayed against the eager program)")
     t0 = time.perf_counter()
     drive_captured(dev)
     log(f"  captured-program phase {time.perf_counter() - t0:.1f} s")
 
     zero_launch_counts()
-    log("[17/22] captured training: three replayed steps against three eager "
+    log("[17/23] captured training: three replayed steps against three eager "
         "steps (2x256x384, f32)")
     t0 = time.perf_counter()
     check_captured_parity(dev)
-    log("[18/22] captured training at 608x912, batch 1, 2 and 8, REMAT off and on: "
+    log("[18/23] captured training at 608x912, batch 1, 2 and 8, REMAT off and on: "
         "eager against replayed, host syncs an error")
     time_captured_steps(dev)
     expect_launches(launch_counts(), {}, "captured training, phases 17-18")
     log(f"  captured-training phases {time.perf_counter() - t0:.1f} s")
 
-    log("[19/22] card against CPU: detect_image on the photos in float32, TF32 off "
+    log("[19/23] card against CPU: detect_image on the photos in float32, TF32 off "
         "(ROADMAP D1); bf16 against it, reported")
     t0 = time.perf_counter()
     check_card_against_cpu(dev, default_recs)
     log(f"  card-against-CPU phase {time.perf_counter() - t0:.1f} s")
 
-    log("[20/22] load: the three load scripts (HTTP on both routes, the batcher, "
+    log("[20/23] load: the three load scripts (HTTP on both routes, the batcher, "
         "streaming), records under load against direct runs, a cold bucket under load")
     t0 = time.perf_counter()
     drive_load(dev, card)
     log(f"  load phase {time.perf_counter() - t0:.1f} s")
 
-    log("[22/22] orbax artifacts: the JAX package's directories read without JAX, "
+    log("[22/23] orbax artifacts: the JAX package's directories read without JAX, "
         "the port's written, detection on orbax-read weights, serve on a directory")
     t0 = time.perf_counter()
     try:
@@ -3439,7 +3591,13 @@ def main(argv=()) -> int:
         shutil.rmtree(ORBAX_OUT, ignore_errors=True)
     log(f"  orbax phase {time.perf_counter() - t0:.1f} s")
 
-    log(f"[21/22] result (all phases {time.perf_counter() - t_start:.1f} s)")
+    log("[23/23] slot independence: every bucket, default and served routes and O "
+        "mode, batch 8 and 16, an image's raw records in the first and last slots")
+    t0 = time.perf_counter()
+    drive_slot_buckets(dev, card)
+    log(f"  slot phase {time.perf_counter() - t0:.1f} s")
+
+    log(f"[21/23] result (all phases {time.perf_counter() - t_start:.1f} s)")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -18,7 +18,10 @@ Four legs, every gate raising ``AssertionError``:
     on cards the 11 eager steps and five replayed ones), one image per
     rank, full VGG16 width at 608x912 in bf16, from ``init_params(3)``:
     the last loss below the first, the whole back half below the first,
-    and on cards the last five steps replayed. Then one step at 2 ranks,
+    and on cards the last five steps replayed; the same steps taken again
+    from a new DDP model on the same parameters give the same losses and
+    parameters bit for bit (the step runs only reproducible kernels,
+    ``train_step.reproducible``). Then one step at 2 ranks,
     2x256x384, f32 with TF32 off, against one process on the same global
     batch: loss and gradient norm within 1e-4 relative, the update within
     1e-3 * lr wherever the gradient exceeds 1e-6.
@@ -359,20 +362,29 @@ def _which_step(graphs) -> dict:
 def _task_descent(spec, dev, rank, world) -> dict:
     """Six steps on a fixed objective: the same batch and the same
     anchor-target draws every step (fresh draws resample the fg anchors of
-    a scene with more than 150, and that noise outweighs six steps' gain)."""
+    a scene with more than 150, and that noise outweighs six steps' gain).
+    Then the same steps again, from a new DDP model on the same parameters:
+    the losses and the final parameters of the two runs, compared."""
     from ctpn_tpu_torch.ops.anchor_target import num_anchors
 
     bucket = tuple(spec["train"])
-    _, state, graphs, batch = _ddp_setup(bucket, spec["dtype"], world, 21, dev,
-                                         rank, world)
     k = num_anchors(bucket[0] // 16, bucket[1] // 16)
     draws = torch.rand((2, world, k), generator=torch.Generator().manual_seed(24))
     draws = draws[:, rank:rank + 1]
-    n = DESCENT_STEPS if dev.type == "cpu" else graphs.warmup_steps + REPLAYED_STEPS
-    losses = [float(graphs(batch, draws)["total_loss"]) for _ in range(n)]
+    runs = []
+    for _ in range(2):
+        model, state, graphs, batch = _ddp_setup(bucket, spec["dtype"], world, 21, dev,
+                                                 rank, world)
+        n = DESCENT_STEPS if dev.type == "cpu" else graphs.warmup_steps + REPLAYED_STEPS
+        losses = [float(graphs(batch, draws)["total_loss"]) for _ in range(n)]
+        runs.append((losses, [p.detach().cpu() for p in model.parameters()],
+                     {**_which_step(graphs), "replayed_steps": n - graphs.eager_steps}))
+        del model, state, graphs
+    (losses, params, which), (again, params_again, _) = runs
     return {"losses": losses, "bucket": list(bucket), "dtype": spec["dtype"],
-            "images_per_rank": 1, **_which_step(graphs),
-            "replayed_steps": n - graphs.eager_steps}
+            "images_per_rank": 1, **which, "rerun_losses": again,
+            "rerun_params_max_abs_diff": max(float((a - b).abs().max())
+                                             for a, b in zip(params, params_again))}
 
 
 def _task_parity(spec, dev, rank, world) -> dict:
@@ -543,6 +555,12 @@ def leg_training(dev_type: str, n_ranks: int, sizes: dict, work: Path,
         f"{sizes['train'][0]}x{sizes['train'][1]}, {descent['eager_steps']} eager "
         f"then {descent['replayed_steps']} replayed steps ({descent['step']} step): "
         "loss " + " -> ".join(f"{v:.4f}" for v in losses))
+    if descent["rerun_losses"] != losses or descent["rerun_params_max_abs_diff"] != 0.0:
+        raise AssertionError(f"the same {len(losses)} DDP steps from one state differ: "
+                             f"losses {losses} and {descent['rerun_losses']}, parameters "
+                             f"by {descent['rerun_params_max_abs_diff']}")
+    log(f"  (a) the same {len(losses)} steps again from the same state: losses and "
+        "parameters equal bit for bit")
 
     dev = torch.device("cuda", 0) if dev_type == "cuda" else torch.device("cpu")
     ref = parity_reference(tuple(sizes["parity"]), dev)

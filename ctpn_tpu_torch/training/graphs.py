@@ -33,10 +33,13 @@ and replays it:
   next replay writes the same memory), and adds the learning rate.
 
 A capture executes nothing: the step a call takes is its warm-up or its
-replay, and the host part runs once per call, before either. Launches of
-the hand-written kernels are recorded at capture and added per replay
-(``ops/_launches.py``); the training path launches none. A capture or
-replay that fails raises: no call falls back to the eager step. On the
+replay, and the host part runs once per call, before either. The device
+part runs inside ``train_step.reproducible``, so the warm-up and the
+capture choose only kernels that give the same result from the same
+inputs: a replay equals the eager step from the same state bit for bit.
+Launches of the hand-written kernels are recorded at capture and added per
+replay (``ops/_launches.py``); the training path launches none. A capture
+or replay that fails raises: no call falls back to the eager step. On the
 CPU the wrapper runs the eager step. ``backend`` replaces the CUDA graph
 machinery (the tests inject a fake one).
 """

@@ -35,22 +35,36 @@ JAX package's ``jax.jit(step, donate_argnums=(0,))``):
   the parameters, the gradient buffers and the solver's moments in place
   (the counterpart of donation), and returns the metrics as one stacked
   tensor in the order of :data:`METRICS`.
+
+The device part runs inside :func:`reproducible`: only kernels that give
+the same result from the same inputs, so that a step is a function of its
+state, batch and draws on the card as the JAX package's jitted step is on
+its chip. Given the same batches, a resumed run retakes the steps it
+resumes bit for bit; the data order is not in a checkpoint, in either
+package (``RoIDataLayer`` reseeds its permutation from ``cfg.RNG_SEED``), so
+on a dataset of more than one batch a resumed run sees other batches.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.utils.deterministic as det
 
 from ctpn_tpu_torch.config import cfg
 from ctpn_tpu_torch.ops.anchor_target import anchor_target_layer, num_anchors
 from ctpn_tpu_torch.training.loss import ctpn_loss, decayed_parameters, weight_decay_loss
 from ctpn_tpu_torch.utils.device import device_constant
 
+# a cuBLAS workspace setting that PyTorch accepts as reproducible (32 MiB,
+# PyTorch's own size on a Hopper card)
+CUBLAS_WORKSPACE = ":4096:8"
 MAX_GRAD_NORM = 10.0
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 RMS_DECAY, RMS_EPS = 0.9, 1.0
@@ -58,6 +72,46 @@ RMS_DECAY, RMS_EPS = 0.9, 1.0
 # the loss's parts (averaged over data-parallel ranks), then the optimizer's
 LOSS_METRICS = ("model_loss", "num_fg", "rpn_box_loss", "rpn_cls_loss", "total_loss")
 METRICS = LOSS_METRICS + ("grad_norm", "update_norm")
+
+
+@contextlib.contextmanager
+def reproducible():
+    """Kernels that give the same result from the same inputs inside this
+    context: cuDNN's deterministic algorithms, chosen by its heuristics and
+    not by timing (``cudnn.deterministic``, no ``benchmark``), and
+    PyTorch's deterministic implementations (``use_deterministic_algorithms``:
+    an op that has none raises). Memory that ``torch.empty`` hands out is
+    not filled (nothing reads it before writing).
+
+    ``CUBLAS_WORKSPACE_CONFIG`` is set to :data:`CUBLAS_WORKSPACE` if unset,
+    since PyTorch's deterministic mode refuses cuBLAS without it. PyTorch
+    reads that variable for the workspace size once, at the process's first
+    cuBLAS call, and reads it again only for that check: set after cuBLAS
+    is in use (detection ran first), it changes no workspace, and on a
+    Hopper card its value is PyTorch's default size there anyway.
+
+    The settings are process-wide, so they hold for any other thread while
+    a step runs; they, the variable included, are restored on exit."""
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             det.fill_uninitialized_memory, os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+    if saved[-1] is None:
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = CUBLAS_WORKSPACE
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True)
+    det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        cudnn_det, bench, mode, warn_only, fill, workspace = saved
+        torch.backends.cudnn.deterministic = cudnn_det
+        torch.backends.cudnn.benchmark = bench
+        torch.use_deterministic_algorithms(mode, warn_only=warn_only)
+        det.fill_uninitialized_memory = fill
+        if workspace is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
 
 
 class Batch(NamedTuple):
@@ -308,8 +362,13 @@ class TrainStep:
     def device_part(self, state: TrainState, batch: Batch, draws: torch.Tensor,
                     scalars: torch.Tensor) -> torch.Tensor:
         """Anchor targets, forward, losses and L2 decay, backward, clip and
-        the update, from device tensors only; returns the metrics stacked
-        in the order of :data:`METRICS`."""
+        the update, from device tensors only, inside :func:`reproducible`;
+        returns the metrics stacked in the order of :data:`METRICS`."""
+        with reproducible():
+            return self._device_part(state, batch, draws, scalars)
+
+    def _device_part(self, state: TrainState, batch: Batch, draws: torch.Tensor,
+                     scalars: torch.Tensor) -> torch.Tensor:
         dev = batch.images.device
         with torch.no_grad():
             targets = anchor_target_layer(
