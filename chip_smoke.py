@@ -222,7 +222,7 @@ Phases (any failure exits non-zero and prints no result line):
     Prints p50/p95/p99 and img/s per route and phase, the batcher's
     efficiency, streaming img/s and batch-1 latency beside the card line.
 21. prints one ``{"kernels": [...]}`` line (four kernels), the card line,
-    and last ``{"ok": true, "device": {...}}``; it runs after phase 23.
+    and last ``{"ok": true, "device": {...}}``; it runs after phase 24.
 22. orbax artifacts (``utils/orbax_io.py``, ``ops/csrc/zstd_decode.cpp``):
     builds the zstd decoder with the host compiler (timed); the committed
     JAX-written fixture (``tests/data/orbax/artifact``, OCDBT and zstd)
@@ -252,6 +252,17 @@ Phases (any failure exits non-zero and prints no result line):
     bucket. One capture per shape, by a batch of noise, so that both
     compared batches replay it; freed after it.
 
+24. ``bench_torch.py`` as a subprocess, as a user runs it (its defaults:
+    batch 48, 14 replays of the captured program on a batch already on the
+    card, the noise and the real row, each row's records gated against an
+    eager run), on the default route and under the served route's
+    ``BENCH_CFG_SET``, with ``BENCH_CHILD_TIMEOUT_S`` 300: each line
+    parseable, ``value`` not null, ``attempts`` 1, ``device`` the card of
+    phase 1, ``content`` ``real``, and the launches per replayed batch of
+    its report exactly the route's (2 fused NMS; 2 bitmask, 2 resolve, 1
+    stem). Prints both lines and reports beside phase 16's replayed ms per
+    batch of the route (batch 8, uploaded per call: another figure).
+
 Every recall gate counts lines as ``ctpn-torch-eval`` does
 (``eval.match_boxes``: one-to-one, IoU >= 0.5, integer corner boxes).
 The photo phases (4, 5, 7-10, 22) also gate precision, the lines matched
@@ -265,6 +276,7 @@ Imports nothing of JAX and nothing of the JAX package ``ctpn_tpu``.
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import os
@@ -3447,6 +3459,65 @@ def drive_orbax(dev, default_recs: list, card: str) -> dict:
     return report
 
 
+# ------------------------------------------------------------- bench_torch.py
+
+BENCH_TIMEOUT_S = 300  # per child of bench_torch.py's supervisor
+
+
+def run_bench(route: str) -> tuple:
+    """``python3 bench_torch.py`` as a user runs it, at its defaults on
+    ``route``: its JSON line and its ``# bench_torch`` report."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update(BENCH_CHILD_TIMEOUT_S=str(BENCH_TIMEOUT_S), BENCH_BACKOFF_S="5")
+    if ROUTE_SETS[route]:
+        env["BENCH_CFG_SET"] = " ".join(ROUTE_SETS[route])
+    proc = subprocess.run([sys.executable, str(REPO / "bench_torch.py")], cwd=str(REPO),
+                          capture_output=True, text=True, env=env,
+                          timeout=3 * BENCH_TIMEOUT_S + 120)
+    out = proc.stdout.strip().splitlines()
+    try:
+        line = json.loads(out[-1])
+    except (IndexError, ValueError):
+        raise AssertionError(f"bench_torch.py ({route}) printed no parseable line "
+                             f"(rc {proc.returncode}):\n{proc.stdout}\n{proc.stderr[-3000:]}")
+    reports = [json.loads(ln[len("# bench_torch "):]) for ln in proc.stderr.splitlines()
+               if ln.startswith("# bench_torch ")]
+    return line, (reports[-1] if reports else None), proc.stderr
+
+
+def drive_bench(card_name: str, captured: dict) -> dict:
+    """``bench_torch.py`` on the default and the served route (batch 48, 14
+    replays on a batch already on the card, both rows). Fails on a null
+    value (a failed records gate is one), a retry, another device than the
+    card, content other than ``real``, or launches per replayed batch other
+    than the route's; prints each line beside phase 16's replayed ms per
+    batch of the route, which is another figure: batch 8 of the photos,
+    uploaded from the host in every call."""
+    lines = {}
+    for route in ("default", "served"):
+        t0 = time.perf_counter()
+        line, report, err = run_bench(route)
+        if line.get("value") is None or line.get("attempts") != 1 or report is None:
+            raise AssertionError(f"bench_torch.py ({route}): {line}\n{err[-3000:]}")
+        if line["device"] != card_name or line["content"] != "real":
+            raise AssertionError(f"bench_torch.py ({route}) ran on {line['device']} "
+                                 f"with {line['content']} content: {line}")
+        want = {k: float(n) for k, n in ROUTE_LAUNCHES[route].items()}
+        for name, row in report["rows"].items():
+            if row["launches_per_batch"] != want:
+                raise AssertionError(f"bench_torch.py ({route}), {name} row: launches per "
+                                     f"batch {row['launches_per_batch']}, want {want}")
+        log(f"  bench_torch.py {route} route ({time.perf_counter() - t0:.1f} s): "
+            + json.dumps(line))
+        log(f"  bench_torch.py {route} report: " + json.dumps(report))
+        log(f"  {route}: {1e3 * line['batch'] / line['value']:.2f} ms per batch of "
+            f"{line['batch']} already on the card; phase 16: "
+            f"{captured[route]['replayed_ms_per_batch']:.2f} ms per batch of 8 photos "
+            "uploaded per call (not the same figure)")
+        lines[route] = line
+    return lines
+
+
 def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3456,7 +3527,7 @@ def main(argv=()) -> int:
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()
-    log(f"[1/23] device: {torch.cuda.get_device_name(0)} | {card} | "
+    log(f"[1/24] device: {torch.cuda.get_device_name(0)} | {card} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     # a checkout from before the resolve kernel (timed with --kernels-only
@@ -3465,7 +3536,7 @@ def main(argv=()) -> int:
     t0 = time.perf_counter()
     logs = _build.build(["nms_fused", "nms_bitmask", "stem_fused"]
                         + ["nms_resolve"] * has_resolve)
-    log(f"[2/23] build: {time.perf_counter() - t0:.2f} s")
+    log(f"[2/24] build: {time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
         for line in text.splitlines():
             # registers, shared memory, spills, and ptxas's performance
@@ -3473,7 +3544,7 @@ def main(argv=()) -> int:
             if any(k in line for k in ("registers", "smem", "spill", "(C75")):
                 log(f"  {name}: {line.strip()}")
 
-    log("[3/23] kernels against their plain versions")
+    log("[3/24] kernels against their plain versions")
     entries = [check_nms_kernel(dev), check_bitmask_kernel(dev), check_stem_kernel(dev)]
     if has_resolve:
         entries.append(check_resolve_kernel(dev))
@@ -3486,46 +3557,46 @@ def main(argv=()) -> int:
     if not has_resolve:
         raise AssertionError("ctpn_tpu_torch/ops/csrc/nms_resolve.cu is missing")
 
-    log("[4/23] main path (default config)")
+    log("[4/24] main path (default config)")
     default_recs = drive_main_path(dev, entries[0])
 
-    log("[5/23] serving path (TPU.NMS_FUSED False, TPU.FUSED_STEM True)")
+    log("[5/24] serving path (TPU.NMS_FUSED False, TPU.FUSED_STEM True)")
     drive_serving_path(dev, entries[1], entries[3], entries[2], default_recs)
     for entry in entries:
         if not entry["launches"]:
             raise AssertionError(f"{entry['name']} was never launched on its path")
 
-    log("[6/23] serve CLI")
+    log("[6/24] serve CLI")
     check_cli()
 
     shutil.rmtree(OUT, ignore_errors=True)
     try:
-        log("[7/23] O mode")
+        log("[7/24] O mode")
         drive_o_mode(dev)
 
-        log("[8/23] host post-processing (detect_image_host, H and O)")
+        log("[8/24] host post-processing (detect_image_host, H and O)")
         drive_host_path(dev)
 
-        log("[9/23] frozen artifacts (default and served routes)")
+        log("[9/24] frozen artifacts (default and served routes)")
         frozen = drive_frozen(dev)
 
-        log("[10/23] CLIs: demo, eval, export --frozen, demo --frozen, serve frozen")
+        log("[10/24] CLIs: demo, eval, export --frozen, demo --frozen, serve frozen")
         check_clis(frozen)
     finally:
         shutil.rmtree(OUT, ignore_errors=True)
 
-    log("[11/23] training: one step on the card against the CPU")
+    log("[11/24] training: one step on the card against the CPU")
     zero_launch_counts()
     t0 = time.perf_counter()
     train = {"parity": check_train_parity(dev)}
     seconds = {"parity": time.perf_counter() - t0}
-    log("[12/23] training: full-width steps at 608x912, batch 1 and 2, REMAT off and "
+    log("[12/24] training: full-width steps at 608x912, batch 1 and 2, REMAT off and "
         "on, eager and replayed")
     t0 = time.perf_counter()
     train["steps"] = full_size_steps(dev)
     seconds["steps"] = time.perf_counter() - t0
     expect_launches(launch_counts(), {}, "training phases 11-12")
-    log("[13/23] training: data, overfit, train, restore, export --ckpt, demo")
+    log("[13/24] training: data, overfit, train, restore, export --ckpt, demo")
     t0 = time.perf_counter()
     try:
         train["entry_points"] = drive_training_entry_points(dev)
@@ -3535,7 +3606,7 @@ def main(argv=()) -> int:
     train["seconds"] = seconds
     log("  train " + json.dumps(train))
 
-    log("[14/23] training quality: synthetic fine-tune, holdout before and after; "
+    log("[14/24] training quality: synthetic fine-tune, holdout before and after; "
         "native host ops")
     t0 = time.perf_counter()
     try:
@@ -3546,43 +3617,43 @@ def main(argv=()) -> int:
     quality["seconds"] = time.perf_counter() - t0
     log("  quality " + json.dumps(quality))
 
-    log("[15/23] multi-card: DP training, DP detection on both routes, DP frozen "
+    log("[15/24] multi-card: DP training, DP detection on both routes, DP frozen "
         "artifact (every visible card)")
     zero_launch_counts()
     t0 = time.perf_counter()
     drive_multicard()
     log(f"  multi-card phase {time.perf_counter() - t0:.1f} s")
 
-    log("[16/23] captured programs: default route, served route, O mode, frozen "
+    log("[16/24] captured programs: default route, served route, O mode, frozen "
         "default route (CUDA graphs replayed against the eager program)")
     t0 = time.perf_counter()
-    drive_captured(dev)
+    captured = drive_captured(dev)
     log(f"  captured-program phase {time.perf_counter() - t0:.1f} s")
 
     zero_launch_counts()
-    log("[17/23] captured training: three replayed steps against three eager "
+    log("[17/24] captured training: three replayed steps against three eager "
         "steps (2x256x384, f32)")
     t0 = time.perf_counter()
     check_captured_parity(dev)
-    log("[18/23] captured training at 608x912, batch 1, 2 and 8, REMAT off and on: "
+    log("[18/24] captured training at 608x912, batch 1, 2 and 8, REMAT off and on: "
         "eager against replayed, host syncs an error")
     time_captured_steps(dev)
     expect_launches(launch_counts(), {}, "captured training, phases 17-18")
     log(f"  captured-training phases {time.perf_counter() - t0:.1f} s")
 
-    log("[19/23] card against CPU: detect_image on the photos in float32, TF32 off "
+    log("[19/24] card against CPU: detect_image on the photos in float32, TF32 off "
         "(ROADMAP D1); bf16 against it, reported")
     t0 = time.perf_counter()
     check_card_against_cpu(dev, default_recs)
     log(f"  card-against-CPU phase {time.perf_counter() - t0:.1f} s")
 
-    log("[20/23] load: the three load scripts (HTTP on both routes, the batcher, "
+    log("[20/24] load: the three load scripts (HTTP on both routes, the batcher, "
         "streaming), records under load against direct runs, a cold bucket under load")
     t0 = time.perf_counter()
     drive_load(dev, card)
     log(f"  load phase {time.perf_counter() - t0:.1f} s")
 
-    log("[22/23] orbax artifacts: the JAX package's directories read without JAX, "
+    log("[22/24] orbax artifacts: the JAX package's directories read without JAX, "
         "the port's written, detection on orbax-read weights, serve on a directory")
     t0 = time.perf_counter()
     try:
@@ -3591,13 +3662,21 @@ def main(argv=()) -> int:
         shutil.rmtree(ORBAX_OUT, ignore_errors=True)
     log(f"  orbax phase {time.perf_counter() - t0:.1f} s")
 
-    log("[23/23] slot independence: every bucket, default and served routes and O "
+    log("[23/24] slot independence: every bucket, default and served routes and O "
         "mode, batch 8 and 16, an image's raw records in the first and last slots")
     t0 = time.perf_counter()
     drive_slot_buckets(dev, card)
     log(f"  slot phase {time.perf_counter() - t0:.1f} s")
 
-    log(f"[21/23] result (all phases {time.perf_counter() - t_start:.1f} s)")
+    log("[24/24] bench_torch.py on the default and served routes (subprocess, batch 48, "
+        "replays on a batch already on the card)")
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()  # this process's cached blocks, for the child
+    drive_bench(torch.cuda.get_device_name(0), captured)
+    log(f"  bench phase {time.perf_counter() - t0:.1f} s")
+
+    log(f"[21/24] result (all phases {time.perf_counter() - t_start:.1f} s)")
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

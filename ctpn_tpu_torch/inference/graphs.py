@@ -25,10 +25,11 @@ step (``training/graphs.py::TrainGraphs``).
   captures the program on the same stream into the wrapper's memory pool
   and keeps the graph, its static inputs and outputs, and the kernel
   launches the capture recorded (``ops/_launches.py``).
-* Each later call copies the inputs into the static inputs (through
-  pinned memory, ``non_blocking``), replays the graph, adds the
-  recorded launches to the kernels' counts, and clones the outputs, so
-  that the next replay cannot overwrite a result still held.
+* Each later call copies the inputs into the static inputs (host arrays
+  through pinned memory, tensors already on the card directly, both
+  ``non_blocking``), replays the graph, adds the recorded launches to the
+  kernels' counts, and clones the outputs, so that the next replay cannot
+  overwrite a result still held.
 
 Nothing in a call waits for the card: the caller's stream waits for the
 wrapper's stream, and results are fetched with ``.cpu()`` as before. The
@@ -80,10 +81,13 @@ class CudaGraphBackend:
             self.pool = torch.cuda.graph_pool_handle()
 
     def upload(self, static: torch.Tensor, x: torch.Tensor) -> None:
-        """Copy the host tensor ``x`` into ``static`` on the wrapper's
-        stream, through pinned memory, without waiting for the card."""
+        """Copy ``x`` into ``static`` on the wrapper's stream without
+        waiting for the card: a host tensor through pinned memory, a tensor
+        on the card device to device (the caller's stream is followed
+        first, :meth:`follow_caller`; :meth:`finish` orders the caller's
+        later work, which may reuse ``x``'s memory, after the copy)."""
         with torch.cuda.stream(self.stream):
-            static.copy_(x.pin_memory(), non_blocking=True)
+            static.copy_(x if x.is_cuda else x.pin_memory(), non_blocking=True)
 
     def run(self, fn: Callable[[], Any]) -> Any:
         with torch.cuda.stream(self.stream):
@@ -207,7 +211,9 @@ class DetectGraphs(CapturedPrograms):
     """``detect(images, im_info)`` captured per shape on ``device`` and
     replayed (see the module's docstring); eager on the CPU.
 
-    ``images`` and ``im_info`` are host arrays (numpy or CPU tensors).
+    ``images`` and ``im_info`` are host arrays (numpy or CPU tensors) or
+    tensors already on ``device`` (a bench that times the program without
+    the upload); either gives the same key, and so the same program.
     ``variant()``, if given, is called on each call
     and its value joins the key (e.g. the mode and ``cfg.TPU.NMS_FUSED``).
     ``graphs`` maps each key to its :class:`Captured`.
@@ -224,12 +230,23 @@ class DetectGraphs(CapturedPrograms):
         extra = self.variant() if self.variant is not None else ()
         return (self.device, *images.shape, images.dtype, extra)
 
+    def _card(self) -> torch.device:
+        """The wrapper's device with its index (``cuda`` alone is the
+        current card)."""
+        if self.device.type != "cuda" or self.device.index is not None:
+            return self.device
+        return torch.device("cuda", torch.cuda.current_device())
+
     def __call__(self, images, im_info):
         x, info = _as_tensor(images), _as_tensor(im_info)
-        if x.device.type != "cpu" or info.device.type != "cpu":
-            raise ValueError("DetectGraphs takes host arrays (numpy or CPU tensors)")
+        on_card = {t.device for t in (x, info) if t.device.type != "cpu"}
+        if on_card and on_card != {self._card()}:
+            raise ValueError(f"DetectGraphs takes host arrays (numpy or CPU tensors) "
+                             f"or tensors on {self.device}")
         if self.backend is None:  # the CPU: the eager program
             return self.detect(x, info)
         with self._lock, self._guard(), torch.inference_mode():
+            if on_card:  # the copies read what the caller's stream wrote
+                self.backend.follow_caller()
             out = self._run(self.key(x), (x, info), self.detect)
             return self.backend.finish(out)

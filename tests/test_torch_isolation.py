@@ -1,6 +1,7 @@
-"""The port stands alone: ``ctpn_tpu_torch``, ``chip_smoke.py`` and the
-port's scripts (``scripts/torch_*.py``) import neither JAX, flax nor any
-module of ``ctpn_tpu``, TensorFlow only inside
+"""The port stands alone: ``ctpn_tpu_torch``, ``chip_smoke.py``,
+``bench_torch.py`` and the port's scripts (``scripts/torch_*.py``) import
+neither JAX, flax nor any module of ``ctpn_tpu`` (and ``bench_torch.py``
+not ``bench.py``), TensorFlow only inside
 the two reference readers of ``cli/convert_reference.py``, and the entry
 points never drop to the CPU quietly.
 
@@ -38,6 +39,7 @@ bad = sorted(m for m in sys.modules
 print(len(names))
 print(",".join(bad))
 print("tensorflow" in sys.modules)
+print("bench" in sys.modules)
 """
 
 
@@ -49,13 +51,15 @@ def _module_names():
 def test_package_imports_no_jax_and_no_ctpn_tpu():
     out = subprocess.run(
         [sys.executable, "-c", _PROBE.format(forbidden=set(FORBIDDEN),
-                                             scripts=["chip_smoke.py", *SCRIPTS])],
+                                             scripts=["chip_smoke.py", "bench_torch.py",
+                                                      *SCRIPTS])],
         cwd=REPO, capture_output=True, text=True, timeout=120, check=True,
         env=dict(os.environ, PYTHONPATH=REPO),
     ).stdout.splitlines()
     assert int(out[0]) == len(_module_names()) >= 15
     assert out[1] == "", f"forbidden modules imported: {out[1]}"
     assert out[2] == "False", "importing the package imported tensorflow"
+    assert out[3] == "False", "a script imported bench.py"
     # the walk covers the serving slice's modules and the rest of inference
     assert {
         "ctpn_tpu_torch.serving", "ctpn_tpu_torch.cli.serve",
@@ -85,12 +89,17 @@ def _imported_roots(path):
 
 
 def test_sources_name_no_forbidden_import():
-    """AST check of chip_smoke.py, the port's scripts and every module of
-    the package (catches imports inside functions that the subprocess probe
-    never runs)."""
+    """AST check of chip_smoke.py, bench_torch.py, the port's scripts and
+    every module of the package (catches imports inside functions that the
+    subprocess probe never runs); bench_torch.py imports no ``bench``."""
     assert {"torch_bench_serving.py", "torch_bench_serving_sustained.py",
             "torch_bench_streaming.py"} <= {osp.basename(p) for p in SCRIPTS}
-    paths = [osp.join(REPO, "chip_smoke.py"), *SCRIPTS]
+    bench_torch = osp.join(REPO, "bench_torch.py")
+    assert not _imported_roots(bench_torch) & {"bench", *FORBIDDEN}
+    assert _imported_roots(bench_torch) <= {"json", "os", "subprocess", "sys", "time",
+                                            "hashlib", "numpy", "torch",
+                                            "ctpn_tpu_torch"}
+    paths = [osp.join(REPO, "chip_smoke.py"), bench_torch, *SCRIPTS]
     for name in _module_names():
         rel = name.replace(".", osp.sep)
         pkg = osp.join(REPO, rel, "__init__.py")
