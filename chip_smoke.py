@@ -172,7 +172,12 @@ Phases (any failure exits non-zero and prints no result line):
     largest float difference printed (expected 0.0). Prints eager and
     replayed wall ms per batch with the fetch, the device busy share of
     one batch of each (``torch.profiler``), capture seconds and the graph
-    pool's MiB.
+    pool's MiB. Then the stage clock (``check_stage_clock``): the stamp
+    kernel around queued sleeps; with tracing off, a replay's profiler
+    trace holds no ``ctpn.*`` event and no stamp kernel; with it on, five
+    replays equal to the plain predictor's bit for bit, one row each, the
+    ``ctpn.graphs.*`` spans and the stamp kernel in the trace; prints the
+    stages' device ms per batch.
 17. captured training, parity: 2x256x384, f32 with TF32 off, Adam, from
     the same parameters and draws: ``TrainGraphs`` on the pinned host
     batch (the eager warm-up step, then three replayed steps) against
@@ -2639,6 +2644,95 @@ def drive_captured(dev) -> dict:
     return report
 
 
+def profiled_names(fn) -> set:
+    """Names of the host and device events of ``fn()`` (``torch.profiler``)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events()}
+
+
+def check_stage_clock(dev) -> dict:
+    """The stage clock (``utils/timer.py``, ``ops/csrc/stage_clock.cu``) on
+    the card. The stamp kernel alone: rows around queued sleeps, in order,
+    counted on the device. Tracing off: the default-route predictor has no
+    clock, and a profiler trace of a replay holds no ``ctpn.*`` event and no
+    stamp kernel. Tracing on: the predictor's replays give the plain
+    predictor's records bit for bit, each replay writes one row, the trace
+    holds the ``ctpn.graphs.*`` spans and four stamp kernels per replay, and
+    the stages' device ms per batch are printed beside the replayed wall ms
+    per batch."""
+    from ctpn_tpu_torch.config import reset_cfg
+    from ctpn_tpu_torch.inference.pipeline import CTPNPredictor
+    from ctpn_tpu_torch.utils import timer
+    from ctpn_tpu_torch.utils.weights import load_params
+
+    clock = timer.StageClock(dev)
+    for _ in range(3):
+        for name in timer.STAGES:
+            torch.cuda._sleep(2_000_000)  # about a millisecond
+            clock.stamp(name)
+    alone = clock.read()
+    if clock.row() != 3 or alone["rows"] != 3 or not all(
+            alone[k] > 0.2 for k in ("forward", "proposal_layer", "detect_lines")):
+        raise AssertionError(f"stage clock: stamps around sleeps read {alone}")
+
+    reset_cfg()
+    data, infos = photo_batch()
+    params = load_params(str(ARTIFACT), device=dev)
+    was = timer.enabled()
+    report = {"stamps_alone_ms": alone}
+    try:
+        timer.enable(False)
+        plain = CTPNPredictor(params, device=dev)
+        if plain.clock is not None:
+            raise AssertionError("stage clock: a predictor built with tracing off has one")
+        want = flat_outputs(plain.run_batch(data, infos))  # warm-up run, capture
+
+        def replay(pred):
+            def fn():
+                _, lines = pred.run_batch(data, infos)
+                lines.count.cpu()
+            return fn
+
+        names = profiled_names(replay(plain))
+        bad = sorted(n for n in names if n.startswith("ctpn.") or "stage_stamp" in n)
+        if bad:
+            raise AssertionError(f"stage clock: tracing off, a replay's trace holds {bad}")
+
+        timer.enable(True)
+        timer.reset()
+        pred = CTPNPredictor(params, device=dev)
+        compare_outputs(flat_outputs(pred.run_batch(data, infos)), want,
+                        "traced predictor, first call")
+        row0 = pred.clock.row()
+        outs = [pred.run_batch(data, infos) for _ in range(5)]
+        for out in outs:
+            got = flat_outputs(out)
+            if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError("stage clock: a traced replay's outputs differ "
+                                     "from the plain predictor's")
+        stages = pred.clock.read(row0)
+        if stages is None or stages["rows"] != 5:
+            raise AssertionError(f"stage clock: 5 replays read {stages}")
+        names = profiled_names(replay(pred))
+        missing = {"ctpn.graphs.upload", "ctpn.graphs.replay", "ctpn.graphs.clone",
+                   "ctpn.graphs.finish"} - names
+        if missing or not any("stage_stamp" in n for n in names):
+            raise AssertionError(f"stage clock: tracing on, the trace lacks {missing} "
+                                 "or the stamp kernel")
+        report.update(stages_ms_per_batch=stages,
+                      replayed_ms_per_batch=time_batches(replay(pred)) * 1e3,
+                      spans=timer.totals())
+        log("  stage clock " + json.dumps(report))
+    finally:
+        timer.enable(was)
+        timer.reset()
+    return report
+
+
 # ------------------------------------------------------ captured training
 
 CAPTURED_TRAIN_BATCHES = (1, 2, 8)
@@ -3535,7 +3629,8 @@ def main(argv=()) -> int:
     has_resolve = (_build.CSRC / "nms_resolve.cu").exists()
     t0 = time.perf_counter()
     logs = _build.build(["nms_fused", "nms_bitmask", "stem_fused"]
-                        + ["nms_resolve"] * has_resolve)
+                        + ["nms_resolve"] * has_resolve
+                        + ["stage_clock"] * (_build.CSRC / "stage_clock.cu").exists())
     log(f"[2/24] build: {time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -3628,6 +3723,7 @@ def main(argv=()) -> int:
         "default route (CUDA graphs replayed against the eager program)")
     t0 = time.perf_counter()
     captured = drive_captured(dev)
+    captured["stage clock"] = check_stage_clock(dev)
     log(f"  captured-program phase {time.perf_counter() - t0:.1f} s")
 
     zero_launch_counts()

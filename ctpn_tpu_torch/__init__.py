@@ -16,7 +16,7 @@ nor any module of ``ctpn_tpu``.
     postprocess/  text-line connector (H and O modes), detector, line-union
                   pass, the host oracle of the connector
     inference/    end-to-end predictor (device or host post-processing),
-                  stream_detect, the frozen artifact, stage breakdown
+                  stream_detect, the frozen artifact
     serving.py    HTTP server with micro-batching (cli/serve.py runs it)
     training/     anchor-target losses, the train step with its optax-exact
                   solvers, the solver loop and its checkpoints
@@ -26,7 +26,9 @@ nor any module of ``ctpn_tpu``.
     cli/          serve, demo, export, train and prepare
     eval.py       res_*.txt scoring (ctpn-torch-eval)
     utils/        image preprocessing, weights (load, export, converters),
-                  host oracles, timer, device selection
+                  host oracles, device selection; timer.py: the
+                  tracing switch, spans (``ctpn.*``) and their totals, the
+                  stage clock of the captured program
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU; without a CUDA device they raise rather than fall back.

@@ -3,10 +3,13 @@
     ctpn-torch-serve --artifact data/artifacts/ctpn_synth_f16.npz \
         [--port 8000] [--mode H] [--max-batch 8] [--window-ms 5] \
         [--cfg configs/text.yml] [--set TPU.NMS_FUSED False ...] \
-        [--device cuda]
+        [--device cuda] [--trace]
 
 The port of ``ctpn_tpu.cli.serve``; see ``ctpn_tpu_torch/serving.py``.
 ``--device cpu`` runs the port with the kernels' plain versions.
+``--trace`` turns the port's tracing on (``utils/timer.py``): ``GET
+/healthz`` then reports each span's count, total and longest seconds under
+``"spans"``, and a profiler run shows the spans as ``ctpn.*`` ranges.
 """
 
 from __future__ import annotations
@@ -37,9 +40,15 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "versions of the kernels)")
+    p.add_argument("--trace", action="store_true",
+                   help="trace the serving path: span totals under /healthz's "
+                        "\"spans\"")
     args = p.parse_args(argv)
 
     from ctpn_tpu_torch.config import cfg_from_file, cfg_from_list
+    from ctpn_tpu_torch.utils import timer
+
+    timer.enable(args.trace)
 
     if args.cfg:
         cfg_from_file(args.cfg)

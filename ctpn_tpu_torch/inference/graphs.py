@@ -40,6 +40,10 @@ no call falls back to the eager program. Like the JAX package's traced
 programs, a graph keeps the cfg it was captured under; ``variant`` names
 what the caller may change between calls.
 
+With tracing on (``utils/timer.py``), the steps of a call are spans:
+``graphs.upload``, ``graphs.replay``, ``graphs.clone``, ``graphs.capture``
+and ``graphs.finish``.
+
 On the CPU the wrapper runs the program eagerly. ``backend`` replaces the
 CUDA graph machinery (the tests inject a fake one).
 """
@@ -57,6 +61,7 @@ from torch.utils._pytree import tree_leaves, tree_map
 
 from ctpn_tpu_torch.ops import _launches
 from ctpn_tpu_torch.postprocess.connector import full_f32_matmul
+from ctpn_tpu_torch.utils import timer
 
 # one warm-up and capture at a time in the process: entering a capture
 # synchronizes the card and empties the allocator's cache of every card,
@@ -173,19 +178,23 @@ class CapturedPrograms:
         inputs are allocated at its first call."""
         entry = self.graphs.get(key)
         if entry is not None:
-            for static, x in zip(entry.inputs, host):
-                self.backend.upload(static, x)
-            self.backend.replay(entry.graph)
+            with timer.span("graphs.upload"):
+                for static, x in zip(entry.inputs, host):
+                    self.backend.upload(static, x)
+            with timer.span("graphs.replay"):
+                self.backend.replay(entry.graph)
             _launches.add(entry.launches)
             # the next replay writes the same memory: hand out copies
-            return self.backend.run(lambda: tree_map(torch.clone, entry.outputs))
+            with timer.span("graphs.clone"):
+                return self.backend.run(lambda: tree_map(torch.clone, entry.outputs))
         inputs = self._staged.get(key)
         if inputs is None:
             inputs = tuple(torch.empty(x.shape, dtype=x.dtype, device=self.device)
                            for x in host)
             self._staged[key] = inputs
-        for static, x in zip(inputs, host):
-            self.backend.upload(static, x)
+        with timer.span("graphs.upload"):
+            for static, x in zip(inputs, host):
+                self.backend.upload(static, x)
 
         def run():
             return program(*inputs)
@@ -194,7 +203,7 @@ class CapturedPrograms:
             out = self.backend.run(run)  # the warm-up answers this call
             if capture:
                 t0 = time.perf_counter()
-                with _launches.recording() as rec:
+                with _launches.recording() as rec, timer.span("graphs.capture"):
                     graph, static_out = self.backend.capture(run)
                 self.graphs[key] = Captured(graph, self._staged.pop(key), static_out,
                                             rec, time.perf_counter() - t0)
@@ -249,4 +258,5 @@ class DetectGraphs(CapturedPrograms):
             if on_card:  # the copies read what the caller's stream wrote
                 self.backend.follow_caller()
             out = self._run(self.key(x), (x, info), self.detect)
-            return self.backend.finish(out)
+            with timer.span("graphs.finish"):
+                return self.backend.finish(out)

@@ -31,6 +31,7 @@ from ctpn_tpu_torch.models.ctpn import CTPN, CTPNOutputs
 from ctpn_tpu_torch.ops.proposal import Proposals, proposal_layer
 from ctpn_tpu_torch.postprocess.connector import TextLines
 from ctpn_tpu_torch.postprocess.detector import detect_lines
+from ctpn_tpu_torch.utils import timer
 from ctpn_tpu_torch.utils.device import device_constant, resolve_device
 from ctpn_tpu_torch.utils.image import load_image_bgr, prep_image, resize_im
 from ctpn_tpu_torch.utils.weights import params_from_jax
@@ -137,6 +138,16 @@ def build_detect_fn(
     return detect
 
 
+def _stamped(clock, detect):
+    """``detect`` behind the stage clock's ``start`` stamp."""
+
+    def program(images: torch.Tensor, im_info: torch.Tensor):
+        clock.stamp("start")
+        return detect(images, im_info)
+
+    return program
+
+
 class CTPNPredictor:
     """Model + weights + the detect function, on one device.
 
@@ -151,7 +162,11 @@ class CTPNPredictor:
     program (:func:`build_detect_fn`, on tensors on the device);
     ``graphs`` captures it (``inference/graphs.py``): one program per
     (batch, bucket, input dtype, mode, ``TPU.NMS_FUSED``) on the card,
-    none on the CPU.
+    none on the CPU. With tracing on as the predictor is built
+    (``utils/timer.py``), ``clock`` is a :class:`~ctpn_tpu_torch.utils.timer.StageClock`
+    that the program stamps at its start and after each stage, so each
+    run, a replay of the captured graph included, writes a row; else
+    ``clock`` is None and the program is the plain one.
     """
 
     def __init__(
@@ -168,7 +183,12 @@ class CTPNPredictor:
         self.model.load_state_dict(params_from_jax(params))
         self.model.eval()
         self.mode = mode or cfg.TEST.DETECT_MODE
-        self.program = build_detect_fn(self.model, mode=self.mode)
+        self.clock = timer.StageClock(self.device) if timer.enabled() else None
+        if self.clock is None:
+            self.program = build_detect_fn(self.model, mode=self.mode)
+        else:
+            self.program = _stamped(self.clock, build_detect_fn(
+                self.model, mode=self.mode, on_stage=self.clock.stamp))
         mode = self.mode  # (not self: no reference cycle holds the graphs)
         self.graphs = DetectGraphs(
             self.program, self.device,
@@ -188,8 +208,9 @@ class CTPNPredictor:
         """Run a possibly-partial batch padded to ``batch_size`` (callers
         slice outputs by the true item count; padded rows are garbage)."""
         pad = batch_size - len(images)
-        stacked = np.stack(list(images) + [images[0]] * pad)
-        stacked_i = np.stack(list(infos) + [infos[0]] * pad)
+        with timer.span("predict.pad"):
+            stacked = np.stack(list(images) + [images[0]] * pad)
+            stacked_i = np.stack(list(infos) + [infos[0]] * pad)
         return self.run_batch(stacked, stacked_i)
 
     def detect_image(self, im_bgr: np.ndarray) -> np.ndarray:

@@ -12,7 +12,10 @@
   original image coordinates.
 
 Results come back to the host with ``.cpu()`` (``np.asarray`` refuses a
-CUDA tensor).
+CUDA tensor). With tracing on (``utils/timer.py``), each worker's load,
+resize and pad is a ``stream.prep`` span, the main loop's wait for a
+prepped image a ``stream.wait`` span, and its fetch of a batch's results
+a ``stream.fetch`` span.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import numpy as np
 
 from ctpn_tpu_torch.config import cfg
 from ctpn_tpu_torch.inference.pipeline import CTPNPredictor, unscale_records
+from ctpn_tpu_torch.utils import timer
 from ctpn_tpu_torch.utils.image import load_image_bgr, prep_image, resize_im
 
 
@@ -42,9 +46,10 @@ def _prep_worker(paths_q, out_q, stop):
             out_q.put(None)
             return
         try:
-            im = load_image_bgr(path)
-            resized, f1 = resize_im(im, cfg.TEXT.SCALE, cfg.TEXT.MAX_SCALE)
-            data, info, pad = prep_image(resized)
+            with timer.span("stream.prep"):
+                im = load_image_bgr(path)
+                resized, f1 = resize_im(im, cfg.TEXT.SCALE, cfg.TEXT.MAX_SCALE)
+                data, info, pad = prep_image(resized)
             out_q.put(_Prepped(path, data, info, f1, im.shape[:2], pad))
         except Exception as e:  # pragma: no cover - surfaced to the caller
             out_q.put(e)
@@ -84,8 +89,9 @@ def stream_detect(
 
     def drain():
         items, (_, lines) = inflight.pop(0)
-        counts = lines.count.cpu().numpy()
-        recs_all = lines.recs.cpu().numpy()
+        with timer.span("stream.fetch"):
+            counts = lines.count.cpu().numpy()
+            recs_all = lines.recs.cpu().numpy()
         for b, it in enumerate(items):
             yield it.path, unscale_records(
                 recs_all[b], int(counts[b]), it.f1, it.info, y_off=it.pad
@@ -94,7 +100,8 @@ def stream_detect(
     try:
         while done_workers < workers or any(buckets.values()):
             if done_workers < workers:
-                item = out_q.get()
+                with timer.span("stream.wait"):
+                    item = out_q.get()
                 if item is None:
                     done_workers += 1
                     continue

@@ -18,7 +18,15 @@ Endpoints:
   POST /detect        body = image bytes (JPEG/PNG);
                       optional ?mode=H|O is fixed per server (400 if it
                       disagrees with the server's mode)
-  GET  /healthz       liveness, device and the buckets run so far
+  GET  /healthz       liveness, device and the buckets run so far; with
+                      tracing on (``ctpn-torch-serve --trace``), the
+                      span totals of ``utils/timer.py`` under "spans"
+
+Spans (tracing on): ``serve.decode`` (the handler's read, decode, resize
+and prep), ``serve.gather``, ``serve.dispatch``, ``serve.fetch`` (the
+completer's ``.cpu()``), ``serve.unscale``; added intervals:
+``serve.queue_wait`` (submit until the dispatcher takes the item) and
+``serve.accept_wait`` (the accept until the handler thread starts).
 
 Protocol (JSON response):
   {"boxes": [[x0,y0,x1,y1,x2,y2,x3,y3,score], ...], "count": N,
@@ -41,6 +49,7 @@ import torch
 from ctpn_tpu_torch.config import cfg
 from ctpn_tpu_torch.inference.frozen import FrozenCTPN, FrozenPredictor, is_frozen
 from ctpn_tpu_torch.inference.pipeline import CTPNPredictor, unscale_records
+from ctpn_tpu_torch.utils import timer
 from ctpn_tpu_torch.utils.image import prep_image, resize_im, rgb_to_bgr
 
 
@@ -52,7 +61,7 @@ def _host(x) -> np.ndarray:
 
 class _Pending:
     __slots__ = ("image", "info", "f1", "orig_shape", "pad", "deadline",
-                 "event", "result", "error")
+                 "event", "result", "error", "submitted")
 
     def __init__(self, image, info, f1, orig_shape, pad=0,
                  deadline=float("inf")):
@@ -65,6 +74,7 @@ class _Pending:
         self.event = threading.Event()
         self.result: Optional[np.ndarray] = None
         self.error: Optional[Exception] = None
+        self.submitted = 0.0  # perf_counter at submit (tracing on)
 
 
 class MicroBatcher(threading.Thread):
@@ -98,6 +108,8 @@ class MicroBatcher(threading.Thread):
         self._completer.start()
 
     def submit(self, item: _Pending) -> None:
+        if timer.enabled():
+            item.submitted = time.perf_counter()
         self.queue.put(item)
 
     def stop(self) -> None:
@@ -121,6 +133,7 @@ class MicroBatcher(threading.Thread):
             first = self.queue.get()
             if first is None:
                 return []
+            _taken(first)
         batch = [first]
         bucket = first.image.shape[:2]
         keep = []
@@ -141,6 +154,7 @@ class MicroBatcher(threading.Thread):
                 break
             if item is None:
                 break
+            _taken(item)
             if item.image.shape[:2] == bucket:
                 batch.append(item)
             else:
@@ -150,10 +164,12 @@ class MicroBatcher(threading.Thread):
     def run(self) -> None:
         try:
             while not self._stop_event.is_set():
-                batch = self._gather()
+                with timer.span("serve.gather"):
+                    batch = self._gather()
                 if not batch:
                     continue
-                self._dispatch(batch)
+                with timer.span("serve.dispatch"):
+                    self._dispatch(batch)
         finally:
             # the dispatcher has exited: no further batches can be queued,
             # so the sentinel is the last _done entry
@@ -193,15 +209,17 @@ class MicroBatcher(threading.Thread):
             live, lines = job
             done = 0  # items whose result is set and event fired
             try:
-                counts = _host(lines.count)
-                recs_all = _host(lines.recs)
+                with timer.span("serve.fetch"):
+                    counts = _host(lines.count)
+                    recs_all = _host(lines.recs)
                 self.batches_run += 1
                 self.images_run += len(live)
                 for b, it in enumerate(live):
-                    it.result = unscale_records(
-                        recs_all[b], int(counts[b]), it.f1, it.info,
-                        y_off=it.pad,
-                    )
+                    with timer.span("serve.unscale"):
+                        it.result = unscale_records(
+                            recs_all[b], int(counts[b]), it.f1, it.info,
+                            y_off=it.pad,
+                        )
                     it.event.set()
                     done = b + 1
             except Exception as e:
@@ -210,6 +228,12 @@ class MicroBatcher(threading.Thread):
                 for it in live[done:]:
                     it.error = e
                     it.event.set()
+
+
+def _taken(item: _Pending) -> None:
+    """The dispatcher took ``item`` from the queue: its wait there."""
+    if timer.enabled() and item.submitted:
+        timer.add("serve.queue_wait", time.perf_counter() - item.submitted)
 
 
 def _decode_image(body: bytes) -> np.ndarray:
@@ -254,7 +278,7 @@ class _Handler(BaseHTTPRequestHandler):
             buckets = [list(k) for k in list(srv.predictor.buckets_run)]
         except RuntimeError:  # tiny race window
             buckets = []
-        self._json(200, {
+        health = {
             "status": "ok",
             "mode": srv.mode,
             "device": str(srv.predictor.device),
@@ -263,7 +287,10 @@ class _Handler(BaseHTTPRequestHandler):
             "images_run": srv.batcher.images_run,
             "requests_shed": srv.batcher.shed,
             "buckets_compiled": buckets,
-        })
+        }
+        if timer.enabled():
+            health["spans"] = timer.totals()
+        self._json(200, health)
 
     def do_POST(self):
         path, _, query = self.path.partition("?")
@@ -294,13 +321,14 @@ class _Handler(BaseHTTPRequestHandler):
             })
         if length <= 0:
             return self._json(400, {"error": "empty body"})
-        body = self.rfile.read(length)
-        try:
-            im = _decode_image(body)
-        except Exception:
-            return self._json(400, {"error": "undecodable image"})
-        resized, f1 = resize_im(im, cfg.TEXT.SCALE, cfg.TEXT.MAX_SCALE)
-        data, info, pad = prep_image(resized)
+        with timer.span("serve.decode"):
+            body = self.rfile.read(length)
+            try:
+                im = _decode_image(body)
+            except Exception:
+                return self._json(400, {"error": "undecodable image"})
+            resized, f1 = resize_im(im, cfg.TEXT.SCALE, cfg.TEXT.MAX_SCALE)
+            data, info, pad = prep_image(resized)
         item = _Pending(
             data, info, f1, im.shape[:2], pad=pad,
             deadline=time.monotonic() + self.server.request_timeout_s,
@@ -338,6 +366,19 @@ class DetectionServer(ThreadingHTTPServer):
         self.verbose = verbose
         self.batcher = MicroBatcher(predictor, max_batch, window_ms)
         self.batcher.start()
+        self._accepted = {}  # request socket -> perf_counter at accept
+
+    def get_request(self):
+        request, address = super().get_request()
+        if timer.enabled():
+            self._accepted[request] = time.perf_counter()
+        return request, address
+
+    def process_request_thread(self, request, client_address):
+        t = self._accepted.pop(request, None)
+        if t is not None:  # the handler thread has started
+            timer.add("serve.accept_wait", time.perf_counter() - t)
+        super().process_request_thread(request, client_address)
 
     def shutdown(self):
         self.batcher.stop()

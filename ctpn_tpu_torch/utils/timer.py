@@ -1,16 +1,49 @@
-"""Timing utilities (port of ``ctpn_tpu.utils.timer``).
+"""Timing and tracing (port of ``ctpn_tpu.utils.timer``, and the port's one
+tracing system).
 
 ``Stopwatch`` is the JAX package's accumulating wall-clock stopwatch, as it
 is. ``profile_trace`` records a ``torch.profiler`` trace of the host and the
 card, written as a Chrome trace (open it in Perfetto or chrome://tracing).
+
+Tracing is off by default; :func:`enable` switches it for the process.
+
+* :func:`span` marks a step of the program where it runs. Off, it is a
+  shared ``nullcontext`` (one flag test per span site). On, it enters
+  ``torch.profiler.record_function("ctpn." + name)``, so that a profiler
+  run shows the span on the clock of the card's events, and adds its host
+  seconds to a table of count, total and max per name. :func:`add` records
+  an interval measured across threads (a request's wait in a queue).
+  :func:`totals` and :func:`reset` read and clear the table.
+* :class:`StageClock` times the stages of a program on the card from
+  inside it, captured CUDA graph included: the op
+  ``ctpn_torch::stage_stamp(ring, slot)`` writes the card's
+  ``%globaltimer`` (``ops/csrc/stage_clock.cu``; the plain version on the
+  CPU writes ``time.perf_counter_ns()``) into a ring of rows, one row per
+  run of the program. A CUDA event captured into a graph would be recorded
+  again by the next replay before it could be read; a stamp stays in its
+  row until the ring comes round.
+
+Spans, all host seconds: ``graphs.upload``, ``graphs.replay``,
+``graphs.clone``, ``graphs.capture`` and ``graphs.finish``
+(``inference/graphs.py``); ``predict.pad`` (``inference/pipeline.py``);
+``serve.decode``, ``serve.gather``, ``serve.dispatch``, ``serve.fetch``,
+``serve.unscale`` and, added, ``serve.queue_wait`` and
+``serve.accept_wait`` (``serving.py``); ``stream.prep``, ``stream.wait``
+and ``stream.fetch`` (``inference/streaming.py``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import math
 import os
+import threading
 import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
 
 
 class Stopwatch:
@@ -61,7 +94,6 @@ class Stopwatch:
 def profile_trace(log_dir: str):
     """Record a ``torch.profiler`` trace (CPU, and CUDA when the card is
     present) around a code block; writes ``<log_dir>/trace.json``."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -71,3 +103,159 @@ def profile_trace(log_dir: str):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+# --------------------------------------------------------------- spans
+_on = False
+_NULL = contextlib.nullcontext()
+_lock = threading.Lock()
+_table: Dict[str, list] = {}  # name -> [count, total s, max s]
+
+
+def enable(on: bool = True) -> None:
+    """Switch tracing on or off for the process. A predictor built while it
+    is on times its program's stages (:class:`StageClock`)."""
+    global _on
+    _on = bool(on)
+
+
+def enabled() -> bool:
+    return _on
+
+
+def add(name: str, seconds: float) -> None:
+    """Add one interval of ``seconds`` to ``name``'s totals (tracing on or
+    off: callers test :func:`enabled` before they measure)."""
+    with _lock:
+        row = _table.get(name)
+        if row is None:
+            _table[name] = [1, seconds, seconds]
+        else:
+            row[0] += 1
+            row[1] += seconds
+            row[2] = max(row[2], seconds)
+
+
+def totals() -> Dict[str, Dict[str, float]]:
+    """``{name: {"n": count, "s": total seconds, "max_s": longest}}``."""
+    with _lock:
+        return {k: {"n": n, "s": s, "max_s": m} for k, (n, s, m) in _table.items()}
+
+
+def reset() -> None:
+    with _lock:
+        _table.clear()
+
+
+class _Span:
+    __slots__ = ("name", "_rf", "_t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self._rf = torch.profiler.record_function("ctpn." + self.name)
+        self._rf.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        add(self.name, time.perf_counter() - self._t0)
+        self._rf.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """A context manager around one step of the program: ``ctpn.<name>``
+    on the profiler's clock and in :func:`totals` when tracing is on,
+    nothing when it is off."""
+    return _Span(name) if _on else _NULL
+
+
+# --------------------------------------------------------- stage clock
+STAGES = ("start", "forward", "proposal_layer", "detect_lines")
+ROWS = 256
+
+
+def _stamp_ref(ring: torch.Tensor, slot: int) -> None:
+    """The plain version: the host's clock in ns into the current row;
+    the last slot advances the row counter (the ring's last element)."""
+    slots = len(STAGES)
+    row = int(ring[-1]) % ((ring.numel() - 1) // slots)
+    ring[row * slots + slot] = time.perf_counter_ns()
+    if slot == slots - 1:
+        ring[-1] += 1
+
+
+def _stamp_launch(ring: torch.Tensor, slot: int) -> None:
+    """The op's CUDA implementation: one thread writes ``%globaltimer``."""
+    from ctpn_tpu_torch.ops import _build
+
+    lib = _build.load("stage_clock")
+    fn = lib.ctpn_stage_stamp
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    dev = ring.device
+    with torch.cuda.device(dev):
+        err = fn(ring.data_ptr(), (ring.numel() - 1) // len(STAGES), len(STAGES),
+                 int(slot), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"stage_stamp kernel launch failed: CUDA error {err}")
+
+
+_lib = torch.library.Library("ctpn_torch", "FRAGMENT")
+_lib.define("stage_stamp(Tensor(a!) ring, int slot) -> ()")
+_lib.impl("stage_stamp", _stamp_ref, "CPU")
+_lib.impl("stage_stamp", _stamp_launch, "CUDA")
+
+
+class StageClock:
+    """A ring of ``ROWS`` rows of stamps in ns, one per stage of
+    :data:`STAGES`, on ``device``; the row counter (runs stamped in full)
+    is the ring's last element, kept on the device.
+
+    ``stamp(name)`` queues the stamp of stage ``name`` on the current
+    stream: a program calls ``stamp("start")`` first and passes ``stamp``
+    as ``build_detect_fn(on_stage=)``. :meth:`row` and :meth:`read` wait
+    for the device."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.ring = torch.zeros(ROWS * len(STAGES) + 1, dtype=torch.int64,
+                                device=self.device)
+        self._slot = {name: i for i, name in enumerate(STAGES)}
+
+    def stamp(self, name: str) -> None:
+        torch.ops.ctpn_torch.stage_stamp(self.ring, self._slot[name])
+
+    def _host(self) -> np.ndarray:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self.ring.cpu().numpy()
+
+    def row(self) -> int:
+        """Runs stamped in full so far."""
+        return int(self._host()[-1])
+
+    def read(self, since_row: int = 0) -> Optional[Dict[str, float]]:
+        """Median ms per run of each stage (``forward``, ``proposal_layer``,
+        ``detect_lines``: from the stamp before it) over the complete rows
+        from ``since_row`` on that the ring still holds, and ``between``:
+        the median ms from one run's last stamp to the next run's first.
+        ``rows`` is the count of rows read. None without a complete row."""
+        host = self._host()
+        done = int(host[-1])
+        slots = len(STAGES)
+        # the oldest held row may be half overwritten by a run stamped later
+        first = max(int(since_row), done - ROWS + 1, 0)
+        if first >= done:
+            return None
+        idx = np.arange(first, done) % ROWS
+        t = host[:-1].reshape(ROWS, slots)[idx].astype(np.float64)
+        steps = np.diff(t, axis=1) / 1e6
+        out = {name: float(np.median(steps[:, i])) for i, name in enumerate(STAGES[1:])}
+        if len(t) > 1:
+            out["between"] = float(np.median(t[1:, 0] - t[:-1, -1]) / 1e6)
+        out["rows"] = len(t)
+        return out

@@ -14,8 +14,9 @@ dispatcher gathers batch k+1 (``ctpn_tpu_torch/serving.py``). Both buckets
 are warmed (run and captured) at ``--max-batch`` before timing.
 
     python3 scripts/torch_bench_serving.py [--clients 64] [--sustained 96] \
-        [--max-batch 8] [--artifact data/artifacts/ctpn_synth_f16.npz] \
-        [--device cuda] [--set TPU.NMS_FUSED False TPU.FUSED_STEM True]
+        [--max-batch 8] [--sustained-clients 16] \
+        [--artifact data/artifacts/ctpn_synth_f16.npz] \
+        [--device cuda] [--set TPU.NMS_FUSED False TPU.FUSED_STEM True] [--trace]
 
 Every response must be 200 with ``count == len(boxes)`` and finite records;
 any other answer is an error. Prints one line per phase (ok, errors, wall
@@ -29,6 +30,12 @@ the kernels' launches are counted per program run), the kernel route and
 the card's name and power limit as ``nvidia-smi`` prints them. Exits 1
 when a request failed or was shed. ``--device cpu`` runs the port's plain
 kernel versions (tests, with tiny buckets through ``--set``).
+
+``--trace`` turns the port's tracing on (``utils/timer.py``) before the
+predictor is built: the last line then also carries ``spans``, what the
+server's ``GET /healthz`` reports under ``"spans"`` after the sustained
+phase (whose totals alone it holds: they are reset after the burst).
+Each phase's ``max_ms`` is its longest request.
 """
 
 from __future__ import annotations
@@ -158,9 +165,18 @@ def run_phase(url: str, n_clients: int, n_requests: int, rng, mixed: bool) -> tu
     return lat, time.perf_counter() - t0, errors
 
 
+def health(detect_url: str) -> dict:
+    """The server's ``GET /healthz`` answer."""
+    url = detect_url.rsplit("/", 1)[0] + "/healthz"
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return json.loads(r.read())
+
+
 def phase_summary(lat, wall: float, errors: list, batches: int, n: int) -> dict:
     return {"ok": len(lat), "errors": len(errors), "wall_s": wall,
-            **percentiles_ms(lat), "batches": batches,
+            **percentiles_ms(lat),
+            "max_ms": float(np.max(lat) * 1e3) if len(lat) else None,
+            "batches": batches,
             "img_per_batch": n / max(batches, 1), "img_per_s": len(lat) / wall}
 
 
@@ -182,14 +198,20 @@ def main(argv=None) -> int:
     p.add_argument("--artifact", default=str(ARTIFACT))
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the kernels' plain versions)")
+    p.add_argument("--sustained-clients", type=int, default=16,
+                   help="closed-loop clients of the sustained phase")
     p.add_argument("--set", dest="set_cfg", nargs="*", default=[],
                    help="cfg key/value overrides, e.g. the served kernel route")
+    p.add_argument("--trace", action="store_true",
+                   help="trace the server: /healthz's span totals of the sustained phase")
     args = p.parse_args(argv)
 
     from ctpn_tpu_torch.config import cfg, cfg_from_list
+    from ctpn_tpu_torch.utils import timer
     from ctpn_tpu_torch.utils.device import resolve_device
 
     cfg_from_list(args.set_cfg)
+    timer.enable(args.trace)
     dev = resolve_device(args.device)
 
     from ctpn_tpu_torch.inference.pipeline import CTPNPredictor
@@ -226,12 +248,15 @@ def main(argv=None) -> int:
         burst = phase_summary(lat, wall, errs, b0, args.clients)
         print_phase("burst", burst)
 
-        print(f"sustained mixed-bucket: 16 clients x {args.sustained} requests "
-              f"(1/3 portrait)", flush=True)
-        lat, wall, errs2 = run_phase(url, 16, args.sustained, rng, mixed=True)
+        print(f"sustained mixed-bucket: {args.sustained_clients} clients x "
+              f"{args.sustained} requests (1/3 portrait)", flush=True)
+        timer.reset()
+        lat, wall, errs2 = run_phase(url, args.sustained_clients, args.sustained, rng,
+                                     mixed=True)
         sustained = phase_summary(lat, wall, errs2, srv.batcher.batches_run - b0,
                                   args.sustained)
         print_phase("sustained", sustained)
+        traced = {"spans": health(url)["spans"]} if args.trace else {}
     finally:
         srv.shutdown()
         srv.batcher.join(timeout=60)
@@ -253,7 +278,7 @@ def main(argv=None) -> int:
         "batches_run": batcher.batches_run, "warm_runs": warm_runs,
         "host_ms_per_request": host,
         "program_runs": runs[0], "max_batch": args.max_batch,
-        "route": route_name(cfg), "device": str(dev), "card": card,
+        "route": route_name(cfg), "device": str(dev), "card": card, **traced,
     }), flush=True)
     return 1 if errors or batcher.shed else 0
 

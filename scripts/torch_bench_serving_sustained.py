@@ -17,7 +17,7 @@ rate of the program it runs, or does it add a ceiling of its own?
     python3 scripts/torch_bench_serving_sustained.py [--seconds 30] \
         [--clients 32] [--max-batch 8] [--pool 16] \
         [--artifact data/artifacts/ctpn_synth_f16.npz] [--device cuda] \
-        [--set TPU.NMS_FUSED False TPU.FUSED_STEM True]
+        [--set TPU.NMS_FUSED False TPU.FUSED_STEM True] [--trace]
 
 First the raw rate on the same batch geometry and content: ``run_padded``
 at ``--max-batch`` over 12 iterations ended by a fetch. On the card each
@@ -29,8 +29,14 @@ JAX script's keys (``serving_batcher_sustained_throughput``, ``jit_rate``,
 ``batcher_efficiency`` = sustained / raw, p50 and p99 ms, ok, errors,
 shed, batches, images per batch, clients, seconds), plus
 ``program_runs`` (every ``run_batch`` of the process), the kernel route
-and the card's name and power limit as ``nvidia-smi`` prints them. Exits 1
-when a request failed or was shed.
+and the card's name and power limit as ``nvidia-smi`` prints them, and
+``max_ms``, the longest request. Exits 1 when a request failed or was shed.
+
+``--trace`` turns the port's tracing on (``utils/timer.py``) before the
+predictor is built: the line then also carries ``spans``, the span totals
+of the sustained phase (what ``/healthz`` reports under ``"spans"``), and
+``stage_ms``, the stage clock's median device ms per batch of each stage
+of the replayed program over that phase (``StageClock.read``).
 """
 
 from __future__ import annotations
@@ -80,12 +86,16 @@ def main(argv=None) -> int:
                    help="torch device (default cuda; cpu runs the kernels' plain versions)")
     p.add_argument("--set", dest="set_cfg", nargs="*", default=[],
                    help="cfg key/value overrides, e.g. the served kernel route")
+    p.add_argument("--trace", action="store_true",
+                   help="trace the sustained phase: span totals and stage times")
     args = p.parse_args(argv)
 
     from ctpn_tpu_torch.config import cfg, cfg_from_list
+    from ctpn_tpu_torch.utils import timer
     from ctpn_tpu_torch.utils.device import resolve_device
 
     cfg_from_list(args.set_cfg)
+    timer.enable(args.trace)
     dev = resolve_device(args.device)
 
     from ctpn_tpu_torch.inference.pipeline import CTPNPredictor
@@ -114,6 +124,8 @@ def main(argv=None) -> int:
     raw_rate = n * RAW_ITERS / (time.perf_counter() - t0)
     print(f"raw replayed rate (batch {n}): {raw_rate:.1f} img/s", flush=True)
 
+    timer.reset()
+    row0 = predictor.clock.row() if args.trace else 0
     batcher = MicroBatcher(predictor, max_batch=n, window_ms=args.window_ms)
     batcher.start()
     lat, errors = [], []
@@ -158,6 +170,8 @@ def main(argv=None) -> int:
     sustained = len(lat) / wall
     if errors:
         print("errors:", errors[:5], file=sys.stderr)
+    traced = ({"spans": timer.totals(), "stage_ms": predictor.clock.read(row0)}
+              if args.trace else {})
     print(json.dumps({
         "metric": "serving_batcher_sustained_throughput",
         "value": sustained,
@@ -166,6 +180,7 @@ def main(argv=None) -> int:
         "batcher_efficiency": sustained / raw_rate,
         "p50_ms": float(np.percentile(lat_ms, 50)) if len(lat) else None,
         "p99_ms": float(np.percentile(lat_ms, 99)) if len(lat) else None,
+        "max_ms": float(lat_ms.max()) if len(lat) else None,
         "ok": len(lat),
         "errors": len(errors),
         "sent": sent[0],
@@ -175,7 +190,7 @@ def main(argv=None) -> int:
         "clients": args.clients,
         "seconds": wall,
         "program_runs": runs[0],
-        "route": route_name(cfg), "device": str(dev), "card": card,
+        "route": route_name(cfg), "device": str(dev), "card": card, **traced,
     }), flush=True)
     return 1 if errors or batcher.shed else 0
 

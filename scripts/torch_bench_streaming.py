@@ -4,7 +4,8 @@ not only the program (the port of ``scripts/bench_streaming.py``).
 
     python3 scripts/torch_bench_streaming.py [--images 128] [--batch 16] \
         [--workers 8] [--artifact data/artifacts/ctpn_synth_f16.npz] \
-        [--corpus DIR] [--latency] [--device cuda] [--set KEY VALUE ...]
+        [--corpus DIR] [--latency] [--device cuda] [--set KEY VALUE ...] \
+        [--trace]
 
 Measures ``ctpn_tpu_torch.inference.streaming.stream_detect`` end to end:
 image decode on host worker threads, resize and bucket padding, two
@@ -25,6 +26,13 @@ img/s on a TPU v5e-8, 125 per chip (``"baseline"`` says so): it is not a
 figure of any card. Each line carries ``program_runs`` (every
 ``run_batch`` of the process), the kernel route and the card's name and
 power limit as ``nvidia-smi`` prints them.
+
+``--trace`` turns the port's tracing on (``utils/timer.py``) before the
+predictor is built: the throughput line then also carries ``spans``, the
+span totals of the timed stream (``stream.prep``, ``stream.wait``,
+``stream.fetch``, the captured program's ``graphs.*``, ``predict.pad``),
+and ``stage_ms``, the
+stage clock's median device ms per batch of each stage over it.
 """
 
 from __future__ import annotations
@@ -85,12 +93,16 @@ def main(argv=None) -> int:
                    help="torch device (default cuda; cpu runs the kernels' plain versions)")
     p.add_argument("--set", dest="set_cfg", nargs="*", default=[],
                    help="cfg key/value overrides, e.g. the served kernel route")
+    p.add_argument("--trace", action="store_true",
+                   help="trace the timed stream: span totals and stage times")
     args = p.parse_args(argv)
 
     from ctpn_tpu_torch.config import cfg, cfg_from_list
+    from ctpn_tpu_torch.utils import timer
     from ctpn_tpu_torch.utils.device import resolve_device
 
     cfg_from_list(args.set_cfg)
+    timer.enable(args.trace)
     dev = resolve_device(args.device)
 
     from ctpn_tpu_torch.inference.pipeline import CTPNPredictor
@@ -127,6 +139,8 @@ def main(argv=None) -> int:
             pass
         warm_runs = runs[0]
 
+        timer.reset()
+        row0 = predictor.clock.row() if args.trace else 0
         t0 = time.perf_counter()
         n_out = n_boxes = 0
         bad = []
@@ -144,6 +158,8 @@ def main(argv=None) -> int:
                   file=sys.stderr)
 
         imgs_per_sec = n_out / dt
+        traced = ({"spans": timer.totals(), "stage_ms": predictor.clock.read(row0)}
+                  if args.trace else {})
         print(json.dumps({
             "metric": "ctpn_streaming_serving_throughput",
             "value": imgs_per_sec, "unit": "images/sec",
@@ -151,7 +167,7 @@ def main(argv=None) -> int:
             "sent": len(paths), "ok": n_out - len(bad), "errors": errors,
             "images": n_out, "batch": args.batch, "workers": args.workers,
             "seconds": dt, "boxes_per_img": n_boxes / max(1, n_out),
-            "batches": stream_runs, "program_runs": runs[0], **common,
+            "batches": stream_runs, "program_runs": runs[0], **common, **traced,
         }), flush=True)
         print(f"# device={dev} images={n_out} batch={args.batch} "
               f"workers={args.workers} dt={dt:.3f}s "

@@ -18,6 +18,10 @@ program's freedom from host syncs.
   replay cannot overwrite, launches per replay equal to those recorded at
   capture, tensors a kernel handed over kept with the graph, and a capture
   or replay error that propagates with no eager run in its place.
+* With tracing off, a predictor's capture holds no stage-clock stamp and
+  no span is recorded; with it on, every run of the program stamps a row
+  (eager: one per call, answers unchanged) and each step of a call is a
+  ``graphs.*`` span.
 """
 
 import os.path as osp
@@ -328,6 +332,86 @@ def test_predictor_replays_equal_eager_and_key_on_route():
     cfg.TPU.NMS_FUSED = not cfg.TPU.NMS_FUSED
     pred.run_batch(images, infos)
     assert fake.captures == 2 and len(pred.graphs.graphs) == 2
+
+
+class StampSpy(TorchDispatchMode):
+    """Counts the stage clock's stamps (``ctpn_torch::stage_stamp``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.stamps = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if "stage_stamp" in str(func):
+            self.stamps += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("tracing", [False, True])
+def test_predictor_stamps_and_spans_only_with_tracing(tracing):
+    """Tracing off: a capture (fake backend) and its replays hold no stamp
+    and no span is recorded. On: each run of the program (warm-up, the fake
+    capture's run, each replay) stamps one row of four, and every step of a
+    call is a span."""
+    from ctpn_tpu_torch.utils import timer
+
+    was = timer.enabled()
+    timer.enable(tracing)
+    timer.reset()
+    try:
+        pred = _tiny_predictor()
+        assert (pred.clock is not None) == tracing
+        fake = FakeBackend()
+        pred.graphs.backend = fake
+        fake.outputs_of = _OutputsOf(pred.graphs)
+        images, infos = _toy_batch()
+        with StampSpy() as spy:
+            for _ in range(3):
+                pred.run_batch(images, infos)
+        assert (fake.captures, fake.replays) == (1, 2)
+        runs = 1 + fake.captures + fake.replays
+        assert spy.stamps == (4 * runs if tracing else 0)
+        spans = timer.totals()
+        if not tracing:
+            assert spans == {}
+        else:
+            assert pred.clock.row() == runs
+            assert {k: spans[f"graphs.{k}"]["n"] for k in
+                    ("upload", "replay", "clone", "capture", "finish")} == {
+                "upload": 3, "replay": 2, "clone": 2, "capture": 1, "finish": 3}
+    finally:
+        timer.enable(was)
+        timer.reset()
+
+
+def test_predictor_stamps_once_per_call():
+    """Eager on the CPU: a predictor built with tracing on writes one row
+    per call and answers as one built with it off."""
+    from ctpn_tpu_torch.utils import timer
+
+    was = timer.enabled()
+    images, infos = _toy_batch()
+    try:
+        timer.enable(False)
+        plain = _tiny_predictor()
+        assert plain.clock is None
+        want = plain.run_batch(images, infos)
+        timer.enable(True)
+        timer.reset()
+        pred = _tiny_predictor()
+        for k in range(1, 4):
+            got = pred.run_batch(images, infos)
+            assert pred.clock.row() == k
+        for g, w in zip(tree_leaves(got), tree_leaves(want)):
+            assert torch.equal(g, w)  # the stamps change no answer
+        stages = pred.clock.read()
+        assert stages["rows"] == 3 and stages["forward"] > 0
+        assert "predict.pad" not in timer.totals()  # run_batch pads nothing
+        pred.run_padded(list(images[:1]), list(infos[:1]), 2)
+        assert timer.totals()["predict.pad"]["n"] == 1 and pred.clock.row() == 4
+    finally:
+        timer.enable(was)
+        timer.reset()
 
 
 def test_sharded_replicas_each_capture_their_own():

@@ -13,6 +13,8 @@ scripts (``scripts/torch_bench_serving.py``,
 * Each script runs as a subprocess with ``--device cpu`` and tiny buckets
   at tiny counts and prints its JSON line: no error, every request sent
   answered.
+* With ``--trace`` each script's line carries the span totals of its timed
+  phase, and the stage clock's stages where it times the program alone.
 * Each script run with the default device where there is no CUDA exits
   non-zero and names CUDA.
 * The test network runs its stride-16 convs one image at a time, so that
@@ -193,6 +195,32 @@ def test_script_runs_on_cpu(which):
         assert line["sent"] == 6 and line["baseline"] == "TPU v5e per-chip target"
         latency = next(ln for ln in lines if ln["metric"] == "ctpn_single_image_latency_p50")
         assert latency["calls"] == 6 and {"p90_ms", "max_ms"} <= set(latency)
+
+
+# spans each script's ``--trace`` line must carry
+TRACED = {
+    "serving": {"serve.decode", "serve.queue_wait", "serve.fetch", "serve.accept_wait",
+                "predict.pad"},
+    "sustained": {"serve.gather", "serve.dispatch", "serve.queue_wait", "serve.fetch",
+                  "predict.pad"},
+    "streaming": {"stream.prep", "stream.wait", "stream.fetch", "predict.pad"},
+}
+
+
+@pytest.mark.parametrize("which", sorted(SCRIPTS))
+def test_script_traces_on_cpu(which):
+    """``--trace``: the span totals of the timed phase, and, where the
+    script times the replayed program alone, the stage clock's stages."""
+    name, args, metric = SCRIPTS[which]
+    extra = ["--artifact", ARTIFACT] if which == "streaming" else []
+    proc = _script(name, [*args, *extra, "--device", "cpu", "--trace", "--set", *TINY_SET])
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    line = next(ln for ln in lines if ln["metric"] == metric)
+    assert TRACED[which] <= set(line["spans"]), TRACED[which] - set(line["spans"])
+    if which != "serving":
+        assert line["stage_ms"]["rows"] >= line["batches"] > 0
+        assert line["stage_ms"]["forward"] > 0
 
 
 @pytest.mark.parametrize("which", sorted(SCRIPTS))

@@ -7,9 +7,11 @@ slice selected (``TPU.NMS_FUSED = False``, ``TPU.FUSED_STEM = True``; on the
 CPU they run their plain versions). Concurrent clients must be coalesced
 into fewer padded batches than requests. The batcher's own cases use fake
 predictors, as in the JAX package's tests. The CLI case starts
-``python -m ctpn_tpu_torch.cli.serve --device cpu`` as a subprocess.
+``python -m ctpn_tpu_torch.cli.serve --device cpu`` as a subprocess, with
+and without ``--trace`` (the span totals under ``/healthz``'s "spans").
 """
 
+import contextlib
 import io
 import json
 import os
@@ -94,6 +96,51 @@ def test_healthz(server):
     assert out["mode"] == "H"
     assert out["device"] == "cpu"
     assert out["buckets_compiled"] == []
+    assert "spans" not in out  # tracing is off by default
+
+
+@pytest.fixture
+def traced_server():
+    """The ``server`` fixture's server, built with tracing on."""
+    from ctpn_tpu_torch.inference.pipeline import CTPNPredictor
+    from ctpn_tpu_torch.serving import DetectionServer
+    from ctpn_tpu_torch.utils import timer
+    from ctpn_tpu_torch.utils.weights import load_params
+
+    was = timer.enabled()
+    timer.enable(True)
+    timer.reset()
+    srv = None
+    try:
+        pred = CTPNPredictor(load_params(ARTIFACT, device="cpu"), device="cpu")
+        srv = DetectionServer(pred, host="127.0.0.1", port=0, max_batch=4,
+                              window_ms=50.0)
+        t = threading.Thread(target=srv.serve_forever, daemon=True)
+        t.start()
+        yield srv
+    finally:
+        if srv is not None:
+            srv.shutdown()
+            t.join(timeout=60)
+            srv.server_close()
+        timer.enable(was)
+        timer.reset()
+
+
+def test_healthz_reports_spans_when_tracing(traced_server, rng):
+    status, out = _post(_url(traced_server, "/detect"), _jpeg_bytes(rng))
+    assert status == 200 and out["count"] == len(out["boxes"])
+    with urllib.request.urlopen(_url(traced_server, "/healthz"), timeout=30) as r:
+        spans = json.loads(r.read())["spans"]
+    for name in ("serve.decode", "serve.queue_wait", "serve.fetch", "serve.gather",
+                 "serve.dispatch", "serve.unscale", "predict.pad"):
+        assert spans[name]["n"] >= 1, name
+        assert 0 <= spans[name]["max_s"] <= spans[name]["s"]
+    # the POST's connection and the GET's: the second's thread may start
+    # after its wait is read
+    assert spans["serve.accept_wait"]["n"] >= 1
+    assert spans["serve.decode"]["n"] == spans["serve.queue_wait"]["n"] == 1
+    assert traced_server.predictor.clock.row() == 1  # one program run
 
 
 def test_concurrent_requests_coalesce(server, rng):
@@ -331,16 +378,18 @@ def test_serve_refuses_frozen_artifact(tmp_path, rng, monkeypatch):
         serving.serve(port_frozen, mode="O", device="cpu", verbose=False)
 
 
-def test_cli_serves_on_cpu(rng):
-    """``python -m ctpn_tpu_torch.cli.serve`` with ``--set`` overrides:
-    read the port from the "listening" line, POST one image, stop."""
+@contextlib.contextmanager
+def _cli_server(*extra):
+    """``python -m ctpn_tpu_torch.cli.serve`` on the CPU with ``--set``
+    overrides and ``extra`` arguments; yields the port read from its
+    "listening" line, and stops it."""
     sets = []
     for key, value in TINY.items():
         sets += [key, json.dumps(value) if isinstance(value, list) else str(value)]
     proc = subprocess.Popen(
         [sys.executable, "-m", "ctpn_tpu_torch.cli.serve", "--artifact",
          ARTIFACT, "--port", "0", "--no-warmup", "--device", "cpu",
-         "--max-batch", "2", "--set", *sets],
+         "--max-batch", "2", *extra, "--set", *sets],
         cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2"),
     )
@@ -351,12 +400,35 @@ def test_cli_serves_on_cpu(rng):
                 port = int(line.split("listening on ")[1].split()[0].rsplit(":", 1)[1])
                 break
         assert port, "the server printed no listening line"
-        status, out = _post(f"http://127.0.0.1:{port}/detect", _jpeg_bytes(rng))
-        assert status == 200 and out["count"] == len(out["boxes"])
-        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=30) as r:
-            health = json.loads(r.read())
-        assert health["buckets_compiled"] == [[64, 96]]
-        assert health["batches_run"] == 1
+        yield port
     finally:
         proc.terminate()
         proc.wait(timeout=60)
+
+
+def _health(port):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=30) as r:
+        return json.loads(r.read())
+
+
+def test_cli_serves_on_cpu(rng):
+    """``python -m ctpn_tpu_torch.cli.serve`` with ``--set`` overrides:
+    read the port from the "listening" line, POST one image, stop."""
+    with _cli_server() as port:
+        status, out = _post(f"http://127.0.0.1:{port}/detect", _jpeg_bytes(rng))
+        assert status == 200 and out["count"] == len(out["boxes"])
+        health = _health(port)
+        assert health["buckets_compiled"] == [[64, 96]]
+        assert health["batches_run"] == 1
+        assert "spans" not in health
+
+
+def test_cli_trace_reports_spans(rng):
+    """``ctpn-torch-serve --trace``: after one request ``/healthz`` has the
+    serving path's spans."""
+    with _cli_server("--trace") as port:
+        status, _ = _post(f"http://127.0.0.1:{port}/detect", _jpeg_bytes(rng))
+        assert status == 200
+        spans = _health(port)["spans"]
+        assert {"serve.decode", "serve.queue_wait", "serve.fetch"} <= set(spans)
+        assert spans["serve.fetch"]["n"] == 1
