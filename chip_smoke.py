@@ -18,7 +18,11 @@ artifacts replays a captured program after the first call of its shape
 solver and of the DDP ranks replays a captured step after its warm-up
 (``ctpn_tpu_torch/training/graphs.py``); the kernels' launch counts are
 recorded at capture and added per replay, so every launch gate below
-counts through replays.
+counts through replays. Every bf16 detect program also launches the conv
+epilogue once per conv of the trunk and ``rpn_conv``: 14 per program run on
+the default route and in O mode, 12 on the served route (the stem kernel
+runs block 1), 14 per image on the host path. The launch gates below count
+them beside the kernels they name; training and float32 launch none.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only
@@ -41,7 +45,15 @@ Phases (any failure exits non-zero and prints no result line):
    words and tiles, an invalid box in a diagonal word, boxes that touch
    without overlapping; resolve: N around a word, every cluster size, all
    invalid, all identical, long in-word chains; stem: both served buckets, partial and
-   sub-tile images, weights changed between calls). The fused NMS keep
+   sub-tile images, weights changed between calls; conv epilogue: odd
+   sizes, 3 channel groups, no bias, -0.0, NaN and infinities, then the
+   default route's 14 sites at batch 48 and 608x912 on the photos with
+   the shipped weights, each against the separate passes as the trunk ran
+   them, ``F.conv2d`` with its bias, ``F.relu``, ``F.max_pool2d``). The
+   conv epilogue must equal its plain version and those passes bit for
+   bit; its ms per site is printed beside its byte bound, the plain
+   version's and the PyTorch passes' on the bias-less output
+   (``library_ms``). The fused NMS keep
    mask's prefix, the bitmask words and the resolve's keep flags must be
    identical (tolerance 0: integer outputs), and the resolve must also
    give the fused kernel's uncapped keep mask on the same boxes; the
@@ -992,6 +1004,140 @@ def check_stem_kernel(dev) -> dict:
     }
 
 
+# ---------------------------------------------------------------- conv epilogue
+
+EPILOGUE_BATCH = 48  # the benchmark's batch
+
+
+def bits_of(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.int16)
+
+
+def edge_values(rng, shape, dev) -> torch.Tensor:
+    """bf16 values around zero with -0.0, +0.0, NaN and infinities among
+    them; channels_last when 4-D."""
+    a = rng.normal(0, 1, shape).astype(np.float32)
+    for start, step, value in ((0, 7, -0.0), (3, 11, 0.0), (5, 97, np.nan),
+                               (6, 101, np.inf), (8, 103, -np.inf)):
+        a.flat[start::step] = value
+    t = torch.from_numpy(a).to(dev).to(torch.bfloat16)
+    return t.contiguous(memory_format=torch.channels_last) if t.ndim == 4 else t
+
+
+def epilogue_sites(model) -> list:
+    """(name, conv, pool) of the default route's 14 convs, in order."""
+    from ctpn_tpu_torch.models.vgg import VGG_STAGES
+
+    sites = [(f"conv{b}_{r}", getattr(model.trunk, f"conv{b}_{r}"), r == reps and b < 5)
+             for b, reps, _ in VGG_STAGES for r in range(1, reps + 1)]
+    return sites + [("rpn_conv", model.rpn_conv, False)]
+
+
+def check_conv_epilogue_kernel(dev) -> dict:
+    """The conv epilogue against its plain version on edge cases, then the
+    default route's 14 sites at batch 48 and 608x912 on the demo photos
+    with the shipped weights: at each, the kernel on the conv's bias-less
+    output against the plain version and against the separate passes as
+    the trunk ran them (``F.conv2d`` with its bias, ``F.relu``,
+    ``F.max_pool2d``), bit for bit; then timed with its byte bound, the
+    plain version and the PyTorch passes on the bias-less output
+    (``add_``, ``F.relu``, ``F.max_pool2d``: ``library_ms``)."""
+    from ctpn_tpu_torch.inference.pipeline import CTPNPredictor
+    from ctpn_tpu_torch.ops import conv_epilogue as EP
+    from ctpn_tpu_torch.utils.weights import load_params
+
+    rng = np.random.RandomState(7)
+
+    def same_bits(got, want, what):
+        if got.shape != want.shape or not torch.equal(bits_of(got), bits_of(want)):
+            n_diff = (int((bits_of(got) != bits_of(want)).sum())
+                      if got.shape == want.shape else "shape")
+            raise AssertionError(f"conv_epilogue {what}: {n_diff} values differ")
+
+    edge = [("odd-width pool (2,64,37,55)", (2, 64, 37, 55), True, True),
+            ("odd sizes, no pool (2,64,37,55)", (2, 64, 37, 55), False, True),
+            ("C=24: 3 channel groups (3,24,9,13)", (3, 24, 9, 13), True, True),
+            ("no bias (2,512,8,10)", (2, 512, 8, 10), True, False),
+            ("one pixel row of windows (1,128,2,2)", (1, 128, 2, 2), True, True)]
+    with torch.inference_mode():
+        for name, shape, pool, with_bias in edge:
+            y = edge_values(rng, shape, dev)
+            b = edge_values(rng, (shape[1],), dev) if with_bias else None
+            got = EP.conv_epilogue(y, b, pool)
+            torch.cuda.synchronize()
+            same_bits(got, EP.conv_epilogue_ref(y, b, pool), name)
+            if not got.is_contiguous(memory_format=torch.channels_last):
+                raise AssertionError("conv_epilogue output is not channels_last")
+            log(f"  conv_epilogue {name}, -0.0/NaN/inf among the values: "
+                f"{tuple(got.shape)} equal to the plain version bit for bit")
+
+        model = CTPNPredictor(load_params(str(ARTIFACT), device=dev), device=dev).model
+        data, _ = photo_batch()
+        reps = EPILOGUE_BATCH // len(data)
+        x = stem_input(np.concatenate([data] * reps), dev)
+        shapes, totals = [], dict(ms=0.0, launch_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                                  bound_ms=0.0, bytes=0)
+        for name, conv, pool in epilogue_sites(model):
+            b = conv.bias.to(torch.bfloat16)
+            y = conv(x, bias=False)
+            got = EP.conv_epilogue(y, b, pool)
+            torch.cuda.synchronize()
+            same_bits(got, EP.conv_epilogue_ref(y, b, pool), f"{name}, plain version")
+            present = F.relu(conv(x))
+            if pool:
+                present = F.max_pool2d(present, 2, 2)
+            same_bits(got, present, f"{name}, the separate passes")
+            del present
+
+            ms = cuda_ms(lambda: EP.conv_epilogue(y, b, pool), 20)
+            direct_ms = launch_ms(EP, y, b, pool)
+            plain_ms = cuda_ms(lambda: EP.conv_epilogue_ref(y, b, pool), 3)
+            acc, bv = y.clone(), b.view(1, -1, 1, 1)
+
+            def library():
+                out = F.relu(acc.add_(bv))
+                return F.max_pool2d(out, 2, 2) if pool else out
+
+            library_ms = cuda_ms(library, 20)
+            del acc
+            n_bytes = 2 * (y.numel() + b.numel() + got.numel())
+            bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+            row = {"call": f"{name} {tuple(y.shape)}" + (" pool" if pool else ""),
+                   "ms": ms, "launch_ms": direct_ms, "plain_ms": plain_ms,
+                   "library_ms": library_ms, "bound_ms": bound_ms, "bytes": n_bytes,
+                   "bound_share": bound_ms / ms}
+            shapes.append(row)
+            for key in totals:
+                totals[key] += row[key]
+            log(f"  conv_epilogue {row['call']}: equal to the plain version and to "
+                f"the separate passes bit for bit; kernel {ms:.4f} ms (launcher alone "
+                f"{direct_ms:.4f}), bound {bound_ms:.4f} ms ({n_bytes} bytes, "
+                f"{100 * bound_ms / ms:.1f} % of it), plain {plain_ms:.4f} ms, "
+                f"PyTorch passes {library_ms:.4f} ms")
+            x = got
+    del model, x, y, got
+    torch.cuda.empty_cache()
+    log(f"  conv_epilogue, 14 sites at batch {EPILOGUE_BATCH}: kernel {totals['ms']:.4f} ms, "
+        f"bound {totals['bound_ms']:.4f} ms ({100 * totals['bound_ms'] / totals['ms']:.1f} % "
+        f"of it, {totals['bytes'] / totals['ms'] / 1e9:.3f} TB/s), PyTorch passes "
+        f"{totals['library_ms']:.4f} ms, plain {totals['plain_ms']:.4f} ms")
+    return {
+        "name": "conv_epilogue",
+        "route": "cuda",
+        "source": "ctpn_tpu_torch/ops/csrc/conv_epilogue.cu",
+        "replaces": None,  # XLA fuses the epilogue into the conv on the TPU
+        "launches": None,  # filled from the main path's run
+        "max_abs_err": 0.0,  # bit for bit
+        "ms": totals["ms"],
+        "launch_ms": totals["launch_ms"],
+        "plain_ms": totals["plain_ms"],
+        "bound_ms": totals["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": totals["library_ms"],
+        "shapes": shapes,
+    }
+
+
 # ---------------------------------------------------------------- main path
 
 
@@ -1093,7 +1239,7 @@ def check_budget(name: str, lines: int, n_ref: int, what: str) -> None:
                              f"({n_ref} committed)")
 
 
-def drive_main_path(dev, kernel_entry: dict) -> list:
+def drive_main_path(dev, kernel_entry: dict, epilogue_entry: dict = None) -> list:
     from ctpn_tpu_torch.config import cfg
     from ctpn_tpu_torch.inference.pipeline import CTPNPredictor
     from ctpn_tpu_torch.ops import nms_fused as NF
@@ -1124,6 +1270,9 @@ def drive_main_path(dev, kernel_entry: dict) -> list:
         results.append((recs, hit, n_ref))
     launches = NF.nms_keep_sorted_fused.LAUNCHES
     kernel_entry["launches"] = launches
+    counts = launch_counts()
+    if epilogue_entry is not None:
+        epilogue_entry["launches"] = counts["conv_epilogue"]
     total = sum(len(r) for r, _, _ in results)
     hits = sum(h for _, h, _ in results)
     n_ref = sum(n for _, _, n in results)
@@ -1131,9 +1280,8 @@ def drive_main_path(dev, kernel_entry: dict) -> list:
         raise AssertionError("no text lines on the demo photos")
     if launches == 0:
         raise AssertionError("nms_fused was never launched on the main path")
-    others = {k: v for k, v in launch_counts().items() if k != "nms_fused"}
-    if any(others.values()):
-        raise AssertionError(f"the default route launched other kernels: {others}")
+    expect_launches(counts, route_launches("default", len(PHOTOS)),
+                    f"main path, {len(PHOTOS)} detect_image calls")
     if hits < 0.75 * n_ref:
         raise AssertionError(f"only {hits}/{n_ref} committed reference lines found")
     check_precision(hits, total, "main path")
@@ -1206,12 +1354,13 @@ def post(url: str, body: bytes) -> tuple:
 
 def counted_wrappers() -> dict:
     """Each kernel's wrapper, whose ``LAUNCHES`` counts its launches."""
-    from ctpn_tpu_torch.ops import nms_bitmask, nms_fused, nms_resolve, stem_fused
+    from ctpn_tpu_torch.ops import conv_epilogue, nms_bitmask, nms_fused, nms_resolve, stem_fused
 
     return {"nms_bitmask": nms_bitmask.suppression_bitmask,
             "nms_resolve": nms_resolve.nms_resolve,
             "stem_fused": stem_fused.fused_stem_block,
-            "nms_fused": nms_fused.nms_keep_sorted_fused}
+            "nms_fused": nms_fused.nms_keep_sorted_fused,
+            "conv_epilogue": conv_epilogue.conv_epilogue}
 
 
 def launch_counts() -> dict:
@@ -1224,15 +1373,22 @@ def zero_launch_counts() -> None:
     _launches.init(*counted_wrappers().values())
 
 
-# kernel launches per program run (one padded batch) on each route
-ROUTE_LAUNCHES = {"default": {"nms_fused": 2},
-                  "served": {"nms_bitmask": 2, "nms_resolve": 2, "stem_fused": 1}}
+# kernel launches per program run (one padded batch) on each route, in
+# bf16: a conv epilogue per conv of the trunk and rpn_conv (13 + 1; on the
+# served route the stem kernel runs block 1's two convs)
+ROUTE_LAUNCHES = {"default": {"nms_fused": 2, "conv_epilogue": 14},
+                  "served": {"nms_bitmask": 2, "nms_resolve": 2, "stem_fused": 1,
+                             "conv_epilogue": 12}}
+
+
+def route_launches(route: str, runs: int) -> dict:
+    """The launches of ``runs`` program runs on ``route``."""
+    return {name: n * runs for name, n in ROUTE_LAUNCHES[route].items()}
 
 
 def check_route_launches(counts: dict, batches: int, what: str,
                          route: str = "served") -> None:
-    want = {name: n * batches for name, n in ROUTE_LAUNCHES[route].items()}
-    expect_launches(counts, want, f"{what}, {batches} batches")
+    expect_launches(counts, route_launches(route, batches), f"{what}, {batches} batches")
 
 
 def drive_serving_path(dev, bitmask_entry: dict, resolve_entry: dict,
@@ -1494,8 +1650,9 @@ def expect_launches(counts: dict, want: dict, what: str) -> None:
 
 
 def drive_o_mode(dev) -> None:
-    """O mode at batch 8 (two fused-NMS launches, no other kernel), then the
-    five photos against the committed O-mode lines."""
+    """O mode at batch 8 (two fused-NMS launches and the 14 conv epilogues,
+    no other kernel), then the five photos against the committed O-mode
+    lines."""
     from ctpn_tpu_torch.config import reset_cfg
     from ctpn_tpu_torch.inference.pipeline import CTPNPredictor
     from ctpn_tpu_torch.utils.image import load_image_bgr
@@ -1508,12 +1665,12 @@ def drive_o_mode(dev) -> None:
     zero_launch_counts()
     _, lines = pred.run_batch(data, infos)
     counts = lines.count.cpu().tolist()
-    expect_launches(launch_counts(), {"nms_fused": 2}, "O mode, one batch of 8")
+    expect_launches(launch_counts(), route_launches("default", 1), "O mode, one batch of 8")
     sec = time_run_batch(pred, data, infos)
     zero_launch_counts()
     hits, n_ref, _ = recall_over_photos(
         lambda p: pred.detect_image(load_image_bgr(str(p))), COMMITTED / "O", "O mode")
-    expect_launches(launch_counts(), {"nms_fused": 2 * len(PHOTOS)}, "O mode photos")
+    expect_launches(launch_counts(), route_launches("default", len(PHOTOS)), "O mode photos")
     log("  e2e " + json.dumps({
         "mode": "O", "run_batch": "x".join(map(str, data.shape[:3])) + " uint8",
         "line_counts": counts,
@@ -1523,7 +1680,8 @@ def drive_o_mode(dev) -> None:
 
 def drive_host_path(dev) -> None:
     """``detect_image_host`` in H and O: the card runs the network only, the
-    proposal decode and connector run on the host; no NMS kernel launches."""
+    proposal decode and connector run on the host; no NMS kernel launches,
+    the trunk's conv epilogues only."""
     from ctpn_tpu_torch.config import reset_cfg
     from ctpn_tpu_torch.inference.pipeline import CTPNPredictor
     from ctpn_tpu_torch.utils.image import load_image_bgr
@@ -1546,7 +1704,8 @@ def drive_host_path(dev) -> None:
 
         zero_launch_counts()
         recall_over_photos(detect, COMMITTED / f"{mode}_host", f"host path {mode}")
-        expect_launches(launch_counts(), {}, f"host path {mode}")
+        expect_launches(launch_counts(), {"conv_epilogue": 14 * len(PHOTOS)},
+                        f"host path {mode}")
         log("  e2e " + json.dumps({
             "host_postprocess": mode, "ms_per_image": [t * 1e3 for t in laps],
             "mean_ms": float(np.mean(laps)) * 1e3}))
@@ -1558,12 +1717,14 @@ import numpy as np
 sys.modules["ctpn_tpu_torch.models"] = None  # the loader must not need model code
 import torch
 from ctpn_tpu_torch.inference.frozen import FrozenCTPN
-from ctpn_tpu_torch.ops import _launches, nms_bitmask, nms_fused, nms_resolve, stem_fused
+from ctpn_tpu_torch.ops import (_launches, conv_epilogue, nms_bitmask, nms_fused, nms_resolve,
+                                stem_fused)
 
 wrappers = {"nms_bitmask": nms_bitmask.suppression_bitmask,
             "nms_resolve": nms_resolve.nms_resolve,
             "stem_fused": stem_fused.fused_stem_block,
-            "nms_fused": nms_fused.nms_keep_sorted_fused}
+            "nms_fused": nms_fused.nms_keep_sorted_fused,
+            "conv_epilogue": conv_epilogue.conv_epilogue}
 batch = np.load(sys.argv[1])
 report, arrays = {}, {}
 for name, path in zip(sys.argv[3::2], sys.argv[4::2]):
@@ -1680,10 +1841,9 @@ def drive_frozen(dev) -> Path:
     report, arrays = run_frozen_probe(batch_file, {k: v[0] for k, v in routes.items()})
     log(f"  subprocess without ctpn_tpu_torch.models: loaded and ran both artifacts "
         f"in {time.perf_counter() - t0:.1f} s")
-    expect_launches(report["default"]["launches"], {"nms_fused": 2},
+    expect_launches(report["default"]["launches"], route_launches("default", 1),
                     "frozen default route, batch 8")
-    expect_launches(report["served"]["launches"],
-                    {"nms_bitmask": 2, "nms_resolve": 2, "stem_fused": 1},
+    expect_launches(report["served"]["launches"], route_launches("served", 1),
                     "frozen served route, batch 8")
     log(f"  launches from inside the programs, one batch of 8: default "
         f"{report['default']['launches']}, served {report['served']['launches']}")
@@ -2095,7 +2255,7 @@ def full_size_steps(dev) -> list:
 
 COUNTED_MAIN = r"""
 import importlib, importlib.util, json, os, subprocess, sys
-from ctpn_tpu_torch.ops import nms_bitmask, nms_fused, nms_resolve, stem_fused
+from ctpn_tpu_torch.ops import conv_epilogue, nms_bitmask, nms_fused, nms_resolve, stem_fused
 _run = subprocess.run
 def _counted_run(cmd, *args, **kwargs):
     # a child that runs a module of the package (train_synth's segments)
@@ -2115,7 +2275,8 @@ print("LAUNCHES " + json.dumps({
     "nms_bitmask": nms_bitmask.suppression_bitmask.LAUNCHES,
     "nms_resolve": nms_resolve.nms_resolve.LAUNCHES,
     "stem_fused": stem_fused.fused_stem_block.LAUNCHES,
-    "nms_fused": nms_fused.nms_keep_sorted_fused.LAUNCHES}), flush=True)
+    "nms_fused": nms_fused.nms_keep_sorted_fused.LAUNCHES,
+    "conv_epilogue": conv_epilogue.conv_epilogue.LAUNCHES}), flush=True)
 """
 
 
@@ -2292,8 +2453,8 @@ def drive_training_entry_points(dev, n_iters: int = 10) -> dict:
         "--artifact", str(npz), "--images", str(COMMITTED / "H"),
         "--output", str(root / "demo")])
     report["demo_s"] = time.perf_counter() - t0
-    # 2 per photo, and 2 for the demo's warm-up batch
-    expect_launches(counts, {"nms_fused": 2 * (len(PHOTOS) + 1)},
+    # a program run per photo, and one for the demo's warm-up batch
+    expect_launches(counts, route_launches("default", len(PHOTOS) + 1),
                     "ctpn-torch-demo on the export")
     lines = 0
     for photo in PHOTOS:
@@ -2447,7 +2608,7 @@ def drive_train_synth() -> dict:
     prepare_corpus(str(root), SYNTH_IMAGES, SYNTH_HOLDOUT)
     report["prepare_s"] = time.perf_counter() - t0
     batches = holdout_batches(root)
-    detect = {"nms_fused": 2 * batches}
+    detect = route_launches("default", batches)
 
     t0 = time.perf_counter()
     out, counts = run_counted("ctpn_tpu_torch.cli.eval_holdout",
@@ -2566,11 +2727,11 @@ def drive_captured(dev) -> dict:
     x, info = torch.from_numpy(data).to(dev), torch.from_numpy(infos).to(dev)
     params = load_params(str(ARTIFACT), device=dev)
     replays = 3
-    cases = (("default", [], "H", False, {"nms_fused": 2}),
-             ("served", SERVED_ROUTE, "H", False,
-              {"nms_bitmask": 2, "nms_resolve": 2, "stem_fused": 1}),
-             ("O mode", [], "O", False, {"nms_fused": 2}),
-             ("frozen default", [], "H", True, {"nms_fused": 2}))
+    default, served = ROUTE_LAUNCHES["default"], ROUTE_LAUNCHES["served"]
+    cases = (("default", [], "H", False, default),
+             ("served", SERVED_ROUTE, "H", False, served),
+             ("O mode", [], "O", False, default),
+             ("frozen default", [], "H", True, default))
     report = {}
     OUT.mkdir(parents=True, exist_ok=True)
     for name, sets, mode, frozen, want in cases:
@@ -3520,7 +3681,7 @@ def drive_orbax(dev, default_recs: list, card: str) -> dict:
         hits, n_ref, lines = hits + hit, n_ref + n, lines + len(recs)
         log(f"  orbax weights {photo.name}: {len(recs)} lines equal to phase 4's bit "
             f"for bit, nms_fused +2, committed lines {hit}/{n}")
-    expect_launches(launch_counts(), {"nms_fused": 2 * len(PHOTOS)}, "orbax weights")
+    expect_launches(launch_counts(), route_launches("default", len(PHOTOS)), "orbax weights")
     if hits < 0.75 * n_ref:
         raise AssertionError(f"orbax weights: only {hits}/{n_ref} committed lines found")
     check_precision(hits, lines, "orbax weights")
@@ -3627,9 +3788,11 @@ def main(argv=()) -> int:
     # a checkout from before the resolve kernel (timed with --kernels-only
     # beside the current tree) has three kernels
     has_resolve = (_build.CSRC / "nms_resolve.cu").exists()
+    has_epilogue = (_build.CSRC / "conv_epilogue.cu").exists()
     t0 = time.perf_counter()
     logs = _build.build(["nms_fused", "nms_bitmask", "stem_fused"]
                         + ["nms_resolve"] * has_resolve
+                        + ["conv_epilogue"] * has_epilogue
                         + ["stage_clock"] * (_build.CSRC / "stage_clock.cu").exists())
     log(f"[2/24] build: {time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
@@ -3643,17 +3806,20 @@ def main(argv=()) -> int:
     entries = [check_nms_kernel(dev), check_bitmask_kernel(dev), check_stem_kernel(dev)]
     if has_resolve:
         entries.append(check_resolve_kernel(dev))
+    if has_epilogue:
+        entries.append(check_conv_epilogue_kernel(dev))
     if "--kernels-only" in argv:
         if not has_resolve:
             log("  nms_resolve: this checkout has no resolve kernel; entry left out")
         print(json.dumps({"kernels": entries}))
         print(card)
         return 0
-    if not has_resolve:
-        raise AssertionError("ctpn_tpu_torch/ops/csrc/nms_resolve.cu is missing")
+    for name, present in (("nms_resolve", has_resolve), ("conv_epilogue", has_epilogue)):
+        if not present:
+            raise AssertionError(f"ctpn_tpu_torch/ops/csrc/{name}.cu is missing")
 
     log("[4/24] main path (default config)")
-    default_recs = drive_main_path(dev, entries[0])
+    default_recs = drive_main_path(dev, entries[0], entries[4])
 
     log("[5/24] serving path (TPU.NMS_FUSED False, TPU.FUSED_STEM True)")
     drive_serving_path(dev, entries[1], entries[3], entries[2], default_recs)

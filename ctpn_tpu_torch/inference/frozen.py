@@ -20,11 +20,13 @@ Loading needs ``torch``, ``numpy`` and ``ctpn_tpu_torch.ops``: no model
 code and no cfg. That is the one difference from the JAX artifact, whose
 Pallas kernel is inlined into its StableHLO. The hand-written kernels are
 ``torch.library`` ops (``ctpn_torch::nms_keep_sorted_fused``,
-``suppression_bitmask``, ``nms_resolve``, ``fused_stem_block``): the
-program holds each as one node, and the op's registration in
-``ctpn_tpu_torch.ops`` gives it its kernel where the program runs, so an
-artifact exported on the card launches the same kernels as the live
-pipeline (and counts them in the same ``LAUNCHES``).
+``suppression_bitmask``, ``nms_resolve``, ``fused_stem_block``,
+``conv_epilogue``): the program holds each as one node, and the op's
+registration in ``ctpn_tpu_torch.ops`` gives it its kernel where the
+program runs, so an artifact exported on the card launches the same
+kernels as the live pipeline (and counts them in the same ``LAUNCHES``).
+An artifact exported before the conv epilogue existed holds the separate
+aten passes instead, and still loads.
 
 The loader refuses an artifact exported for another device type (it never
 moves a program to the CPU quietly), a CUDA artifact without a CUDA device,
@@ -57,7 +59,8 @@ import numpy as np
 import torch
 
 # the op registrations: a loaded program resolves its kernel nodes here
-from ctpn_tpu_torch.ops import nms_bitmask, nms_fused, nms_resolve, stem_fused  # noqa: F401
+from ctpn_tpu_torch.ops import (  # noqa: F401
+    conv_epilogue, nms_bitmask, nms_fused, nms_resolve, stem_fused)
 from ctpn_tpu_torch.inference.graphs import DetectGraphs
 from ctpn_tpu_torch.ops.proposal import Proposals
 from ctpn_tpu_torch.parallel.dp import shard_detect_fn

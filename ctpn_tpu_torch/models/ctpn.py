@@ -18,7 +18,6 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from ctpn_tpu_torch.models.rnn import BiLSTM
 from ctpn_tpu_torch.models.vgg import VGG_STAGES, Conv3x3, VGG16Trunk
@@ -79,7 +78,7 @@ class CTPN(nn.Module):
         else:
             x = x.contiguous()
         feat = self.trunk(x, remat=remat)
-        rpn = F.relu(self.rpn_conv(feat)).permute(0, 2, 3, 1)  # NHWC
+        rpn = self.rpn_conv.conv_relu(feat).permute(0, 2, 3, 1)  # NHWC
         lstm_o = self.bilstm(rpn)  # (N, H, W, C) float32
 
         bbox_pred = self.rpn_bbox_pred(lstm_o)

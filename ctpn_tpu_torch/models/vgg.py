@@ -21,6 +21,11 @@ The JAX package's two block-1 variants map as follows:
 ``per_image_tail`` runs the last block's convs (stride 16) one image at a
 time (``Conv3x3``), so that an image's features do not depend on its slot
 in the batch.
+
+In inference (gradients off) in bfloat16, each conv's bias, ReLU and the
+pool after it run as one pass, the op ``ops/conv_epilogue.py``
+(``Conv3x3.conv_relu``), with the bits of the separate passes; training and
+float32 keep the separate passes.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ctpn_tpu_torch.ops.conv_epilogue import conv_epilogue
 from ctpn_tpu_torch.ops.stem_fused import fused_stem_block
 
 # (block, reps, channels) for VGG16's conv layers
@@ -59,12 +65,35 @@ class Conv3x3(nn.Conv2d):
         super().__init__(cin, cout, 3, padding=1)
         self.per_image = per_image
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w, b = self.weight.to(x.dtype), self.bias.to(x.dtype)
+    def forward(self, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
+        """The conv; ``bias=False`` leaves the bias out."""
+        w = self.weight.to(x.dtype)
+        b = self.bias.to(x.dtype) if bias else None
         if self.per_image and x.shape[0] > 1:
             return torch.cat([F.conv2d(x[i:i + 1], w, b, padding=1)
                               for i in range(x.shape[0])])
         return F.conv2d(x, w, b, padding=1)
+
+    def conv_relu(self, x: torch.Tensor, pool: bool = False) -> torch.Tensor:
+        """ReLU of the conv, then the 2x2/2 max-pool if ``pool``.
+
+        With gradients off and a bfloat16 input, the passes after the conv
+        are one, the op :func:`~ctpn_tpu_torch.ops.conv_epilogue.conv_epilogue`,
+        and the bits stay those of the separate passes: on CUDA, PyTorch's
+        cuDNN conv rounds its output to bf16 and then adds the bias, so the
+        conv runs without its bias and the op adds it; the CPU's conv sums
+        the bias into its float32 accumulator, so there the conv keeps it
+        and the op adds none. Otherwise (training, for which the op has no
+        backward; float32) the separate passes run.
+        """
+        if torch.is_grad_enabled() or x.dtype != torch.bfloat16:
+            y = F.relu(self(x))
+            return F.max_pool2d(y, 2, 2) if pool else y
+        if x.is_cuda:
+            y, b = self(x, bias=False), self.bias.to(x.dtype)
+        else:
+            y, b = self(x), None
+        return conv_epilogue(y.contiguous(memory_format=torch.channels_last), b, pool)
 
 
 class VGG16Trunk(nn.Module):
@@ -110,9 +139,9 @@ class VGG16Trunk(nn.Module):
 
     def _block(self, block: int, reps: int, x: torch.Tensor) -> torch.Tensor:
         for rep in range(1, reps + 1):
-            x = F.relu(getattr(self, f"conv{block}_{rep}")(x))
-        if block < 5:  # pools 1-4 only: stride 16 at conv5_3
-            x = F.max_pool2d(x, 2, 2)
+            # pools 1-4 only, after the block's last conv: stride 16 at conv5_3
+            x = getattr(self, f"conv{block}_{rep}").conv_relu(
+                x, pool=rep == reps and block < 5)
         return x
 
     def _fused_block1(self, x: torch.Tensor) -> torch.Tensor:

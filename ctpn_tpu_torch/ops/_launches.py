@@ -3,7 +3,7 @@
 Each kernel's wrapper carries ``LAUNCHES``, the total that callers read and
 reset, and ``LAUNCHES_BY_DEVICE``, a ``Counter`` keyed by the CUDA device
 index the kernel ran on. The launchers add to both under one lock shared by
-the four ops: with a worker thread per card (``parallel/dp.py``), a plain
+the ops: with a worker thread per card (``parallel/dp.py``), a plain
 ``+=`` on an attribute could lose counts, and a caller checks exact counts.
 
 A launch made while a CUDA graph is being captured runs nothing: inside

@@ -219,12 +219,24 @@ def equal_outputs(got: Sequence[np.ndarray], want: Sequence[np.ndarray]) -> bool
 
 def wrappers() -> dict:
     """Each kernel's wrapper, whose counts ``ops/_launches.py`` keeps."""
-    from ctpn_tpu_torch.ops import nms_bitmask, nms_fused, nms_resolve, stem_fused
+    from ctpn_tpu_torch.ops import conv_epilogue, nms_bitmask, nms_fused, nms_resolve, stem_fused
 
     return {"nms_bitmask": nms_bitmask.suppression_bitmask,
             "nms_resolve": nms_resolve.nms_resolve,
             "stem_fused": stem_fused.fused_stem_block,
-            "nms_fused": nms_fused.nms_keep_sorted_fused}
+            "nms_fused": nms_fused.nms_keep_sorted_fused,
+            "conv_epilogue": conv_epilogue.conv_epilogue}
+
+
+def epilogue_launches(route: str) -> int:
+    """The conv epilogues of one program run under the cfg: one per conv
+    of the trunk and ``rpn_conv`` in bf16 (13 + 1, the stem kernel running
+    block 1's two on the served route), none in float32."""
+    from ctpn_tpu_torch.config import cfg
+
+    if cfg.TPU.COMPUTE_DTYPE != "bfloat16":
+        return 0
+    return 12 if route == "served" else 14
 
 
 def counts_by_device(since: Optional[dict] = None) -> dict:
@@ -674,6 +686,7 @@ def leg_inference(devices: List[torch.device], small: bool) -> dict:
             ("default", [], {"nms_fused": 2}),
             ("served", SERVED_ROUTE, {"nms_bitmask": 2, "nms_resolve": 2, "stem_fused": 1})):
         _set_route(sets, small)
+        per_replica = dict(per_replica, conv_epilogue=epilogue_launches(route))
         pred = CTPNPredictor(params, device=home)
         want = _flat(*pred.run_batch(data, infos))  # one card, the global batch
         per = len(data) // len(devices)
@@ -789,7 +802,8 @@ def leg_frozen(devices: List[torch.device], inference: dict, small: bool,
         raise AssertionError("the frozen loader imported ctpn_tpu_torch.models")
     if probe["meta"]["dp_devices"] != len(devices):
         raise AssertionError(f"meta dp_devices {probe['meta']['dp_devices']}")
-    check_counts(devices, {"nms_fused": 2}, probe["launches_per_card"],
+    check_counts(devices, {"nms_fused": 2, "conv_epilogue": epilogue_launches("default")},
+                 probe["launches_per_card"],
                  "frozen DP program, default route")
     with np.load(out_file) as z:
         got = [z[f"arr_{i}"] for i in range(6)]
