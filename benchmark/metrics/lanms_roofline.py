@@ -1,0 +1,16 @@
+"""The locality-aware walk kernel's share of its roofline: the least time
+of one program run's walk (``flops_east.lanms_bound_s``: the live cells
+read and the merged quads written at the HBM rate, or the reference's own
+IoU tests at the float32 peak) over the kernel's traced time per run."""
+
+
+def read(run):
+    trace, work = run.readings.get("trace"), run.readings.get("lanms_walk")
+    if not trace or not work:
+        return None
+    hits = [v for name, v in trace["kernels"].items() if "lanms_walk_kernel" in name]
+    n = sum(v["n"] for v in hits)
+    if n == 0:
+        return None
+    per_run = sum(v["s"] for v in hits) / (n / work["launches_per_run"])
+    return 100.0 * work["bound_s_per_run"] / per_run

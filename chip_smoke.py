@@ -26,7 +26,10 @@ them beside the kernels they name; training and float32 launch none.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only
+    python3 chip_smoke.py --east
 
+``--east`` runs phases 1, 2 and 25 alone (EAST) and prints their line and
+the card line.
 ``--kernels-only`` stops after phase 3 and prints the ``kernels`` line
 (without launch counts) and the card line, but no final result line: it
 times the kernels of another checkout on the same card, when this file is
@@ -279,6 +282,22 @@ Phases (any failure exits non-zero and prints no result line):
     its report exactly the route's (2 fused NMS; 2 bitmask, 2 resolve, 1
     stem). Prints both lines and reports beside phase 16's replayed ms per
     batch of the route (batch 8, uploaded per call: another figure).
+25. EAST (``--east`` runs it alone): the locality-aware walk and the quad
+    bitmask kernels against their plain versions bit for bit (cell-like
+    runs of 0 to 4000 cells, a cap reached, ties; the bitmask around word
+    multiples, identical quads, invalid tails); then EAST's captured
+    program on ``data/artifacts/east_vgg16_synth_f16.npz`` at the cell
+    ``east_device_b32``'s shape (32 held-out renders, 736x1280): 20 conv
+    epilogues, one walk, one bitmask and one resolve per replayed run,
+    replays equal to the first bit for bit and to the eager program, no
+    overflow of the caps, every image with records, each image's records
+    the same alone and in another slot, the taps and merge maps of four
+    slots against each image alone (printed); the conv epilogue at all 20
+    sites on that batch, the walk on its own cells and the bitmask on its
+    own merged quads, each against its plain version bit for bit; and the
+    walk's, the bitmask's and the resolve's ms at the cell's shape beside
+    their bounds (the live cells' and quads' bytes at 3.35 TB/s against
+    the IoU tests at 112 float ops each at the float32 peak).
 
 Every recall gate counts lines as ``ctpn-torch-eval`` does
 (``eval.match_boxes``: one-to-one, IoU >= 0.5, integer corner boxes).
@@ -1354,13 +1373,16 @@ def post(url: str, body: bytes) -> tuple:
 
 def counted_wrappers() -> dict:
     """Each kernel's wrapper, whose ``LAUNCHES`` counts its launches."""
-    from ctpn_tpu_torch.ops import conv_epilogue, nms_bitmask, nms_fused, nms_resolve, stem_fused
+    from ctpn_tpu_torch.ops import (conv_epilogue, lanms, nms_bitmask, nms_fused,
+                                    nms_resolve, quad_nms, stem_fused)
 
     return {"nms_bitmask": nms_bitmask.suppression_bitmask,
             "nms_resolve": nms_resolve.nms_resolve,
             "stem_fused": stem_fused.fused_stem_block,
             "nms_fused": nms_fused.nms_keep_sorted_fused,
-            "conv_epilogue": conv_epilogue.conv_epilogue}
+            "conv_epilogue": conv_epilogue.conv_epilogue,
+            "lanms_walk": lanms.lanms_walk,
+            "quad_bitmask": quad_nms.quad_bitmask}
 
 
 def launch_counts() -> dict:
@@ -3773,6 +3795,281 @@ def drive_bench(card_name: str, captured: dict) -> dict:
     return lines
 
 
+# ------------------------------------------------------------------ EAST
+
+EAST_ARTIFACT = REPO / "data" / "artifacts" / "east_vgg16_synth_f16.npz"
+# the cell east_device_b32's shape: 32 renders at 1280x720 padded to 736x1280
+EAST_BATCH, EAST_BUCKET = 32, (736, 1280)
+# kernel launches per EAST program run in bf16: a conv epilogue per conv
+# (13 of the trunk, 6 of the merge branch, the last conv), the walk, the
+# quad bitmask and the resolve
+EAST_LAUNCHES = {"conv_epilogue": 20, "lanms_walk": 1, "quad_bitmask": 1, "nms_resolve": 1}
+# float ops of one quad IoU test at its least (benchmark/flops_east.py)
+QUAD_IOU_OPS = 112
+
+
+def east_cfg(bucket=EAST_BUCKET) -> None:
+    from ctpn_tpu_torch.config import cfg_from_list, reset_cfg
+
+    reset_cfg()
+    cfg_from_list(["NET_NAME", "EAST_VGG16", "TPU.BUCKETS", [list(bucket)],
+                   "TEXT.SCALE", 720, "TEXT.MAX_SCALE", 1280,
+                   "TEST.SCALES", [720], "TEST.MAX_SIZE", 1280])
+
+
+def rect_cells(rng, n: int, words: int, jitter: float = 1.5) -> np.ndarray:
+    """(n, 9) cells of ``words`` rotated rectangles, in a shuffled raster-
+    like order (runs of the same word), scores in [0.8, 1)."""
+    from ctpn_tpu_torch.plain.east import restore_rbox
+
+    cx, cy = rng.uniform(0, 1200, words), rng.uniform(0, 700, words)
+    w, h = rng.uniform(20, 200, words), rng.uniform(10, 40, words)
+    a = rng.uniform(-0.6, 0.6, words)
+    geo = np.stack([h / 2, w / 2, h / 2, w / 2], 1).astype(np.float32)
+    base = restore_rbox(cx.astype(np.float32), cy.astype(np.float32), geo, a.astype(np.float32))
+    runs = np.repeat(rng.randint(0, words, (n + 7) // 8), 8)[:n]
+    q = base[runs] + rng.normal(0, jitter, (len(runs), 8)).astype(np.float32)
+    s = rng.uniform(0.8, 1.0, len(runs)).astype(np.float32)
+    return np.concatenate([s[:, None], q], 1).astype(np.float32)
+
+
+def check_east_kernels(dev) -> list:
+    """The walk and the quad bitmask against their plain versions, bit for
+    bit: cell-like runs, empty and one-cell images, ties, a cap reached;
+    the bitmask around word multiples, identical quads, invalid tails."""
+    from ctpn_tpu_torch.ops import lanms, quad_nms
+
+    rng = np.random.RandomState(25)
+    out = []
+    walk_cases = []
+    for counts, cap in (([4000, 0, 1, 2500, 37] + [3000] * 27, 4096), ([300, 300], 16),
+                        ([64, 64], 4096)):
+        m = max(counts)
+        cells = np.zeros((len(counts), m, 9), np.float32)
+        for i, n in enumerate(counts):
+            cells[i, :n] = rect_cells(rng, n, max(n // 80, 1))
+        if cap == 4096 and len(counts) == 2:  # ties: one quad, equal scores
+            cells[:, :, :] = cells[:1, :1, :]
+        walk_cases.append((torch.from_numpy(cells), torch.tensor(counts, dtype=torch.int32), cap))
+    for cells, count, cap in walk_cases:
+        got = lanms.lanms_walk(cells.to(dev), count.to(dev), 0.2, cap)
+        want = lanms.lanms_walk_ref(cells, count, 0.2, cap)
+        for a, b, name in zip(got, want, ("merged", "cells", "count", "overflow")):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"lanms_walk {tuple(cells.shape)} cap {cap}: {name} differs")
+        log(f"  lanms_walk {tuple(cells.shape)} cap {cap}: equal; kept "
+            f"{want[2].tolist()[:6]} overflow {want[3].tolist()[:6]}")
+    for b, k, valid_n in ((4, 31, 31), (4, 33, 20), (2, 1000, 700), (8, 512, 300)):
+        q = torch.from_numpy(rect_cells(rng, b * k, max(k // 3, 1), jitter=4.0)[:, 1:]
+                             ).reshape(b, k, 8)
+        valid = torch.arange(k)[None].expand(b, k) < torch.randint(0, valid_n + 1, (b, 1))
+        valid[0, :valid_n] = True
+        for case, qq in (("rects", q), ("identical", q[:, :1].expand(b, k, 8).contiguous())):
+            got = quad_nms.quad_bitmask(qq.to(dev), valid.to(dev), 0.2).cpu()
+            want = quad_nms.quad_bitmask_ref(qq, valid, 0.2)
+            if not torch.equal(got, want):
+                raise AssertionError(f"quad_bitmask ({b},{k}) {case}: words differ")
+        log(f"  quad_bitmask ({b},{k}) valid <= {valid_n}: equal (rects, identical)")
+    out.append({"name": "lanms_walk", "cases": len(walk_cases), "equal": True})
+    out.append({"name": "quad_bitmask", "cases": 8, "equal": True})
+    return out
+
+
+def east_batch(n: int = EAST_BATCH):
+    """``n`` held-out renders at 1280x720, prepped into the bucket."""
+    from ctpn_tpu_torch.cli.train_east_synth import holdout
+    from ctpn_tpu_torch.utils.image import prep_image
+
+    data, infos = [], []
+    for im, _ in holdout(n):
+        d, info, _ = prep_image(im)
+        data.append(d)
+        infos.append(info)
+    return np.stack(data), np.stack(infos)
+
+
+def greedy_tests(mask: np.ndarray, count: int) -> int:
+    """IoU tests of greedy NMS over ``count`` sorted quads whose
+    suppression bits are ``mask`` (count, words) (the reference's loop)."""
+    bits = np.unpackbits(mask[:count].view(np.uint8), axis=1, bitorder="little")[:, :count]
+    alive = np.ones(count, bool)
+    tests = 0
+    for i in range(count):
+        if not alive[i]:
+            continue
+        alive[i] = False
+        tests += int(alive[i + 1:].sum())
+        alive &= ~bits[i].astype(bool)
+    return tests
+
+
+def records_of(recs, n: int) -> list:
+    r, c = recs.recs.cpu().numpy(), recs.count.cpu().numpy()
+    return [r[i, :int(c[i])] for i in range(n)]
+
+
+def check_east_epilogue_sites(model, xs) -> list:
+    """The conv epilogue at each of EAST's 20 sites (13 trunk convs, the
+    six merge convs, the last conv) on the batch ``xs`` (mean subtracted),
+    against its plain version bit for bit: the network run eagerly with
+    every call of the op checked as it is made."""
+    from ctpn_tpu_torch.models import vgg
+    from ctpn_tpu_torch.ops import conv_epilogue as EP
+
+    sites, real = [], vgg.conv_epilogue
+
+    def checked(y, b, pool):
+        got = real(y, b, pool)
+        want = EP.conv_epilogue_ref(y, b, pool)
+        same = got.shape == want.shape and torch.equal(bits_of(got), bits_of(want))
+        sites.append({"shape": list(y.shape), "pool": pool, "equal": bool(same)})
+        return got
+
+    vgg.conv_epilogue = checked
+    try:
+        with torch.inference_mode():
+            model.merge(model.trunk_taps(xs))
+        torch.cuda.synchronize()
+    finally:
+        vgg.conv_epilogue = real
+    log("  conv_epilogue at EAST's sites: " + "; ".join(
+        f"{tuple(s['shape'])}{' pool' if s['pool'] else ''} "
+        f"{'equal' if s['equal'] else 'DIFFERS'}" for s in sites))
+    if len(sites) != EAST_LAUNCHES["conv_epilogue"] or sum(s["pool"] for s in sites) != 5:
+        raise AssertionError(f"EAST: {len(sites)} epilogue sites, "
+                             f"{sum(s['pool'] for s in sites)} pooled (want 20, 5)")
+    bad = [s for s in sites if not s["equal"]]
+    if bad:
+        raise AssertionError(f"conv_epilogue differs from its plain version at {bad}")
+    return sites
+
+
+def drive_east(dev, artifact: Path = EAST_ARTIFACT) -> dict:
+    """EAST on the card at the cell's shape: launches per replayed run,
+    repeats bit for bit, each image's records in every slot and alone, the
+    eager program against the replay, the caps' overflow, the stride-16
+    maps per slot, the conv epilogue's 20 sites and the new kernels on the
+    batch's own data against their plain versions, and the new kernels'
+    times beside their bounds."""
+    from ctpn_tpu_torch.inference.pipeline import CTPNPredictor, EASTPredictor
+    from ctpn_tpu_torch.ops import lanms, quad_nms
+    from ctpn_tpu_torch.ops.nms_resolve import nms_resolve
+    from ctpn_tpu_torch.postprocess.east import decode, east_kwargs
+    from ctpn_tpu_torch.utils.weights import load_params
+
+    east_cfg()
+    pred = CTPNPredictor(load_params(str(artifact), device=dev), device=dev)
+    assert isinstance(pred, EASTPredictor)
+    data, infos = east_batch()
+    x, info = torch.from_numpy(data).to(dev), torch.from_numpy(infos).to(dev)
+    first = pred.graphs(x, info)
+    first = pred.graphs(x, info)  # the first replay
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    runs = [pred.graphs(x, info) for _ in range(5)]
+    torch.cuda.synchronize()
+    expect_launches(launch_counts(), {k: 5 * v for k, v in EAST_LAUNCHES.items()},
+                    "EAST, 5 replayed runs")
+    base = records_of(first[1], EAST_BATCH)
+    for quads, recs in runs:
+        if not all(np.array_equal(a, b) for a, b in zip(records_of(recs, EAST_BATCH), base)):
+            raise AssertionError("EAST: a replay's records differ from the first")
+    eager = pred.program(x, info)
+    if not all(np.array_equal(a, b) for a, b in zip(records_of(eager[1], EAST_BATCH), base)):
+        raise AssertionError("EAST: the eager program's records differ from the replay")
+    q = first[0]
+    counts = {"cells": q.cells.cpu().tolist(), "merged": q.count.cpu().tolist(),
+              "records": first[1].count.cpu().tolist()}
+    over = int(q.overflow.sum()) + int(first[1].overflow.sum())
+    log("  EAST per image: cells mean %.1f max %d, merged mean %.1f max %d, records mean "
+        "%.1f max %d; overflow %d" % (np.mean(counts["cells"]), max(counts["cells"]),
+                                     np.mean(counts["merged"]), max(counts["merged"]),
+                                     np.mean(counts["records"]), max(counts["records"]), over))
+    if over:
+        raise AssertionError(f"EAST: {over} quads past the caps")
+    if min(counts["records"]) == 0:
+        raise AssertionError("EAST: an image without records")
+
+    # slots: every image alone (batch 1) and in the batch rolled by 13
+    slot_diff = 0
+    for i in range(EAST_BATCH):
+        alone = pred.graphs(x[i:i + 1], info[i:i + 1])
+        if not np.array_equal(records_of(alone[1], 1)[0], base[i]):
+            slot_diff += 1
+    rolled = pred.graphs(x.roll(13, 0), info.roll(13, 0))
+    rolled_recs = records_of(rolled[1], EAST_BATCH)
+    slot_diff += sum(not np.array_equal(rolled_recs[(i + 13) % EAST_BATCH], base[i])
+                     for i in range(EAST_BATCH))
+    # the maps behind any difference: each tap and the merge output per slot
+    with torch.inference_mode():
+        from ctpn_tpu_torch.inference.pipeline import mean_subtracted
+
+        m = pred.model
+        xs = mean_subtracted(x[:4])
+        taps_b = m.trunk_taps(xs)
+        merged_b = m.merge(taps_b)
+        split = {}
+        for j in range(4):
+            taps_1 = m.trunk_taps(xs[j:j + 1])
+            names = ["pool2", "pool3", "pool4", "pool5"]
+            d = {n: float((a[j:j + 1].float() - b.float()).abs().max())
+                 for n, a, b in zip(names, taps_b, taps_1)}
+            d["merge"] = float((merged_b[j:j + 1].float() - m.merge(taps_1).float()).abs().max())
+            split[j] = d
+    log(f"  EAST slots: {slot_diff} of {2 * EAST_BATCH} image runs differ from the batch's; "
+        f"maps batch vs alone (max abs): {json.dumps(split)}")
+    if slot_diff:
+        raise AssertionError("EAST: an image's records depend on its slot")
+
+    # the conv epilogue at EAST's 20 sites on the whole batch
+    sites = check_east_epilogue_sites(m, mean_subtracted(x))
+
+    # the new kernels at the cell's shape, on this batch's own cells and
+    # merged quads: against their plain versions bit for bit, then timed
+    kw = east_kwargs()
+    with torch.inference_mode():
+        outs = m.head(m.merge(m.trunk_taps(mean_subtracted(x))))
+        cells, ncount = decode(outs, info, kw["score_thresh"])
+        walk = lanms.lanms_walk(cells, ncount, kw["nms_thresh"], kw["max_merged"])
+    want = lanms.lanms_walk_ref(cells.cpu(), ncount.cpu(), kw["nms_thresh"], kw["max_merged"])
+    for a, b, name in zip(walk, want, ("merged", "cells", "count", "overflow")):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"lanms_walk {tuple(cells.shape)} on the batch's cells: "
+                                 f"{name} differs from the plain version")
+    log(f"  lanms_walk {tuple(cells.shape)} on the batch's own cells (live per image up "
+        f"to {int(ncount.max())}): equal to the plain version bit for bit")
+    walk_ms = cuda_ms(lambda: lanms.lanms_walk(cells, ncount, kw["nms_thresh"],
+                                               kw["max_merged"]), 10)
+    rois, valid = first[0].rois, first[0].valid
+    quads = rois[..., 1:].contiguous()
+    mask_ms = cuda_ms(lambda: quad_nms.quad_bitmask(quads, valid, kw["nms_thresh"]), 20)
+    mask = quad_nms.quad_bitmask(quads, valid, kw["nms_thresh"])
+    if not torch.equal(mask.cpu(), quad_nms.quad_bitmask_ref(quads.cpu(), valid.cpu(),
+                                                             kw["nms_thresh"])):
+        raise AssertionError(f"quad_bitmask {tuple(mask.shape)} on the batch's merged "
+                             "quads differs from the plain version")
+    log(f"  quad_bitmask {tuple(mask.shape)} on the batch's merged quads (valid per image "
+        f"up to {int(valid.sum(1).max())}): equal to the plain version bit for bit")
+    resolve_ms = cuda_ms(lambda: nms_resolve(mask, valid), 20)
+    walk_tests = int(np.maximum(ncount.cpu().numpy() - 1, 0).sum())
+    mask_np, qc = mask.cpu().numpy(), q.count.cpu().numpy()
+    nms_tests = sum(greedy_tests(mask_np[i], int(qc[i])) for i in range(EAST_BATCH))
+    k = kw["max_merged"]
+    walk_bytes = int(ncount.sum()) * 36 + int(walk[2].sum()) * 40
+    # the words that hold a bit the work needs: each image's count rows of
+    # ceil(count / 32) words, beside its quads read
+    mask_bytes = sum(int(c) * ((int(c) + 31) // 32) * 4 + int(c) * 33 for c in qc)
+    walk_bound = max(walk_bytes / HBM_BYTES_PER_S, walk_tests * QUAD_IOU_OPS / F32_OPS_PER_S)
+    mask_bound = max(mask_bytes / HBM_BYTES_PER_S, nms_tests * QUAD_IOU_OPS / F32_OPS_PER_S)
+    times = {"lanms_walk_ms": walk_ms, "lanms_bound_ms": walk_bound * 1e3,
+             "walk_tests": walk_tests, "quad_bitmask_ms": mask_ms,
+             "quad_bitmask_bound_ms": mask_bound * 1e3, "nms_tests": nms_tests,
+             "nms_resolve_ms": resolve_ms}
+    log("  EAST kernels at (32, 736x1280): " + json.dumps(times))
+    return {"counts": counts, "times": times, "slot_differences": slot_diff, "maps": split,
+            "epilogue_sites": len(sites)}
+
+
 def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3793,7 +4090,8 @@ def main(argv=()) -> int:
     logs = _build.build(["nms_fused", "nms_bitmask", "stem_fused"]
                         + ["nms_resolve"] * has_resolve
                         + ["conv_epilogue"] * has_epilogue
-                        + ["stage_clock"] * (_build.CSRC / "stage_clock.cu").exists())
+                        + ["stage_clock"] * (_build.CSRC / "stage_clock.cu").exists()
+                        + ["quad_nms"] * (_build.CSRC / "quad_nms.cu").exists())
     log(f"[2/24] build: {time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -3801,6 +4099,15 @@ def main(argv=()) -> int:
             # notes (C75xx: e.g. wgmma serialized)
             if any(k in line for k in ("registers", "smem", "spill", "(C75")):
                 log(f"  {name}: {line.strip()}")
+
+    if "--east" in argv:
+        log("[25/25] EAST: the walk and quad bitmask kernels, the captured program at "
+            "(32, 736x1280)")
+        entries = check_east_kernels(dev)
+        east = drive_east(dev)
+        print(json.dumps({"kernels": entries, "east": east}))
+        print(card)
+        return 0
 
     log("[3/24] kernels against their plain versions")
     entries = [check_nms_kernel(dev), check_bitmask_kernel(dev), check_stem_kernel(dev)]
@@ -3938,8 +4245,16 @@ def main(argv=()) -> int:
     drive_bench(torch.cuda.get_device_name(0), captured)
     log(f"  bench phase {time.perf_counter() - t0:.1f} s")
 
+    log("[25/25] EAST: the walk and quad bitmask kernels, the captured program at "
+        "(32, 736x1280)")
+    t0 = time.perf_counter()
+    zero_launch_counts()
+    entries += check_east_kernels(dev)
+    east = drive_east(dev)
+    log(f"  EAST phase {time.perf_counter() - t0:.1f} s")
+
     log(f"[21/24] result (all phases {time.perf_counter() - t_start:.1f} s)")
-    print(json.dumps({"kernels": entries}))
+    print(json.dumps({"kernels": entries, "east": east}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -4,7 +4,8 @@ The PyTorch port keeps the same schema and key names as the JAX package so
 that one YAML file (``configs/text.yml``) loads into both; the ``TPU.*``
 knobs keep their names too. Of those, the port reads ``BUCKETS``,
 ``COMPUTE_DTYPE``, ``PARAM_DTYPE``, ``MAX_LINES``, ``NMS_FUSED``,
-``FUSED_STEM`` and, in training, ``MAX_GT``, ``MAX_DONTCARE``,
+``FUSED_STEM``, EAST's caps ``EAST_MAX_MERGED`` and ``EAST_MAX_RECORDS``
+and, in training, ``MAX_GT``, ``MAX_DONTCARE``,
 ``PREFETCH_DEPTH`` and ``REMAT``; the others (tile sizes, ``MESH_AXIS``,
 ``PACKED_STEM``, whose packed block equals the stock convs) are accepted
 and change nothing.
@@ -194,6 +195,10 @@ def _default_cfg() -> AttrDict:
     # data/results: F 0.74 -> 0.90 @ IoU 0.3 (docs/TRAINING.md round 5).
     x.LINE_MERGE_GAP_RATIO = 1.25
     x.LINE_MERGE_MIN_V_OVERLAP = 0.5
+    # EAST (NET_NAME EAST_VGG16; argman/EAST eval.py): score-map threshold,
+    # and the IoU over which locality-aware NMS folds and NMS suppresses
+    x.SCORE_MAP_THRESH = 0.8
+    x.NMS_THRESH = 0.2
     c.TEXT = x
 
     # ---- TPU build knobs (new; no reference equivalent) ----
@@ -208,6 +213,11 @@ def _default_cfg() -> AttrDict:
     p.MAX_DONTCARE = 64  # padded dontcare areas per image
     p.MAX_PROPOSALS = 1000  # post-NMS proposals carried into the connector
     p.MAX_LINES = 128  # padded text lines per image
+    # EAST: quads kept by locality-aware NMS per image; 1024 is 4.4x the
+    # most any 720p render has merged on the H100 (234), and the quad
+    # bitmask's and resolve's work grows as its square
+    p.EAST_MAX_MERGED = 1024
+    p.EAST_MAX_RECORDS = 512  # EAST: records kept by NMS per image
     p.NMS_TILE = 256  # Pallas NMS bitmask row-tile size (multiple of 8)
     p.NMS_TILE_J = 2048  # Pallas NMS bitmask column-tile size (mult. of 16)
     # single-kernel NMS (build+resolve fused, early exit); False: the

@@ -15,6 +15,15 @@ program per bucket); on the CPU it runs eagerly.
 ``demo_pb.py``: the card runs the network only, and the proposal decode and
 the connector run on the host (``utils/host_ref.py``,
 ``postprocess/oracle.py``).
+
+With ``cfg.NET_NAME`` ``EAST_VGG16`` the predictor is an
+:class:`EASTPredictor`, which runs EAST (``models/east.py``) through
+:func:`east_program` instead: mean subtract,
+the trunk's taps, the merge branch and heads, then the post-process of
+``postprocess/east.py`` (threshold, raster compaction, RBOX restore, the
+locality-aware walk, quad NMS), all on the card in the captured program; it
+answers with ``(EastQuads, EastRecords)`` in place of ``(Proposals,
+TextLines)``, and the host only unscales the quads (no line-union pass).
 """
 
 from __future__ import annotations
@@ -26,15 +35,26 @@ import torch
 
 from ctpn_tpu_torch.config import cfg
 from ctpn_tpu_torch.inference.graphs import DetectGraphs
-from ctpn_tpu_torch.inference.records import unscale_records
+from ctpn_tpu_torch.inference.records import unscale_quads, unscale_records
 from ctpn_tpu_torch.models.ctpn import CTPN, CTPNOutputs
+from ctpn_tpu_torch.models.east import EAST
 from ctpn_tpu_torch.ops.proposal import Proposals, proposal_layer
 from ctpn_tpu_torch.postprocess.connector import TextLines
 from ctpn_tpu_torch.postprocess.detector import detect_lines
+from ctpn_tpu_torch.postprocess.east import EastQuads, EastRecords, east_kwargs, east_postprocess
 from ctpn_tpu_torch.utils import timer
 from ctpn_tpu_torch.utils.device import device_constant, resolve_device
 from ctpn_tpu_torch.utils.image import load_image_bgr, prep_image, resize_im
 from ctpn_tpu_torch.utils.weights import params_from_jax
+
+
+def mean_subtracted(images: torch.Tensor) -> torch.Tensor:
+    """``images`` (N, H, W, 3) uint8 or float32 BGR minus the pixel means,
+    float32, on their device."""
+    pixel = tuple(float(m) for m in cfg.PIXEL_MEANS)
+    means = device_constant(("pixel_means", pixel), images.device,
+                            lambda: np.asarray(pixel, np.float32))
+    return images.float() - means
 
 
 def forward_features(
@@ -45,10 +65,7 @@ def forward_features(
     ``images``: (N, H, W, 3) uint8 (the wire format) or float32, BGR.
     ``model`` is a ``CTPN`` or any callable with its forward's contract.
     """
-    pixel = tuple(float(m) for m in cfg.PIXEL_MEANS)
-    means = device_constant(("pixel_means", pixel), images.device,
-                            lambda: np.asarray(pixel, np.float32))
-    return model(images.float() - means)
+    return model(mean_subtracted(images))
 
 
 def proposal_kwargs(
@@ -64,9 +81,10 @@ def proposal_kwargs(
 
 
 def lines_kwargs(mode: str = "H", max_lines: Optional[int] = None) -> Dict[str, Any]:
-    """``detect_lines`` settings from the cfg (TEXT connector constants)."""
+    """``detect_lines`` settings from the cfg (TEXT connector constants):
+    CTPN's connector, whose modes are H and O."""
     if mode not in ("H", "O"):
-        raise ValueError(f"detect mode must be 'H' or 'O', got {mode!r}")
+        raise ValueError(f"CTPN's detect mode must be 'H' or 'O', got {mode!r}")
     t = cfg.TEXT
     return dict(
         mode=mode,
@@ -138,6 +156,40 @@ def build_detect_fn(
     return detect
 
 
+def east_program(
+    model: EAST,
+    images: torch.Tensor,
+    im_info: torch.Tensor,
+    kw: Mapping[str, Any],
+    on_stage: Optional[Callable[[str], None]] = None,
+) -> Tuple[EastQuads, EastRecords]:
+    """EAST's detect program: mean subtract, the trunk's taps (``trunk``),
+    the merge branch and heads (``merge``), then ``decode``, ``lanms`` and
+    ``quad_nms`` (``postprocess/east.py``); ``on_stage`` is called after
+    each. Like :func:`detect_program`, no host sync: a CUDA graph captures
+    all of it."""
+    mark = on_stage or (lambda name: None)
+    taps = model.trunk_taps(mean_subtracted(images))
+    mark("trunk")
+    outs = model.head(model.merge(taps))
+    mark("merge")
+    return east_postprocess(outs, im_info, kw, mark)
+
+
+def build_east_detect_fn(
+    model: EAST, on_stage: Optional[Callable[[str], None]] = None
+) -> Callable[[torch.Tensor, torch.Tensor], Tuple[EastQuads, EastRecords]]:
+    """Returns fn(images, im_info) -> (EastQuads, EastRecords), batched,
+    with the cfg's thresholds and caps (``east_kwargs``)."""
+    kw = east_kwargs()
+
+    @torch.inference_mode()
+    def detect(images: torch.Tensor, im_info: torch.Tensor):
+        return east_program(model, images, im_info, kw, on_stage)
+
+    return detect
+
+
 def _stamped(clock, detect):
     """``detect`` behind the stage clock's ``start`` stamp."""
 
@@ -155,6 +207,8 @@ class CTPNPredictor:
     ``utils.weights.load_params`` or a nested flax tree); it is loaded into
     ``model`` (default: ``get_network("VGGnet_test")`` from the cfg).
     Runs on CUDA unless ``device`` says otherwise; without CUDA it raises.
+    ``CTPNPredictor(...)`` gives an :class:`EASTPredictor` instead when
+    ``cfg.NET_NAME`` is ``EAST_VGG16`` or ``model`` is an ``EAST``.
 
     ``buckets_run`` records, in first-run order, each (height, width)
     bucket that ``run_batch`` has run: the server reports it where the JAX
@@ -169,35 +223,51 @@ class CTPNPredictor:
     ``clock`` is None and the program is the plain one.
     """
 
+    stages = timer.STAGES  # the stage clock's stages
+    pad_span = "predict.pad"
+
+    def __new__(cls, params=None, model=None, mode=None, device="cuda"):
+        from ctpn_tpu_torch.models.factory import EAST_NAMES
+
+        if cls is CTPNPredictor and (
+                isinstance(model, EAST) or (model is None and cfg.NET_NAME in EAST_NAMES)):
+            cls = EASTPredictor
+        return super().__new__(cls)
+
     def __init__(
         self,
         params: Mapping[str, Any],
-        model: Optional[CTPN] = None,
+        model: Optional[torch.nn.Module] = None,
         mode: Optional[str] = None,
         device: Union[str, torch.device] = "cuda",
     ):
-        from ctpn_tpu_torch.models.factory import get_network
-
         self.device = resolve_device(device)
-        self.model = (model or get_network("VGGnet_test", self.device)).to(self.device)
+        self.model = (model or self._network()).to(self.device)
         self.model.load_state_dict(params_from_jax(params))
         self.model.eval()
         self.mode = mode or cfg.TEST.DETECT_MODE
-        self.clock = timer.StageClock(self.device) if timer.enabled() else None
+        self.clock = timer.StageClock(self.device, self.stages) if timer.enabled() else None
         if self.clock is None:
-            self.program = build_detect_fn(self.model, mode=self.mode)
+            self.program = self._build()
         else:
-            self.program = _stamped(self.clock, build_detect_fn(
-                self.model, mode=self.mode, on_stage=self.clock.stamp))
-        mode = self.mode  # (not self: no reference cycle holds the graphs)
-        self.graphs = DetectGraphs(
-            self.program, self.device,
-            variant=lambda: (mode, bool(cfg.TPU.NMS_FUSED)))
+            self.program = _stamped(self.clock, self._build(on_stage=self.clock.stamp))
+        self.graphs = DetectGraphs(self.program, self.device, variant=self._variant())
         self.buckets_run: Dict[Tuple[int, int], None] = {}
 
+    def _network(self) -> torch.nn.Module:
+        from ctpn_tpu_torch.models.factory import get_network
+
+        return get_network("VGGnet_test", self.device)
+
+    def _build(self, on_stage: Optional[Callable[[str], None]] = None):
+        return build_detect_fn(self.model, mode=self.mode, on_stage=on_stage)
+
+    def _variant(self) -> Callable[[], Tuple]:
+        mode = self.mode  # (not self: no reference cycle holds the graphs)
+        return lambda: (mode, bool(cfg.TPU.NMS_FUSED))
+
     def run_batch(self, images: np.ndarray, im_info: np.ndarray):
-        """(N, bh, bw, 3) uint8/float32 batch -> (Proposals, TextLines) on
-        the device. On the card, replays the batch's captured program (the
+        """Run the batched program on host arrays (``graphs``: on the card the
         first call of a shape runs it and captures it); returns once the
         work is queued, with no host sync: callers fetch with ``.cpu()``."""
         self.buckets_run.setdefault(tuple(int(d) for d in images.shape[1:3]))
@@ -208,22 +278,30 @@ class CTPNPredictor:
         """Run a possibly-partial batch padded to ``batch_size`` (callers
         slice outputs by the true item count; padded rows are garbage)."""
         pad = batch_size - len(images)
-        with timer.span("predict.pad"):
+        with timer.span(self.pad_span):
             stacked = np.stack(list(images) + [images[0]] * pad)
             stacked_i = np.stack(list(infos) + [infos[0]] * pad)
         return self.run_batch(stacked, stacked_i)
 
+    def fetch(self, recs, i: int = 0) -> Tuple[np.ndarray, int]:
+        """Image ``i``'s padded records and their count, on the host."""
+        return recs.recs[i].cpu().numpy(), int(recs.count[i])
+
+    def unscale(self, recs: np.ndarray, count: int, f1: float, info,
+                y_off: float = 0.0) -> np.ndarray:
+        """One image's padded records on the host -> records in ORIGINAL
+        image coords (``unscale_records``: the line union, then unscale)."""
+        return unscale_records(recs, count, f1, info, y_off=y_off)
+
     def detect_image(self, im_bgr: np.ndarray) -> np.ndarray:
-        """One uint8 BGR image -> (M, 9) line records in ORIGINAL image
-        coords, through the demo's double resize (`demo.py:59-60` then
+        """One uint8 BGR image -> (M, 9) records in ORIGINAL image coords,
+        through the demo's double resize (`demo.py:59-60` then
         `test.py:18-24`)."""
         resized, f1 = resize_im(im_bgr, cfg.TEXT.SCALE, cfg.TEXT.MAX_SCALE)
         data, info, pad = prep_image(resized)
         _, lines = self.run_batch(data[None], info[None])
-        return unscale_records(
-            lines.recs[0].cpu().numpy(), int(lines.count[0]), f1, info,
-            y_off=pad,
-        )
+        recs, count = self.fetch(lines)
+        return self.unscale(recs, count, f1, info, y_off=pad)
 
     def detect_path(self, path: str) -> np.ndarray:
         return self.detect_image(load_image_bgr(path))
@@ -268,3 +346,46 @@ class CTPNPredictor:
         info = np.tile(np.array([bh, bw, 1.0], np.float32), (batch, 1))
         _, lines = self.run_batch(img, info)
         lines.count.cpu()
+
+
+class EASTPredictor(CTPNPredictor):
+    """:class:`CTPNPredictor` for EAST (``models/east.py``, default
+    ``get_network(cfg.NET_NAME)``): the program is :func:`east_program`,
+    which answers with ``(EastQuads, EastRecords)`` (``postprocess/east.py``)
+    in place of ``(Proposals, TextLines)``; ``graphs``' key carries
+    ``"EAST"``; the stage clock has EAST's stages; :meth:`unscale` unscales
+    the quads alone (no line union); there is no host post-process
+    (:meth:`detect_image_host`). Its host calls are ``ctpn.east.*`` spans.
+    """
+
+    stages = timer.EAST_STAGES
+    pad_span = "east.pad"
+
+    def _network(self) -> torch.nn.Module:
+        from ctpn_tpu_torch.models.factory import get_network
+
+        return get_network(cfg.NET_NAME, self.device)
+
+    def _build(self, on_stage: Optional[Callable[[str], None]] = None):
+        return build_east_detect_fn(self.model, on_stage=on_stage)
+
+    def _variant(self) -> Callable[[], Tuple]:
+        return lambda: ("EAST",)
+
+    def run_batch(self, images: np.ndarray, im_info: np.ndarray):
+        with timer.span("east.run"):
+            return super().run_batch(images, im_info)
+
+    def fetch(self, recs, i: int = 0) -> Tuple[np.ndarray, int]:
+        with timer.span("east.fetch"):
+            return super().fetch(recs, i)
+
+    def unscale(self, recs: np.ndarray, count: int, f1: float, info,
+                y_off: float = 0.0) -> np.ndarray:
+        """One image's padded quads on the host -> quads ``[x1, y1, ...,
+        x4, y4, score]`` in ORIGINAL image coords (``unscale_quads``)."""
+        with timer.span("east.unscale"):
+            return unscale_quads(recs, count, f1, info, y_off=y_off)
+
+    def detect_image_host(self, im_bgr: np.ndarray) -> np.ndarray:
+        raise ValueError("detect_image_host runs CTPN's host post-process; EAST has none")

@@ -1,4 +1,5 @@
-"""Host-side finishing of line records: trim, line-union pass, unscale.
+"""Host-side finishing of line records: trim, line-union pass, unscale
+(EAST's quads: trim and unscale, :func:`unscale_quads`).
 
 Shared by every surface that returns records in original image
 coordinates: the live predictor, ``stream_detect``, the server and the
@@ -23,7 +24,18 @@ def unscale_records(
     ``y_off`` undoes prep_image's TOP_PAD shift (resized-frame pixels):
     boxes move back up and clip at the true top edge."""
     out = np.asarray(recs)[:count].astype(np.float64)
-    out = maybe_merge_line_records(out)
+    return _to_original(maybe_merge_line_records(out), f1, info, y_off)
+
+
+def unscale_quads(
+    recs: np.ndarray, count: int, f1: float, info, y_off: float = 0.0
+) -> np.ndarray:
+    """EAST's records: trimmed and mapped back to ORIGINAL image coords as
+    :func:`unscale_records` maps lines, with no line-union pass."""
+    return _to_original(np.asarray(recs)[:count].astype(np.float64), f1, info, y_off)
+
+
+def _to_original(out: np.ndarray, f1: float, info, y_off: float) -> np.ndarray:
     if y_off and len(out):
         out[:, 1:8:2] = np.maximum(out[:, 1:8:2] - y_off, 0.0)
     total_scale = f1 * float(info[2])

@@ -80,6 +80,7 @@ def stream_detect(
     buckets: Dict[Tuple[int, int], List[_Prepped]] = collections.defaultdict(list)
     done_workers = 0
     inflight: List[Tuple[List[_Prepped], object]] = []
+    unscale = getattr(predictor, "unscale", unscale_records)  # EAST's or CTPN's
 
     def flush(items: List[_Prepped]):
         out = predictor.run_padded(  # queued on the device; padded batch
@@ -93,7 +94,7 @@ def stream_detect(
             counts = lines.count.cpu().numpy()
             recs_all = lines.recs.cpu().numpy()
         for b, it in enumerate(items):
-            yield it.path, unscale_records(
+            yield it.path, unscale(
                 recs_all[b], int(counts[b]), it.f1, it.info, y_off=it.pad
             )
 

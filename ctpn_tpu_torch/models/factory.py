@@ -9,13 +9,18 @@ import torch
 
 from ctpn_tpu_torch.config import cfg
 from ctpn_tpu_torch.models.ctpn import CTPN
+from ctpn_tpu_torch.models.east import EAST
 from ctpn_tpu_torch.utils.device import resolve_device
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def get_network(name: str, device: Union[str, torch.device] = "cuda") -> CTPN:
-    """A randomly initialised ``CTPN`` on ``device``, in eval mode.
+EAST_NAMES = ("EAST_VGG16",)
+
+
+def get_network(name: str, device: Union[str, torch.device] = "cuda") -> torch.nn.Module:
+    """A randomly initialised ``CTPN``, or ``EAST`` for ``EAST_VGG16``
+    (``models/east.py``), on ``device``, in eval mode.
 
     ``TPU.FUSED_STEM`` routes block 1 of the test network (inference only)
     through the fused stem kernel. ``TPU.PACKED_STEM`` needs nothing: the packed block equals the
@@ -23,11 +28,15 @@ def get_network(name: str, device: Union[str, torch.device] = "cuda") -> CTPN:
     convs one image at a time (``CTPN``'s ``per_image_tail``), so that a
     served image's records do not depend on its slot in the padded batch.
     """
-    if name not in ("VGGnet_train", "VGGnet_test", "ctpn"):
+    if name not in ("VGGnet_train", "VGGnet_test", "ctpn") + EAST_NAMES:
         raise KeyError(f"Unknown network: {name}")
     dev = resolve_device(device)
     if DTYPES.get(cfg.TPU.PARAM_DTYPE) is not torch.float32:
         raise ValueError(f"TPU.PARAM_DTYPE must be float32, got {cfg.TPU.PARAM_DTYPE}")
+    if name in EAST_NAMES:
+        # block 5 and the merge branch one image at a time (models/east.py)
+        east = EAST(dtype=DTYPES[cfg.TPU.COMPUTE_DTYPE], per_image_tail=True)
+        return east.to(dev).eval()
     model = CTPN(
         dtype=DTYPES[cfg.TPU.COMPUTE_DTYPE],
         fused_stem=bool(cfg.TPU.FUSED_STEM) and name == "VGGnet_test",

@@ -2,7 +2,9 @@
 
 Port of ``ctpn_tpu.models.vgg``: 3x3 SAME convs + ReLU, 2x2/2 VALID
 max-pools after blocks 1-4 (block 5 keeps full resolution, total stride
-16). Parameters are float32; each conv casts them to the input's compute
+16). EAST (``models/east.py``) builds the trunk with ``pool_last``, which
+pools after block 5 too (stride 32), and reads the outputs of pools 2-5
+(``forward(taps=True)``). Parameters are float32; each conv casts them to the input's compute
 dtype (bfloat16 by default), as flax's ``dtype`` does. Inside, the convs
 run NCHW; on CUDA the activations are kept channels_last for cuDNN.
 
@@ -69,10 +71,11 @@ class Conv3x3(nn.Conv2d):
         """The conv; ``bias=False`` leaves the bias out."""
         w = self.weight.to(x.dtype)
         b = self.bias.to(x.dtype) if bias else None
+        pad = self.padding
         if self.per_image and x.shape[0] > 1:
-            return torch.cat([F.conv2d(x[i:i + 1], w, b, padding=1)
+            return torch.cat([F.conv2d(x[i:i + 1], w, b, padding=pad)
                               for i in range(x.shape[0])])
-        return F.conv2d(x, w, b, padding=1)
+        return F.conv2d(x, w, b, padding=pad)
 
     def conv_relu(self, x: torch.Tensor, pool: bool = False) -> torch.Tensor:
         """ReLU of the conv, then the 2x2/2 max-pool if ``pool``.
@@ -96,12 +99,22 @@ class Conv3x3(nn.Conv2d):
         return conv_epilogue(y.contiguous(memory_format=torch.channels_last), b, pool)
 
 
+class Conv1x1(Conv3x3):
+    """1x1 conv with :class:`Conv3x3`'s dtype cast, ``per_image`` and
+    ``conv_relu`` (EAST's merge branch)."""
+
+    def __init__(self, cin: int, cout: int, per_image: bool = False):
+        nn.Conv2d.__init__(self, cin, cout, 1, padding=0)
+        self.per_image = per_image
+
+
 class VGG16Trunk(nn.Module):
     """Feature extractor on NCHW tensors: (N, 3, H, W) -> (N, C, H/16, W/16).
 
     ``stages`` defaults to VGG16; tests substitute a narrow ladder with the
     same stride-16 pooling structure. ``fused_stem`` routes block 1
-    through the fused stem kernel.
+    through the fused stem kernel. ``pool_last`` pools after the last
+    block too (stride 32, EAST's pool5), through the same pooled epilogue.
     """
 
     def __init__(
@@ -109,10 +122,12 @@ class VGG16Trunk(nn.Module):
         stages: Tuple[Tuple[int, int, int], ...] = VGG_STAGES,
         fused_stem: bool = False,
         per_image_tail: bool = False,
+        pool_last: bool = False,
     ):
         super().__init__()
         self.stages = tuple(stages)
         self.fused_stem = fused_stem
+        self.pool_last = pool_last
         last = self.stages[-1][0]
         cin = 3  # BGR
         for block, reps, ch in self.stages:
@@ -122,11 +137,16 @@ class VGG16Trunk(nn.Module):
                 cin = ch
         self.out_channels = cin
 
-    def forward(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, remat: bool = False, taps: bool = False):
         """``remat`` keeps only each block's input for the backward pass and
         recomputes the block there (training; same values). A block draws
         no random numbers, so the generator's state is not stashed: that
-        would read the CUDA generator inside a captured step."""
+        would read the CUDA generator inside a captured step.
+
+        ``taps`` returns the list of the outputs of blocks 2 to the last
+        (after their pools: with ``pool_last``, pool2-pool5 at strides 4,
+        8, 16 and 32) in place of the last output alone."""
+        outs = []
         for block, reps, _ in self.stages:
             if block == 1 and self.fused_stem and reps == 2:
                 x = self._fused_block1(x)
@@ -135,13 +155,16 @@ class VGG16Trunk(nn.Module):
                                preserve_rng_state=False)
             else:
                 x = self._block(block, reps, x)
-        return x
+            if taps and block >= 2:
+                outs.append(x)
+        return outs if taps else x
 
     def _block(self, block: int, reps: int, x: torch.Tensor) -> torch.Tensor:
         for rep in range(1, reps + 1):
-            # pools 1-4 only, after the block's last conv: stride 16 at conv5_3
+            # pools 1-4, after the block's last conv: stride 16 at conv5_3;
+            # with pool_last a fifth, stride 32
             x = getattr(self, f"conv{block}_{rep}").conv_relu(
-                x, pool=rep == reps and block < 5)
+                x, pool=rep == reps and (block < 5 or self.pool_last))
         return x
 
     def _fused_block1(self, x: torch.Tensor) -> torch.Tensor:

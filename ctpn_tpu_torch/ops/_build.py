@@ -39,6 +39,7 @@ NVCC_FLAGS = (
 EXTRA_FLAGS: Dict[str, Sequence[str]] = {
     "nms_fused": ("-fmad=false",),
     "nms_bitmask": ("-fmad=false",),
+    "quad_nms": ("-fmad=false",),
 }
 
 # host C++: no -march=native and no contraction of a*b+c into an FMA, which

@@ -88,6 +88,9 @@ class MicroBatcher(threading.Thread):
                  window_ms: float = 5.0):
         super().__init__(daemon=True)
         self.predictor = predictor
+        # the predictor's host finishing (CTPN's line union or EAST's
+        # quads); a predictor without its own finishes as CTPN's
+        self._unscale = getattr(predictor, "unscale", unscale_records)
         self.max_batch = max_batch
         self.window_s = window_ms / 1e3
         self.queue: "queue_mod.Queue[_Pending]" = queue_mod.Queue()
@@ -216,7 +219,7 @@ class MicroBatcher(threading.Thread):
                 self.images_run += len(live)
                 for b, it in enumerate(live):
                     with timer.span("serve.unscale"):
-                        it.result = unscale_records(
+                        it.result = self._unscale(
                             recs_all[b], int(counts[b]), it.f1, it.info,
                             y_off=it.pad,
                         )

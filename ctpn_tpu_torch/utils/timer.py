@@ -29,7 +29,15 @@ Spans, all host seconds: ``graphs.upload``, ``graphs.replay``,
 ``serve.decode``, ``serve.gather``, ``serve.dispatch``, ``serve.fetch``,
 ``serve.unscale`` and, added, ``serve.queue_wait`` and
 ``serve.accept_wait`` (``serving.py``); ``stream.prep``, ``stream.wait``
-and ``stream.fetch`` (``inference/streaming.py``).
+and ``stream.fetch`` (``inference/streaming.py``); ``east.pad``,
+``east.run``, ``east.fetch`` and ``east.unscale``, the host calls of the
+predictor's EAST path (``inference/pipeline.py``).
+
+The stage clock's stages are :data:`STAGES` for CTPN's program and
+:data:`EAST_STAGES` for EAST's: ``trunk`` (the VGG16 taps), ``merge`` (the
+merge branch and the heads), ``decode`` (threshold, raster compaction,
+RBOX restore), ``lanms`` (the locality-aware walk) and ``quad_nms`` (sort,
+bitmask, resolve, records).
 """
 
 from __future__ import annotations
@@ -174,14 +182,19 @@ def span(name: str):
 
 # --------------------------------------------------------- stage clock
 STAGES = ("start", "forward", "proposal_layer", "detect_lines")
+EAST_STAGES = ("start", "trunk", "merge", "decode", "lanms", "quad_nms")
 ROWS = 256
+
+
+def _slots(ring: torch.Tensor) -> int:
+    return (ring.numel() - 1) // ROWS
 
 
 def _stamp_ref(ring: torch.Tensor, slot: int) -> None:
     """The plain version: the host's clock in ns into the current row;
     the last slot advances the row counter (the ring's last element)."""
-    slots = len(STAGES)
-    row = int(ring[-1]) % ((ring.numel() - 1) // slots)
+    slots = _slots(ring)
+    row = int(ring[-1]) % ROWS
     ring[row * slots + slot] = time.perf_counter_ns()
     if slot == slots - 1:
         ring[-1] += 1
@@ -198,8 +211,8 @@ def _stamp_launch(ring: torch.Tensor, slot: int) -> None:
     fn.restype = ctypes.c_int
     dev = ring.device
     with torch.cuda.device(dev):
-        err = fn(ring.data_ptr(), (ring.numel() - 1) // len(STAGES), len(STAGES),
-                 int(slot), torch.cuda.current_stream(dev).cuda_stream)
+        err = fn(ring.data_ptr(), ROWS, _slots(ring), int(slot),
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"stage_stamp kernel launch failed: CUDA error {err}")
 
@@ -212,19 +225,21 @@ _lib.impl("stage_stamp", _stamp_launch, "CUDA")
 
 class StageClock:
     """A ring of ``ROWS`` rows of stamps in ns, one per stage of
-    :data:`STAGES`, on ``device``; the row counter (runs stamped in full)
-    is the ring's last element, kept on the device.
+    ``stages`` (:data:`STAGES`, or :data:`EAST_STAGES`), on ``device``; the
+    row counter (runs stamped in full) is the ring's last element, kept on
+    the device.
 
     ``stamp(name)`` queues the stamp of stage ``name`` on the current
     stream: a program calls ``stamp("start")`` first and passes ``stamp``
     as ``build_detect_fn(on_stage=)``. :meth:`row` and :meth:`read` wait
     for the device."""
 
-    def __init__(self, device):
+    def __init__(self, device, stages=STAGES):
         self.device = torch.device(device)
-        self.ring = torch.zeros(ROWS * len(STAGES) + 1, dtype=torch.int64,
+        self.stages = tuple(stages)
+        self.ring = torch.zeros(ROWS * len(self.stages) + 1, dtype=torch.int64,
                                 device=self.device)
-        self._slot = {name: i for i, name in enumerate(STAGES)}
+        self._slot = {name: i for i, name in enumerate(self.stages)}
 
     def stamp(self, name: str) -> None:
         torch.ops.ctpn_torch.stage_stamp(self.ring, self._slot[name])
@@ -240,13 +255,13 @@ class StageClock:
 
     def read(self, since_row: int = 0) -> Optional[Dict[str, float]]:
         """Median ms per run of each stage (``forward``, ``proposal_layer``,
-        ``detect_lines``: from the stamp before it) over the complete rows
+        ``detect_lines``, or EAST's: from the stamp before it) over the complete rows
         from ``since_row`` on that the ring still holds, and ``between``:
         the median ms from one run's last stamp to the next run's first.
         ``rows`` is the count of rows read. None without a complete row."""
         host = self._host()
         done = int(host[-1])
-        slots = len(STAGES)
+        slots = len(self.stages)
         # the oldest held row may be half overwritten by a run stamped later
         first = max(int(since_row), done - ROWS + 1, 0)
         if first >= done:
@@ -254,7 +269,8 @@ class StageClock:
         idx = np.arange(first, done) % ROWS
         t = host[:-1].reshape(ROWS, slots)[idx].astype(np.float64)
         steps = np.diff(t, axis=1) / 1e6
-        out = {name: float(np.median(steps[:, i])) for i, name in enumerate(STAGES[1:])}
+        out = {name: float(np.median(steps[:, i]))
+               for i, name in enumerate(self.stages[1:])}
         if len(t) > 1:
             out["between"] = float(np.median(t[1:, 0] - t[:-1, -1]) / 1e6)
         out["rows"] = len(t)

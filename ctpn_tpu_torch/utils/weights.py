@@ -10,6 +10,11 @@ input projection as one ``(8*hidden, C)`` weight (forward gates are rows
 weights ``w_h_fw``/``w_h_bw`` in the ``h @ w_h`` layout ``(hidden, 4*hidden)``.
 :func:`params_to_jax` is the inverse.
 
+An ``.npz`` may name another artifact beside it whose trunk it shares
+(``__trunk__``, with ``__trunk_sha256__``): :func:`read_artifact` reads
+that artifact's ``VGG16Trunk_0`` leaves in, checked against the digest.
+EAST's artifact stores its merge branch and heads so, on CTPN's trunk.
+
 The pretrained-format converters are NumPy copies of the JAX package's
 (``ctpn_tpu/utils/weights.py``), on the JAX-layout tree as nested dicts of
 numpy arrays, so that ``--npy`` and ``--tf-vars`` give the same tree in
@@ -53,7 +58,30 @@ def read_artifact(artifact: str) -> Dict[str, np.ndarray]:
         raise ValueError(
             f"expected an .npz artifact or an orbax artifact directory, got {artifact}")
     with np.load(artifact) as flat:
-        return {k: flat[k].astype(np.float32) for k in flat.files}
+        out = {k: flat[k].astype(np.float32) for k in flat.files if k not in _TRUNK_REF}
+        ref = {k: str(flat[k]) for k in _TRUNK_REF if k in flat.files}
+    if ref:
+        out.update(_trunk_of(artifact, ref["__trunk__"], ref.get("__trunk_sha256__")))
+    return out
+
+
+# an artifact that shares another's trunk (EAST's, ``cli/train_east_synth.py``)
+# names that artifact, beside it, and its sha256
+_TRUNK_REF = ("__trunk__", "__trunk_sha256__")
+
+
+def _trunk_of(artifact: str, name: str, sha256: Optional[str]) -> Dict[str, np.ndarray]:
+    """The ``VGG16Trunk_0`` leaves of the artifact ``name`` in the directory
+    of ``artifact``, checked against ``sha256``."""
+    import hashlib
+
+    path = osp.join(osp.dirname(osp.abspath(artifact)), name)
+    with open(path, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()
+    if sha256 is not None and digest != sha256:
+        raise ValueError(f"{path}: sha256 {digest} is not the {sha256} that {artifact} names")
+    return {k: v for k, v in read_artifact(path).items()
+            if k.split("/")[0] == _TRUNK_SCOPE}
 
 
 def load_params(
