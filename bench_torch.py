@@ -119,13 +119,15 @@ def _noise_batch(batch: int, bh: int, bw: int):
 
 def _kernel_wrappers() -> dict:
     """Each kernel's wrapper, whose ``LAUNCHES`` counts its launches."""
-    from ctpn_tpu_torch.ops import conv_epilogue, nms_bitmask, nms_fused, nms_resolve, stem_fused
+    from ctpn_tpu_torch.ops import (chain_walk, conv_epilogue, nms_bitmask, nms_fused,
+                                    nms_resolve, stem_fused)
 
     return {"nms_fused": nms_fused.nms_keep_sorted_fused,
             "nms_bitmask": nms_bitmask.suppression_bitmask,
             "nms_resolve": nms_resolve.nms_resolve,
             "stem_fused": stem_fused.fused_stem_block,
-            "conv_epilogue": conv_epilogue.conv_epilogue}
+            "conv_epilogue": conv_epilogue.conv_epilogue,
+            "chain_walk": chain_walk.chain_walk}
 
 
 def _check_records(got, want) -> float:

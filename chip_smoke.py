@@ -21,8 +21,11 @@ recorded at capture and added per replay, so every launch gate below
 counts through replays. Every bf16 detect program also launches the conv
 epilogue once per conv of the trunk and ``rpn_conv``: 14 per program run on
 the default route and in O mode, 12 on the served route (the stem kernel
-runs block 1), 14 per image on the host path. The launch gates below count
-them beside the kernels they name; training and float32 launch none.
+runs block 1), 14 per image on the host path; and every CTPN program
+launches the connector's chain walk once per run (none on the host path,
+whose connector is NumPy's). The launch gates below count them beside the
+kernels they name; training and float32 launch no epilogue, training no
+walk.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only
@@ -52,11 +55,17 @@ Phases (any failure exits non-zero and prints no result line):
    sizes, 3 channel groups, no bias, -0.0, NaN and infinities, then the
    default route's 14 sites at batch 48 and 608x912 on the photos with
    the shipped weights, each against the separate passes as the trunk ran
-   them, ``F.conv2d`` with its bias, ``F.relu``, ``F.max_pool2d``). The
+   them, ``F.conv2d`` with its bias, ``F.relu``, ``F.max_pool2d``; chain
+   walk: made-up forests with shared tails, no edges, a chain past the
+   cap, P off the CTA and past shared memory, successors out of range,
+   then the program's own successor graphs at (48, 1000) from the
+   benchmark cell's renders). The
    conv epilogue must equal its plain version and those passes bit for
    bit; its ms per site is printed beside its byte bound, the plain
    version's and the PyTorch passes' on the bias-less output
-   (``library_ms``). The fused NMS keep
+   (``library_ms``). The chain walk must equal its plain version bit for
+   bit, on the card and on the CPU, and is timed beside the dense closure
+   it replaced (``library_ms``). The fused NMS keep
    mask's prefix, the bitmask words and the resolve's keep flags must be
    identical (tolerance 0: integer outputs), and the resolve must also
    give the fused kernel's uncapped keep mask on the same boxes; the
@@ -1157,6 +1166,186 @@ def check_conv_epilogue_kernel(dev) -> dict:
     }
 
 
+# ---------------------------------------------------------------- chain walk
+
+WALK_SEED = 3500000011  # a seed of the benchmark's h_device_b48 renders
+
+
+def cell_renders(n: int = EPILOGUE_BATCH, seed: int = WALK_SEED) -> tuple:
+    """The benchmark cell ``h_device_b48``'s inputs: ``n`` 900x600 variants
+    of its 24 seeded scenes, resized and padded into 608x912 as the cell's
+    traffic makes them (``benchmark/inputs``, ``benchmark/reference/prep.py``)."""
+    bench = REPO / "benchmark"
+    if str(bench) not in sys.path:
+        sys.path.insert(0, str(bench))
+    from inputs import make
+    from reference import prep as ref_prep
+
+    config = json.loads((bench / "configs" / "ctpn_vgg16_h.json").read_text())
+    config = dict(config, buckets=[[608, 912]])
+    preps = [ref_prep.prep(make.bgr(im), config)
+             for im in make.variants(seed, 24, [(900, 600)] * n, 8)]
+    return np.stack([p[0] for p in preps]), np.stack([p[1] for p in preps])
+
+
+def made_up_walks(rng, dev) -> list:
+    """(name, succ, feats, x1, x2, steps) of the walk's edge cases: forests
+    whose heads converge on shared tails, no edges, a chain longer than
+    the cap, P off the CTA's 1024 threads, features too large for shared
+    memory, successors out of range; values of mixed scale with -0.0, +0.0."""
+    def forest(n, p, cols):
+        col = rng.randint(0, cols, (n, p))
+        succ = np.full((n, p), -1, np.int32)
+        for b in range(n):
+            for i in range(p):
+                right = np.flatnonzero((col[b] > col[b, i]) & (col[b] <= col[b, i] + 3))
+                if len(right) and rng.rand() < 0.9:
+                    succ[b, i] = rng.choice(right)
+        return succ
+
+    def values(shape):
+        a = (rng.normal(0, 1, shape) * 10.0 ** rng.randint(-2, 6, shape)).astype(np.float32)
+        a.flat[::13] = -0.0
+        a.flat[5::17] = 0.0
+        return a
+
+    chain = np.array([list(range(1, 200)) + [-1]], np.int32)
+    wild = forest(2, 1000, 57)
+    wild[:, ::31] = 1000  # out of range: no successor
+    wild[:, 7::37] = -3
+    cases = [("shared tails (4, 1000, K 7), 57 columns", forest(4, 1000, 57), 7, 64),
+             ("no edges (2, 1000, K 7)", np.full((2, 1000), -1, np.int32), 7, 64),
+             ("a chain of 200 past the cap of 64 (1, 200, K 6)", chain, 6, 64),
+             ("P 1037 off the CTA (3, 1037, K 6)", forest(3, 1037, 60), 6, 64),
+             ("P 2500, three passes of the CTA (2, 2500, K 8)", forest(2, 2500, 120), 8, 128),
+             ("P 6000, K 8: features read from global memory (1, 6000)",
+              forest(1, 6000, 300), 8, 256),
+             ("successors out of range (2, 1000, K 7)", wild, 7, 64),
+             ("one node (5, 1, K 1)", np.full((5, 1), -1, np.int32), 1, 2)]
+    out = []
+    for name, succ, k, steps in cases:
+        n, p = succ.shape
+        t = [torch.from_numpy(a).to(dev)
+             for a in (succ, values((n, p, k)), values((n, p)), values((n, p)))]
+        out.append((name, *t, steps))
+    return out
+
+
+def dense_closure(succ: torch.Tensor, feats: torch.Tensor, steps: int):
+    """What the walk replaced: ``log2(steps)`` float32 squarings of (I + S)
+    and R @ F, with R's counts, TF32 off."""
+    from ctpn_tpu_torch.postprocess.connector import full_f32_matmul
+
+    p = succ.shape[1]
+    idx = torch.arange(p, device=succ.device)
+    edge = (succ[:, :, None] == idx) & (succ >= 0)[:, :, None]
+    with full_f32_matmul():
+        m = (edge | torch.eye(p, dtype=torch.bool, device=succ.device)).float()
+        for _ in range(int(np.log2(steps))):
+            m = (torch.bmm(m, m) > 0.0).float()
+        sums = torch.bmm(m, feats)
+    return sums, m.sum(2)
+
+
+def same_walk(got, want, what: str) -> None:
+    """The five outputs of two walks, bit for bit."""
+    for name, g, w in zip(("sums", "cnt", "min_x1", "max_x2", "is_start"), got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"chain_walk {what}: {name} {tuple(g.shape)} {g.dtype}, "
+                                 f"plain {tuple(w.shape)} {w.dtype}")
+        gb = g.view(torch.uint8) if g.dtype == torch.bool else g.view(torch.int32)
+        wb = w.to(g.device)
+        wb = wb.view(torch.uint8) if w.dtype == torch.bool else wb.view(torch.int32)
+        if not torch.equal(gb, wb):
+            raise AssertionError(f"chain_walk {what}: {int((gb != wb).sum())} values "
+                                 f"of {name} differ from the plain version")
+
+
+def check_chain_walk_kernel(dev) -> dict:
+    """The chain walk against its plain version, bit for bit: the made-up
+    graphs (plain version on the card and on the CPU), then the program's
+    own successor graphs at (48, 1000) from the benchmark cell's renders
+    (the arguments of the connector's call, caught in one eager run of the
+    default route with the shipped weights). Timed there beside its byte
+    bound, the plain version and the dense closure it replaced
+    (``library_ms``)."""
+    from ctpn_tpu_torch.inference.pipeline import CTPNPredictor
+    from ctpn_tpu_torch.ops import chain_walk as CW
+    from ctpn_tpu_torch.postprocess import connector
+    from ctpn_tpu_torch.utils.weights import load_params
+
+    rng = np.random.RandomState(11)
+    with torch.inference_mode():
+        for name, *args in made_up_walks(rng, dev):
+            got = CW.chain_walk(*args)
+            torch.cuda.synchronize()
+            same_walk(got, CW.chain_walk_ref(*args), name)
+            cpu_args = [a.cpu() if torch.is_tensor(a) else a for a in args]
+            same_walk(got, CW.chain_walk_ref(*cpu_args), name + ", plain version on the CPU")
+            log(f"  chain_walk {name}: equal to the plain version bit for bit "
+                f"(longest walk {int(got[1].max())} nodes)")
+
+        pred = CTPNPredictor(load_params(str(ARTIFACT), device=dev), device=dev)
+        data, infos = cell_renders()
+        x, info = torch.from_numpy(data).to(dev), torch.from_numpy(infos).to(dev)
+        caught = []
+        real = connector.chain_walk
+        connector.chain_walk = lambda *a: caught.append(a) or real(*a)
+        try:
+            pred.program(x, info)
+        finally:
+            connector.chain_walk = real
+        torch.cuda.synchronize()
+        if len(caught) != 1:
+            raise AssertionError(f"the program called the walk {len(caught)} times, not once")
+        args = caught[0]
+        succ, feats, steps = args[0], args[1], args[4]
+        got = CW.chain_walk(*args)
+        torch.cuda.synchronize()
+        same_walk(got, CW.chain_walk_ref(*args), "the program's graphs")
+        cnt, start = got[1], got[4]
+        dense_sums, dense_cnt = dense_closure(succ, feats, steps)
+        if not torch.equal(dense_cnt, cnt):
+            raise AssertionError("chain_walk: node counts differ from the dense closure's")
+        gap = float(((dense_sums - got[0]).abs() / (dense_sums.abs() + 1.0)).max())
+        graph = {"shape": list(feats.shape), "steps": steps,
+                 "edges": int((succ >= 0).sum()), "starts": int(start.sum()),
+                 "longest_chain": int(cnt.max()),
+                 "mean_chain_at_starts": float(cnt[start].mean()) if start.any() else 0.0,
+                 "dense_sum_rel_gap": gap}
+
+        ms = cuda_ms(lambda: CW.chain_walk(*args), 20)
+        direct_ms = launch_ms(CW, *args)
+        plain_ms = cuda_ms(lambda: CW.chain_walk_ref(*args), 3)
+        library_ms = cuda_ms(lambda: dense_closure(succ, feats, steps), 3)
+        n, p, k = feats.shape
+        # succ, x1, x2 and the features read; the sums, cnt, min, max and
+        # flags written
+        n_bytes = n * p * (4 + 8 + 4 * k) + n * p * (4 * k + 12 + 1)
+        bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    del pred, x, caught, args, got, dense_sums
+    torch.cuda.empty_cache()
+    log(f"  chain_walk, the program's graphs {json.dumps(graph)}: equal to the plain "
+        f"version bit for bit; kernel {ms:.4f} ms (launcher alone {direct_ms:.4f}), bound "
+        f"{bound_ms:.5f} ms ({n_bytes} bytes, {100 * bound_ms / ms:.2f} % of it), plain "
+        f"{plain_ms:.4f} ms, the dense closure {library_ms:.4f} ms")
+    return {
+        "name": "chain_walk",
+        "route": "cuda",
+        "source": "ctpn_tpu_torch/ops/csrc/chain_walk.cu",
+        "replaces": "ctpn_tpu/postprocess/connector.py:chain_reachability",
+        "launches": None,  # filled from the main path's run
+        "max_abs_err": 0.0,  # bit for bit
+        "ms": ms,
+        "launch_ms": direct_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": library_ms,
+        "shapes": [dict(graph, call=f"chain_walk {tuple(feats.shape)} steps {steps}")],
+    }
+
+
 # ---------------------------------------------------------------- main path
 
 
@@ -1258,7 +1447,8 @@ def check_budget(name: str, lines: int, n_ref: int, what: str) -> None:
                              f"({n_ref} committed)")
 
 
-def drive_main_path(dev, kernel_entry: dict, epilogue_entry: dict = None) -> list:
+def drive_main_path(dev, kernel_entry: dict, epilogue_entry: dict = None,
+                    walk_entry: dict = None) -> list:
     from ctpn_tpu_torch.config import cfg
     from ctpn_tpu_torch.inference.pipeline import CTPNPredictor
     from ctpn_tpu_torch.ops import nms_fused as NF
@@ -1292,6 +1482,8 @@ def drive_main_path(dev, kernel_entry: dict, epilogue_entry: dict = None) -> lis
     counts = launch_counts()
     if epilogue_entry is not None:
         epilogue_entry["launches"] = counts["conv_epilogue"]
+    if walk_entry is not None:
+        walk_entry["launches"] = counts["chain_walk"]
     total = sum(len(r) for r, _, _ in results)
     hits = sum(h for _, h, _ in results)
     n_ref = sum(n for _, _, n in results)
@@ -1373,8 +1565,8 @@ def post(url: str, body: bytes) -> tuple:
 
 def counted_wrappers() -> dict:
     """Each kernel's wrapper, whose ``LAUNCHES`` counts its launches."""
-    from ctpn_tpu_torch.ops import (conv_epilogue, lanms, nms_bitmask, nms_fused,
-                                    nms_resolve, quad_nms, stem_fused)
+    from ctpn_tpu_torch.ops import (chain_walk, conv_epilogue, lanms, nms_bitmask,
+                                    nms_fused, nms_resolve, quad_nms, stem_fused)
 
     return {"nms_bitmask": nms_bitmask.suppression_bitmask,
             "nms_resolve": nms_resolve.nms_resolve,
@@ -1382,7 +1574,8 @@ def counted_wrappers() -> dict:
             "nms_fused": nms_fused.nms_keep_sorted_fused,
             "conv_epilogue": conv_epilogue.conv_epilogue,
             "lanms_walk": lanms.lanms_walk,
-            "quad_bitmask": quad_nms.quad_bitmask}
+            "quad_bitmask": quad_nms.quad_bitmask,
+            "chain_walk": chain_walk.chain_walk}
 
 
 def launch_counts() -> dict:
@@ -1397,10 +1590,11 @@ def zero_launch_counts() -> None:
 
 # kernel launches per program run (one padded batch) on each route, in
 # bf16: a conv epilogue per conv of the trunk and rpn_conv (13 + 1; on the
-# served route the stem kernel runs block 1's two convs)
-ROUTE_LAUNCHES = {"default": {"nms_fused": 2, "conv_epilogue": 14},
+# served route the stem kernel runs block 1's two convs), and the
+# connector's chain walk once
+ROUTE_LAUNCHES = {"default": {"nms_fused": 2, "conv_epilogue": 14, "chain_walk": 1},
                   "served": {"nms_bitmask": 2, "nms_resolve": 2, "stem_fused": 1,
-                             "conv_epilogue": 12}}
+                             "conv_epilogue": 12, "chain_walk": 1}}
 
 
 def route_launches(route: str, runs: int) -> dict:
@@ -1739,14 +1933,15 @@ import numpy as np
 sys.modules["ctpn_tpu_torch.models"] = None  # the loader must not need model code
 import torch
 from ctpn_tpu_torch.inference.frozen import FrozenCTPN
-from ctpn_tpu_torch.ops import (_launches, conv_epilogue, nms_bitmask, nms_fused, nms_resolve,
-                                stem_fused)
+from ctpn_tpu_torch.ops import (_launches, chain_walk, conv_epilogue, nms_bitmask, nms_fused,
+                                nms_resolve, stem_fused)
 
 wrappers = {"nms_bitmask": nms_bitmask.suppression_bitmask,
             "nms_resolve": nms_resolve.nms_resolve,
             "stem_fused": stem_fused.fused_stem_block,
             "nms_fused": nms_fused.nms_keep_sorted_fused,
-            "conv_epilogue": conv_epilogue.conv_epilogue}
+            "conv_epilogue": conv_epilogue.conv_epilogue,
+            "chain_walk": chain_walk.chain_walk}
 batch = np.load(sys.argv[1])
 report, arrays = {}, {}
 for name, path in zip(sys.argv[3::2], sys.argv[4::2]):
@@ -2277,7 +2472,8 @@ def full_size_steps(dev) -> list:
 
 COUNTED_MAIN = r"""
 import importlib, importlib.util, json, os, subprocess, sys
-from ctpn_tpu_torch.ops import conv_epilogue, nms_bitmask, nms_fused, nms_resolve, stem_fused
+from ctpn_tpu_torch.ops import (chain_walk, conv_epilogue, nms_bitmask, nms_fused, nms_resolve,
+                                stem_fused)
 _run = subprocess.run
 def _counted_run(cmd, *args, **kwargs):
     # a child that runs a module of the package (train_synth's segments)
@@ -2298,7 +2494,8 @@ print("LAUNCHES " + json.dumps({
     "nms_resolve": nms_resolve.nms_resolve.LAUNCHES,
     "stem_fused": stem_fused.fused_stem_block.LAUNCHES,
     "nms_fused": nms_fused.nms_keep_sorted_fused.LAUNCHES,
-    "conv_epilogue": conv_epilogue.conv_epilogue.LAUNCHES}), flush=True)
+    "conv_epilogue": conv_epilogue.conv_epilogue.LAUNCHES,
+    "chain_walk": chain_walk.chain_walk.LAUNCHES}), flush=True)
 """
 
 
@@ -3117,12 +3314,12 @@ def time_captured_steps(dev, batch_sizes=CAPTURED_TRAIN_BATCHES, iters: int = 10
 
 def drive_multicard() -> dict:
     """``ctpn_tpu_torch.parallel.multicard.run()`` over every visible card
-    (its gates raise), then this phase's launch counts: every kernel ran on
-    the DP paths."""
+    (its gates raise), then this phase's launch counts: every CTPN kernel
+    ran on the DP paths (EAST's run in no DP path)."""
     from ctpn_tpu_torch.parallel import multicard
 
     report = multicard.run()
-    counts = launch_counts()
+    counts = {name: n for name, n in launch_counts().items() if name in multicard.wrappers()}
     idle = [name for name, n in counts.items() if not n]
     if idle:
         raise AssertionError(f"multi-card phase: {idle} never launched ({counts})")
@@ -4086,12 +4283,14 @@ def main(argv=()) -> int:
     # beside the current tree) has three kernels
     has_resolve = (_build.CSRC / "nms_resolve.cu").exists()
     has_epilogue = (_build.CSRC / "conv_epilogue.cu").exists()
+    has_walk = (_build.CSRC / "chain_walk.cu").exists()
     t0 = time.perf_counter()
     logs = _build.build(["nms_fused", "nms_bitmask", "stem_fused"]
                         + ["nms_resolve"] * has_resolve
                         + ["conv_epilogue"] * has_epilogue
                         + ["stage_clock"] * (_build.CSRC / "stage_clock.cu").exists()
-                        + ["quad_nms"] * (_build.CSRC / "quad_nms.cu").exists())
+                        + ["quad_nms"] * (_build.CSRC / "quad_nms.cu").exists()
+                        + ["chain_walk"] * has_walk)
     log(f"[2/24] build: {time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -4115,18 +4314,21 @@ def main(argv=()) -> int:
         entries.append(check_resolve_kernel(dev))
     if has_epilogue:
         entries.append(check_conv_epilogue_kernel(dev))
+    if has_walk:
+        entries.append(check_chain_walk_kernel(dev))
     if "--kernels-only" in argv:
         if not has_resolve:
             log("  nms_resolve: this checkout has no resolve kernel; entry left out")
         print(json.dumps({"kernels": entries}))
         print(card)
         return 0
-    for name, present in (("nms_resolve", has_resolve), ("conv_epilogue", has_epilogue)):
+    for name, present in (("nms_resolve", has_resolve), ("conv_epilogue", has_epilogue),
+                          ("chain_walk", has_walk)):
         if not present:
             raise AssertionError(f"ctpn_tpu_torch/ops/csrc/{name}.cu is missing")
 
     log("[4/24] main path (default config)")
-    default_recs = drive_main_path(dev, entries[0], entries[4])
+    default_recs = drive_main_path(dev, entries[0], entries[4], entries[5])
 
     log("[5/24] serving path (TPU.NMS_FUSED False, TPU.FUSED_STEM True)")
     drive_serving_path(dev, entries[1], entries[3], entries[2], default_recs)

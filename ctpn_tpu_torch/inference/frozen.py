@@ -21,7 +21,7 @@ code and no cfg. That is the one difference from the JAX artifact, whose
 Pallas kernel is inlined into its StableHLO. The hand-written kernels are
 ``torch.library`` ops (``ctpn_torch::nms_keep_sorted_fused``,
 ``suppression_bitmask``, ``nms_resolve``, ``fused_stem_block``,
-``conv_epilogue``): the program holds each as one node, and the op's
+``conv_epilogue``, ``chain_walk``): the program holds each as one node, and the op's
 registration in ``ctpn_tpu_torch.ops`` gives it its kernel where the
 program runs, so an artifact exported on the card launches the same
 kernels as the live pipeline (and counts them in the same ``LAUNCHES``).
@@ -32,9 +32,9 @@ The loader refuses an artifact exported for another device type (it never
 moves a program to the CPU quietly), a CUDA artifact without a CUDA device,
 an artifact of another torch major.minor version (``torch.export``'s
 format is tied to the version that wrote it), and the JAX package's
-StableHLO artifact. It runs the programs with TF32 matmuls off: the
-connector's least-squares sums need full f32, and a program does not carry
-the global precision flags that the live connector sets around itself.
+StableHLO artifact. It runs the programs with TF32 matmuls off, as the
+live pipeline runs its BiLSTM's float32 matmuls: a program does not carry
+the global precision flags.
 
 A data-parallel artifact (``export_frozen(..., dp_devices=N)``, as in the
 JAX package) holds one program per shape traced at the per-device batch
@@ -60,7 +60,7 @@ import torch
 
 # the op registrations: a loaded program resolves its kernel nodes here
 from ctpn_tpu_torch.ops import (  # noqa: F401
-    conv_epilogue, nms_bitmask, nms_fused, nms_resolve, stem_fused)
+    chain_walk, conv_epilogue, nms_bitmask, nms_fused, nms_resolve, stem_fused)
 from ctpn_tpu_torch.inference.graphs import DetectGraphs
 from ctpn_tpu_torch.ops.proposal import Proposals
 from ctpn_tpu_torch.parallel.dp import shard_detect_fn

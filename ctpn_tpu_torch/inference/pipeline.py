@@ -122,7 +122,7 @@ def detect_program(
     props = proposal_layer(outs.cls_prob, outs.bbox_pred, im_info, **props_kw)
     mark("proposal_layer")
     # chains advance >= 1 column per edge: the bucket's 16-px column
-    # count bounds path length (fewer closure squarings)
+    # count bounds path length (a shorter chain walk)
     lines = detect_lines(
         props.rois, props.valid, im_info,
         max_chain_len=outs.cls_prob.shape[2], **lines_kw,

@@ -125,9 +125,8 @@ def shard_detect_fn(
     chosen execution plans per thread, so a new thread per call would
     choose them again on every call. TF32 matmuls are off from before the
     workers start until after they join (``connector.full_f32_matmul``,
-    which the connector needs and whose flag is global to the process), so
-    every replica runs the same precision whichever thread is in its
-    connector.
+    whose flag is global to the process), so every replica runs its
+    BiLSTM's matmuls in the same precision whichever thread is inside.
     """
     devices = as_devices(data_devices() if devices is None else devices)
     replicas = [DetectGraphs(make_detect(dev), dev) for dev in devices]

@@ -219,13 +219,15 @@ def equal_outputs(got: Sequence[np.ndarray], want: Sequence[np.ndarray]) -> bool
 
 def wrappers() -> dict:
     """Each kernel's wrapper, whose counts ``ops/_launches.py`` keeps."""
-    from ctpn_tpu_torch.ops import conv_epilogue, nms_bitmask, nms_fused, nms_resolve, stem_fused
+    from ctpn_tpu_torch.ops import (chain_walk, conv_epilogue, nms_bitmask, nms_fused,
+                                    nms_resolve, stem_fused)
 
     return {"nms_bitmask": nms_bitmask.suppression_bitmask,
             "nms_resolve": nms_resolve.nms_resolve,
             "stem_fused": stem_fused.fused_stem_block,
             "nms_fused": nms_fused.nms_keep_sorted_fused,
-            "conv_epilogue": conv_epilogue.conv_epilogue}
+            "conv_epilogue": conv_epilogue.conv_epilogue,
+            "chain_walk": chain_walk.chain_walk}
 
 
 def epilogue_launches(route: str) -> int:
@@ -683,8 +685,9 @@ def leg_inference(devices: List[torch.device], small: bool) -> dict:
     params = load_params(str(ARTIFACT), device=home)
     report = {}
     for route, sets, per_replica in (
-            ("default", [], {"nms_fused": 2}),
-            ("served", SERVED_ROUTE, {"nms_bitmask": 2, "nms_resolve": 2, "stem_fused": 1})):
+            ("default", [], {"nms_fused": 2, "chain_walk": 1}),
+            ("served", SERVED_ROUTE, {"nms_bitmask": 2, "nms_resolve": 2, "stem_fused": 1,
+                                      "chain_walk": 1})):
         _set_route(sets, small)
         per_replica = dict(per_replica, conv_epilogue=epilogue_launches(route))
         pred = CTPNPredictor(params, device=home)
@@ -802,7 +805,8 @@ def leg_frozen(devices: List[torch.device], inference: dict, small: bool,
         raise AssertionError("the frozen loader imported ctpn_tpu_torch.models")
     if probe["meta"]["dp_devices"] != len(devices):
         raise AssertionError(f"meta dp_devices {probe['meta']['dp_devices']}")
-    check_counts(devices, {"nms_fused": 2, "conv_epilogue": epilogue_launches("default")},
+    check_counts(devices, {"nms_fused": 2, "chain_walk": 1,
+                           "conv_epilogue": epilogue_launches("default")},
                  probe["launches_per_card"],
                  "frozen DP program, default route")
     with np.load(out_file) as z:

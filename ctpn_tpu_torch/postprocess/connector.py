@@ -13,12 +13,15 @@ whole pipeline is fixed-shape tensor ops over the padded proposal set:
 3. **Mutual-best edges** — best successor by score (ties -> lowest index,
    as ``np.argmax``), kept iff the source's score >= the best precursor
    score of the target.
-4. **Chain membership** — the successor-path reachability matrix R[s, j]
-   by boolean squarings of (I + S); shared tails belong to every chain
-   that reaches them, as in the reference (`other.py:16-29`).
-5. **Per-chain least squares** — chain sums are rows of ``R @ F``; x is
-   centered on the image before squaring. These matmuls run in true f32
-   (TF32 off): the covariance form cancels leading digits.
+4. **Chain membership** — every node's successor path, walked by the
+   ``ctpn_torch::chain_walk`` op (``ops/chain_walk.py``) as far as
+   ``2 ** ceil(log2(min(P, max_len)))`` successors: the reach of the JAX
+   connector's boolean squarings of (I + S). Shared tails belong to every
+   chain that reaches them, as in the reference (`other.py:16-29`).
+5. **Per-chain least squares** — the walk sums each chain's features
+   (x centered on the image, y, their squares and products, scores) in
+   path order, in float64 rounded once to float32: the covariance form
+   cancels leading digits.
 6. **Records** — H mode: the axis-aligned box of the top and bottom fits,
    clipped to the image. O mode: a quadrilateral around the fitted centre
    line (half the mean proposal height + 1.25 on each side), its short
@@ -34,6 +37,8 @@ import threading
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from ctpn_tpu_torch.ops.chain_walk import chain_walk
 
 
 class TextLines(NamedTuple):
@@ -128,48 +133,28 @@ def build_successors(
     return torch.where(edge, best_j, -1).to(torch.int32)
 
 
-def chain_reachability(
-    succ: torch.Tensor, max_len: Optional[int] = None
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Successor-path reachability: R[s, j] = 1 iff j is on the path
-    s -> succ[s] -> ... (inclusive of s), by
-    ``ceil(log2(min(P, max_len)))`` boolean squarings of (I + S).
-
-    Returns (R float32 (N, P, P), is_start bool (N, P)); start nodes have an
-    out-edge and no in-edge, one emitted line per start row. ``max_len``
-    bounds the path length: every edge advances >= 1 proposal column, so
-    the image's 16-px column count is a valid bound.
-    """
-    p = succ.shape[1]
-    idx = torch.arange(p, device=succ.device)
-    has_out = succ >= 0
-    edge = (succ[:, :, None] == idx) & has_out[:, :, None]
-    has_in = edge.any(dim=1)
-    m = (edge | torch.eye(p, dtype=torch.bool, device=succ.device)).float()
+def walk_steps(p: int, max_len: Optional[int] = None) -> int:
+    """Successors each chain walk follows: ``2 ** rounds`` with ``rounds =
+    ceil(log2(min(P, max_len)))`` (at least 1), the reach of the JAX
+    connector's squarings. ``max_len`` bounds the path length: every edge
+    advances >= 1 proposal column, so the image's 16-px column count is a
+    valid bound."""
     bound = min(p, max_len) if max_len else p
-    rounds = max(1, math.ceil(math.log2(max(bound, 2))))
-    # 0/1 operands and integer sums < 2^24: exact in any matmul precision
-    for _ in range(rounds):
-        m = (torch.bmm(m, m) > 0.0).float()
-    return m, has_out & ~has_in
+    return 2 ** max(1, math.ceil(math.log2(max(bound, 2))))
 
 
-def _rowdot(r: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """(N, P, P) @ (N, P) -> (N, P)."""
-    return torch.bmm(r, v[..., None])[..., 0]
-
-
-def _fit(r, cnt, xc, y):
-    """Per-chain least squares of y against globally-centered x.
+def _fit(cnt, sx, sy, sxx, sxy):
+    """Per-chain least squares of y against globally-centered x, from the
+    chain sums of x, y, x*x and x*y.
 
     Returns (slope, mean_x, mean_y, degenerate) per row; evaluate with
     ``my + slope * (x_eval_c - mx)``. Degenerate = all member x equal (the
     reference then takes the head's y — the caller substitutes).
     """
-    mx = _rowdot(r, xc) / cnt
-    my = _rowdot(r, y) / cnt
-    sxx = _rowdot(r, xc * xc) - cnt * mx * mx
-    sxy = _rowdot(r, xc * y) - cnt * mx * my
+    mx = sx / cnt
+    my = sy / cnt
+    sxx = sxx - cnt * mx * mx
+    sxy = sxy - cnt * mx * my
     degenerate = sxx <= 1e-6
     slope = torch.where(
         degenerate, 0.0, sxy / torch.where(degenerate, 1.0, sxx)
@@ -203,33 +188,29 @@ def connect_text_lines(
         raise ValueError(f"mode must be 'H' or 'O', got {mode!r}")
     n, p = scores.shape
     dev = boxes.device
-    with full_f32_matmul():
-        succ = build_successors(
-            boxes, scores, valid, max_gap, min_v_overlaps, min_size_sim
-        )
-        r, is_start = chain_reachability(succ, max_chain_len)
-
-        x1, y1, x2, y2 = boxes.unbind(-1)
-        im_h, im_w = im_info[:, 0:1], im_info[:, 1:2]
-        cnt = torch.clamp(r.sum(dim=2), min=1.0)
-        xbar = im_w * 0.5
-        member = r > 0.0
-        inf = float("inf")
-        min_x1 = torch.where(member, x1[:, None, :], inf).min(dim=2).values
-        max_x2 = torch.where(member, x2[:, None, :], -inf).max(dim=2).values
-        mean_score = _rowdot(r, scores) / cnt
-
-        if mode == "H":
-            x1c = x1 - xbar
-            slope_t, mx_t, my_t, deg_t = _fit(r, cnt, x1c, y1)
-            slope_b, mx_b, my_b, deg_b = _fit(r, cnt, x1c, y2)
-        else:
-            cx = (x1 + x2) * 0.5
-            cy = (y1 + y2) * 0.5
-            k, mx_c, my_c, deg_c = _fit(r, cnt, cx - xbar, cy)
-            height = _rowdot(r, y2 - y1) / cnt + 2.5
+    succ = build_successors(
+        boxes, scores, valid, max_gap, min_v_overlaps, min_size_sim
+    )
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    im_h, im_w = im_info[:, 0:1], im_info[:, 1:2]
+    xbar = im_w * 0.5
+    if mode == "H":
+        x1c = x1 - xbar
+        feats = [x1c, y1, y2, x1c * x1c, x1c * y1, x1c * y2, scores]
+    else:
+        cx = (x1 + x2) * 0.5
+        cy = (y1 + y2) * 0.5
+        cxc = cx - xbar
+        feats = [cxc, cy, cxc * cxc, cxc * cy, y2 - y1, scores]
+    sums, cnt, min_x1, max_x2, is_start = chain_walk(
+        succ, torch.stack(feats, dim=-1), x1, x2, walk_steps(p, max_chain_len)
+    )
+    sums = sums.unbind(-1)
+    mean_score = sums[-1] / cnt
 
     if mode == "H":
+        slope_t, mx_t, my_t, deg_t = _fit(cnt, sums[0], sums[1], sums[3], sums[4])
+        slope_b, mx_b, my_b, deg_b = _fit(cnt, sums[0], sums[2], sums[3], sums[5])
         offset = (x2 - x1) * 0.5  # head proposal half width
         x_left_c = min_x1 + offset - xbar
         x_right_c = max_x2 - offset - xbar
@@ -247,6 +228,9 @@ def connect_text_lines(
             [lx0, ly0, lx1, ly0, lx0, ly1, lx1, ly1, mean_score], dim=-1
         )
     else:
+        k, mx_c, my_c, deg_c = _fit(cnt, sums[0], sums[1], sums[2], sums[3])
+        height = sums[4] / cnt + 2.5
+
         def center_y(x):  # degenerate chains take the node's own centre
             return torch.where(deg_c, cy, my_c + k * (x - xbar - mx_c))
 

@@ -1,11 +1,13 @@
 """H-mode connector and detector: the port against ``ctpn_tpu.postprocess``.
 
-Successor indices and reachability are exact, against both the vectorized
-JAX connector and the numpy oracle. Line records agree within 1e-3 px plus
-1e-5 relative: the chain statistics are f32 matmul sums whose order differs
-between XLA:CPU and PyTorch, and the covariance form (sum of x*y minus
-n*mean_x*mean_y) cancels about five of f32's seven digits, so at y ~ 500 px
-the two frameworks' records differ by up to ~2e-3 px (~60 ulps).
+Successor indices are exact, and the chain walk reaches exactly the JAX
+connector's reachability matrix, against both the vectorized JAX connector
+and the numpy oracle. Line records agree within 1e-3 px plus 1e-5
+relative: the chain statistics are sums taken in another order (the walk's
+in float64, path order; XLA:CPU's f32 matmuls), and the covariance form
+(sum of x*y minus n*mean_x*mean_y) cancels about five of f32's seven
+digits, so at y ~ 500 px the two frameworks' records differ by up to
+~2e-3 px (~60 ulps).
 """
 
 import jax
@@ -18,6 +20,7 @@ from ctpn_tpu.postprocess import connector as JC
 from ctpn_tpu.postprocess import oracle as O
 from ctpn_tpu.postprocess.detector import detect_lines as jax_detect_lines
 from ctpn_tpu_torch.config import reset_cfg
+from ctpn_tpu_torch.ops.chain_walk import chain_walk
 from ctpn_tpu_torch.postprocess import connector as TC
 from ctpn_tpu_torch.postprocess.detector import detect_lines
 
@@ -82,24 +85,47 @@ def test_successors_exact(slope):
         np.testing.assert_array_equal(mine, graph)
 
 
+# the walk's float64 sums, rounded once, against R @ F in float64: within
+# one float32 rounding of each sum's magnitude
+SUM_RTOL = 2.0 ** -23
+
+
 @pytest.mark.parametrize("max_len", [None, 57, 3])
 def test_reachability_exact(max_len):
+    """The chain walk (``ops/chain_walk.py``) reaches exactly the JAX
+    connector's reachability matrix R after its squarings: node counts,
+    chain starts, and the least x1 and largest x2 over R's members are
+    equal; the feature sums are R @ F within one float32 rounding."""
     _, (b, s, v) = _batch([4, 5], n_pad=128)
     succ = TC.build_successors(
         torch.from_numpy(b), torch.from_numpy(s), torch.from_numpy(v)
     )
-    r, is_start = TC.chain_reachability(succ, max_len)
+    feats = np.random.RandomState(11).normal(0, 100, (2, 128, 7)).astype(np.float32)
+    x1, x2 = b[..., 0], b[..., 2]
+    sums, cnt, lo, hi, is_start = chain_walk(
+        succ, torch.from_numpy(feats), torch.from_numpy(x1), torch.from_numpy(x2),
+        TC.walk_steps(128, max_len))
     for i in range(2):
         jr, js = JC.chain_reachability(jnp.asarray(succ[i].numpy()), max_len)
-        np.testing.assert_array_equal(r[i].numpy(), np.asarray(jr))
+        r = np.asarray(jr) > 0
+        np.testing.assert_array_equal(cnt[i].numpy(), r.sum(1))
         np.testing.assert_array_equal(is_start[i].numpy(), np.asarray(js))
+        np.testing.assert_array_equal(lo[i].numpy(), np.where(r, x1[i], np.inf).min(1))
+        np.testing.assert_array_equal(hi[i].numpy(), np.where(r, x2[i], -np.inf).max(1))
+        want = r @ feats[i].astype(np.float64)
+        scale = r @ np.abs(feats[i].astype(np.float64))
+        assert np.all(np.abs(sums[i].numpy() - want) <= SUM_RTOL * scale)
+    if max_len == 3:  # 4 steps: longer chains are cut, as the squarings cut them
+        assert cnt.max() == 5
 
 
 def test_reachability_matches_oracle_walks():
-    """Rows of R at chain starts are the oracle's walks, shared tails
+    """The walks from chain starts are the oracle's walks, shared tails
     included (two heads converging on one node)."""
     succ = np.array([[2, 2, 3, -1, 5, -1, -1]], np.int32)
-    r, is_start = TC.chain_reachability(torch.from_numpy(succ))
+    onehot = torch.eye(7)[None]  # the sums of one-hot features: the members
+    x = torch.zeros((1, 7))
+    sums, cnt, _, _, is_start = chain_walk(torch.from_numpy(succ), onehot, x, x, 8)
     graph = np.zeros((7, 7), bool)
     for i, j in enumerate(succ[0]):
         if j >= 0:
@@ -108,7 +134,8 @@ def test_reachability_matches_oracle_walks():
     starts = np.flatnonzero(is_start[0].numpy())
     assert len(walks) == len(starts)
     for s, walk in zip(starts, walks):
-        assert set(np.flatnonzero(r[0, s].numpy())) == set(walk)
+        assert set(np.flatnonzero(sums[0, s].numpy())) == set(walk)
+        assert cnt[0, s] == len(walk)
 
 
 @pytest.mark.parametrize("slope", [0.0, 0.08])
