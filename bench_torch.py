@@ -117,19 +117,6 @@ def _noise_batch(batch: int, bh: int, bw: int):
     return images, infos
 
 
-def _kernel_wrappers() -> dict:
-    """Each kernel's wrapper, whose ``LAUNCHES`` counts its launches."""
-    from ctpn_tpu_torch.ops import (chain_walk, conv_epilogue, nms_bitmask, nms_fused,
-                                    nms_resolve, stem_fused)
-
-    return {"nms_fused": nms_fused.nms_keep_sorted_fused,
-            "nms_bitmask": nms_bitmask.suppression_bitmask,
-            "nms_resolve": nms_resolve.nms_resolve,
-            "stem_fused": stem_fused.fused_stem_block,
-            "conv_epilogue": conv_epilogue.conv_epilogue,
-            "chain_walk": chain_walk.chain_walk}
-
-
 def _check_records(got, want) -> float:
     """The records gate: ``got`` (the replayed program's ``TextLines``)
     against ``want`` (the eager program's) with line counts exact and
@@ -159,7 +146,7 @@ def _time_detect(predictor, images, infos, iters):
     per timed call and the records gate's worst pairing."""
     import torch
 
-    from ctpn_tpu_torch.ops import _launches
+    from ctpn_tpu_torch.ops import _kernel, _launches
 
     dev = predictor.device
     x, info = torch.from_numpy(images).to(dev), torch.from_numpy(infos).to(dev)
@@ -167,7 +154,7 @@ def _time_detect(predictor, images, infos, iters):
     _, lines = predictor.graphs(x, info)
     lines.count.cpu()
     warmup_s = time.perf_counter() - t0
-    wrappers = _kernel_wrappers()
+    wrappers = _kernel.wrappers()
     _launches.init(*wrappers.values())
     t0 = time.perf_counter()
     for _ in range(iters):
@@ -235,10 +222,10 @@ def main():
               "bucket": [bh, bw], "batch": batch, "iters": iters, "content": content,
               "build_s": None, "rows": {}}
     if on_card:
-        from ctpn_tpu_torch.ops import _build
+        from ctpn_tpu_torch.ops import _build, _kernel
 
         t0 = time.perf_counter()
-        _build.build(list(_kernel_wrappers()))
+        _build.build(_kernel.sources())
         report["build_s"] = time.perf_counter() - t0
 
     rows = [("noise", lambda: init_params(0), _noise_batch)]

@@ -34,9 +34,9 @@ walk.
 ``--east`` runs phases 1, 2 and 25 alone (EAST) and prints their line and
 the card line.
 ``--kernels-only`` stops after phase 3 and prints the ``kernels`` line
-(without launch counts) and the card line, but no final result line: it
-times the kernels of another checkout on the same card, when this file is
-copied into that checkout.
+(without launch counts) and the card line, but no final result line: to
+compare two checkouts' kernels on one card, run each checkout's own copy
+in one call.
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -1234,7 +1234,7 @@ def made_up_walks(rng, dev) -> list:
 def dense_closure(succ: torch.Tensor, feats: torch.Tensor, steps: int):
     """What the walk replaced: ``log2(steps)`` float32 squarings of (I + S)
     and R @ F, with R's counts, TF32 off."""
-    from ctpn_tpu_torch.postprocess.connector import full_f32_matmul
+    from ctpn_tpu_torch.utils.device import full_f32_matmul
 
     p = succ.shape[1]
     idx = torch.arange(p, device=succ.device)
@@ -1563,29 +1563,17 @@ def post(url: str, body: bytes) -> tuple:
         return e.code, json.loads(e.read())
 
 
-def counted_wrappers() -> dict:
-    """Each kernel's wrapper, whose ``LAUNCHES`` counts its launches."""
-    from ctpn_tpu_torch.ops import (chain_walk, conv_epilogue, lanms, nms_bitmask,
-                                    nms_fused, nms_resolve, quad_nms, stem_fused)
-
-    return {"nms_bitmask": nms_bitmask.suppression_bitmask,
-            "nms_resolve": nms_resolve.nms_resolve,
-            "stem_fused": stem_fused.fused_stem_block,
-            "nms_fused": nms_fused.nms_keep_sorted_fused,
-            "conv_epilogue": conv_epilogue.conv_epilogue,
-            "lanms_walk": lanms.lanms_walk,
-            "quad_bitmask": quad_nms.quad_bitmask,
-            "chain_walk": chain_walk.chain_walk}
-
-
 def launch_counts() -> dict:
-    return {name: fn.LAUNCHES for name, fn in counted_wrappers().items()}
+    """Each counted kernel's ``LAUNCHES``, by the registry's names."""
+    from ctpn_tpu_torch.ops import _kernel
+
+    return {name: fn.LAUNCHES for name, fn in _kernel.wrappers().items()}
 
 
 def zero_launch_counts() -> None:
-    from ctpn_tpu_torch.ops import _launches
+    from ctpn_tpu_torch.ops import _kernel, _launches
 
-    _launches.init(*counted_wrappers().values())
+    _launches.init(*_kernel.wrappers().values())
 
 
 # kernel launches per program run (one padded batch) on each route, in
@@ -1933,15 +1921,9 @@ import numpy as np
 sys.modules["ctpn_tpu_torch.models"] = None  # the loader must not need model code
 import torch
 from ctpn_tpu_torch.inference.frozen import FrozenCTPN
-from ctpn_tpu_torch.ops import (_launches, chain_walk, conv_epilogue, nms_bitmask, nms_fused,
-                                nms_resolve, stem_fused)
+from ctpn_tpu_torch.ops import _kernel, _launches
 
-wrappers = {"nms_bitmask": nms_bitmask.suppression_bitmask,
-            "nms_resolve": nms_resolve.nms_resolve,
-            "stem_fused": stem_fused.fused_stem_block,
-            "nms_fused": nms_fused.nms_keep_sorted_fused,
-            "conv_epilogue": conv_epilogue.conv_epilogue,
-            "chain_walk": chain_walk.chain_walk}
+wrappers = _kernel.wrappers()
 batch = np.load(sys.argv[1])
 report, arrays = {}, {}
 for name, path in zip(sys.argv[3::2], sys.argv[4::2]):
@@ -2265,6 +2247,7 @@ def check_train_parity(dev) -> dict:
     from ctpn_tpu_torch.config import cfg, reset_cfg
     from ctpn_tpu_torch.models.factory import init_params
     from ctpn_tpu_torch.ops.anchor_target import anchor_target_layer, num_anchors
+    from ctpn_tpu_torch.parallel.multicard import no_tf32
     from ctpn_tpu_torch.training.train_step import (
         Batch,
         build_train_step,
@@ -2277,8 +2260,6 @@ def check_train_parity(dev) -> dict:
     cfg.TPU.COMPUTE_DTYPE = "float32"
     cfg.TRAIN.SOLVER, cfg.TRAIN.LEARNING_RATE = "Adam", 1e-4
     lr = cfg.TRAIN.LEARNING_RATE
-    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     h, w = TRAIN_PARITY_BUCKET
     fh, fw = h // 16, w // 16
     arrays = train_arrays(11, 2, (h, w))
@@ -2286,7 +2267,7 @@ def check_train_parity(dev) -> dict:
     draws = torch.rand((2, 2, num_anchors(fh, fw)),
                        generator=torch.Generator().manual_seed(5))
     out = []
-    try:
+    with no_tf32():
         for d in (torch.device("cpu"), dev):
             batch = Batch.from_numpy(arrays).to(d)
             with torch.no_grad():
@@ -2302,8 +2283,6 @@ def check_train_parity(dev) -> dict:
                             sec=time.perf_counter() - t0, labels=targets.labels.cpu(),
                             bbox_targets=targets.bbox_targets.cpu()))
             del model, before
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     cpu, card = out
     if not torch.equal(cpu["labels"], card["labels"]):
         raise AssertionError(f"anchor-target labels differ on "
@@ -2472,8 +2451,7 @@ def full_size_steps(dev) -> list:
 
 COUNTED_MAIN = r"""
 import importlib, importlib.util, json, os, subprocess, sys
-from ctpn_tpu_torch.ops import (chain_walk, conv_epilogue, nms_bitmask, nms_fused, nms_resolve,
-                                stem_fused)
+from ctpn_tpu_torch.ops import _kernel
 _run = subprocess.run
 def _counted_run(cmd, *args, **kwargs):
     # a child that runs a module of the package (train_synth's segments)
@@ -2489,13 +2467,8 @@ if sys.argv[1].endswith(".py"):  # a script of the repo, by path
 else:
     target = importlib.import_module(sys.argv[1])
 target.main(sys.argv[2:])
-print("LAUNCHES " + json.dumps({
-    "nms_bitmask": nms_bitmask.suppression_bitmask.LAUNCHES,
-    "nms_resolve": nms_resolve.nms_resolve.LAUNCHES,
-    "stem_fused": stem_fused.fused_stem_block.LAUNCHES,
-    "nms_fused": nms_fused.nms_keep_sorted_fused.LAUNCHES,
-    "conv_epilogue": conv_epilogue.conv_epilogue.LAUNCHES,
-    "chain_walk": chain_walk.chain_walk.LAUNCHES}), flush=True)
+print("LAUNCHES " + json.dumps({name: fn.LAUNCHES for name, fn in _kernel.wrappers().items()}),
+      flush=True)
 """
 
 
@@ -3144,6 +3117,7 @@ def check_captured_parity(dev) -> dict:
     from ctpn_tpu_torch.config import cfg, reset_cfg
     from ctpn_tpu_torch.models.factory import init_params
     from ctpn_tpu_torch.ops.anchor_target import num_anchors
+    from ctpn_tpu_torch.parallel.multicard import no_tf32
     from ctpn_tpu_torch.training.graphs import TrainGraphs
     from ctpn_tpu_torch.training.train_step import (
         Batch,
@@ -3161,60 +3135,58 @@ def check_captured_parity(dev) -> dict:
     gen = torch.Generator().manual_seed(7)
     draws = [torch.rand((2, 2, num_anchors(h // 16, w // 16)), generator=gen)
              for _ in range(4)]
-    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
-        dev_batch = host.to(dev)
-        eager_model = fresh_train_model(dev, state_dict)
-        eager_state = create_train_state(eager_model)
-        eager_step = build_train_step(eager_model, h // 16, w // 16)
-        free_model = fresh_train_model(dev, state_dict)  # four eager steps alone
-        free_state = create_train_state(free_model)
-        free_step = build_train_step(free_model, h // 16, w // 16)
-        model = fresh_train_model(dev, state_dict)
-        graphs = TrainGraphs(create_train_state(model), dev)
-        steps = []
-        for i, d in enumerate(draws):
-            start = keep(graphs.state)
-            before = [p.detach().clone() for p in model.parameters()]
-            eager = []
-            for _ in range(2):  # the eager step, twice from one state
-                rewind(eager_state, start)
-                eager.append(step_record(eager_model, before,
-                                         eager_step(eager_state, dev_batch, d)))
-            ref = eager[0]
-            got = step_record(model, before, graphs(host, d))
-            free_step(free_state, dev_batch, d)
-            rel = {k: abs(got["metrics"][k] - ref["metrics"][k]) / abs(ref["metrics"][k])
-                   for k in ("total_loss", "model_loss", "grad_norm")}
-            what = f"captured step {i + 1} ({'replayed' if i else 'warm-up'}) against eager"
-            if max(rel.values()) > 1e-4:
-                raise AssertionError(f"{what}: relative differences {rel}")
-            worst, worst_noisy, n_noisy = compare_updates(ref, got, cfg.TRAIN.LEARNING_RATE,
-                                                          what)
-            if not same_step(eager[0], eager[1]):
-                raise AssertionError(f"step {i + 1}: two eager steps from one state differ "
-                                     f"(update by {float((eager[0]['delta'] - eager[1]['delta']).abs().max())})")
-            if not same_step(ref, got):
-                raise AssertionError(f"{what}: not bit for bit (update by {worst}, "
-                                     f"{worst_noisy} where |g| <= 1e-6)")
-            steps.append({"step": i + 1, "replayed": i > 0, "rel_diff": rel,
-                          "update_max_abs_diff": worst,
-                          "noisy_update_max_abs_diff": worst_noisy,
-                          "elements_grad_le_1e-6": n_noisy})
-        free_diff = max(float((a.detach() - b.detach()).abs().max())
-                        for a, b in zip(free_model.parameters(), model.parameters()))
-        if free_diff != 0.0:
-            raise AssertionError(f"four free-running eager steps drifted {free_diff} from "
-                                 "four captured steps")
-        report = {"bucket": f"2x{h}x{w}", "dtype": "float32, TF32 off",
-                  "eager_steps": graphs.eager_steps,
-                  "replays": len(draws) - graphs.eager_steps, "steps": steps,
-                  "rel_diff_worst": max(max(r["rel_diff"].values()) for r in steps),
-                  "update_max_abs_diff": max(r["update_max_abs_diff"] for r in steps),
-                  "free_running_params_max_abs_diff": free_diff}
+        with no_tf32():
+            dev_batch = host.to(dev)
+            eager_model = fresh_train_model(dev, state_dict)
+            eager_state = create_train_state(eager_model)
+            eager_step = build_train_step(eager_model, h // 16, w // 16)
+            free_model = fresh_train_model(dev, state_dict)  # four eager steps alone
+            free_state = create_train_state(free_model)
+            free_step = build_train_step(free_model, h // 16, w // 16)
+            model = fresh_train_model(dev, state_dict)
+            graphs = TrainGraphs(create_train_state(model), dev)
+            steps = []
+            for i, d in enumerate(draws):
+                start = keep(graphs.state)
+                before = [p.detach().clone() for p in model.parameters()]
+                eager = []
+                for _ in range(2):  # the eager step, twice from one state
+                    rewind(eager_state, start)
+                    eager.append(step_record(eager_model, before,
+                                             eager_step(eager_state, dev_batch, d)))
+                ref = eager[0]
+                got = step_record(model, before, graphs(host, d))
+                free_step(free_state, dev_batch, d)
+                rel = {k: abs(got["metrics"][k] - ref["metrics"][k]) / abs(ref["metrics"][k])
+                       for k in ("total_loss", "model_loss", "grad_norm")}
+                what = f"captured step {i + 1} ({'replayed' if i else 'warm-up'}) against eager"
+                if max(rel.values()) > 1e-4:
+                    raise AssertionError(f"{what}: relative differences {rel}")
+                worst, worst_noisy, n_noisy = compare_updates(ref, got, cfg.TRAIN.LEARNING_RATE,
+                                                              what)
+                if not same_step(eager[0], eager[1]):
+                    raise AssertionError(f"step {i + 1}: two eager steps from one state differ "
+                                         f"(update by {float((eager[0]['delta'] - eager[1]['delta']).abs().max())})")
+                if not same_step(ref, got):
+                    raise AssertionError(f"{what}: not bit for bit (update by {worst}, "
+                                         f"{worst_noisy} where |g| <= 1e-6)")
+                steps.append({"step": i + 1, "replayed": i > 0, "rel_diff": rel,
+                              "update_max_abs_diff": worst,
+                              "noisy_update_max_abs_diff": worst_noisy,
+                              "elements_grad_le_1e-6": n_noisy})
+            free_diff = max(float((a.detach() - b.detach()).abs().max())
+                            for a, b in zip(free_model.parameters(), model.parameters()))
+            if free_diff != 0.0:
+                raise AssertionError(f"four free-running eager steps drifted {free_diff} from "
+                                     "four captured steps")
+            report = {"bucket": f"2x{h}x{w}", "dtype": "float32, TF32 off",
+                      "eager_steps": graphs.eager_steps,
+                      "replays": len(draws) - graphs.eager_steps, "steps": steps,
+                      "rel_diff_worst": max(max(r["rel_diff"].values()) for r in steps),
+                      "update_max_abs_diff": max(r["update_max_abs_diff"] for r in steps),
+                      "free_running_params_max_abs_diff": free_diff}
     finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
         reset_cfg()
     log("  captured parity " + json.dumps(report))
     return report
@@ -3319,7 +3291,8 @@ def drive_multicard() -> dict:
     from ctpn_tpu_torch.parallel import multicard
 
     report = multicard.run()
-    counts = {name: n for name, n in launch_counts().items() if name in multicard.wrappers()}
+    ctpn = set(ROUTE_LAUNCHES["default"]) | set(ROUTE_LAUNCHES["served"])
+    counts = {name: n for name, n in launch_counts().items() if name in ctpn}
     idle = [name for name, n in counts.items() if not n]
     if idle:
         raise AssertionError(f"multi-card phase: {idle} never launched ({counts})")
@@ -3365,24 +3338,23 @@ def check_card_against_cpu(dev, bf16_recs: list) -> dict:
     against the f32 CPU records, reported, not gated."""
     from ctpn_tpu_torch.config import cfg, reset_cfg
     from ctpn_tpu_torch.inference.pipeline import CTPNPredictor
+    from ctpn_tpu_torch.parallel.multicard import no_tf32
     from ctpn_tpu_torch.utils.image import load_image_bgr
     from ctpn_tpu_torch.utils.weights import load_params
 
     images = [load_image_bgr(str(p)) for p in PHOTOS]
     reset_cfg()
     cfg.TPU.COMPUTE_DTYPE = "float32"
-    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
-        card = CTPNPredictor(load_params(str(ARTIFACT), device=dev), device=dev)
-        card_recs = [card.detect_image(im) for im in images]
-        del card
-        host = CTPNPredictor(load_params(str(ARTIFACT), device="cpu"), device="cpu")
-        t0 = time.perf_counter()
-        host_recs = [host.detect_image(im) for im in images]
-        host_s = time.perf_counter() - t0
+        with no_tf32():
+            card = CTPNPredictor(load_params(str(ARTIFACT), device=dev), device=dev)
+            card_recs = [card.detect_image(im) for im in images]
+            del card
+            host = CTPNPredictor(load_params(str(ARTIFACT), device="cpu"), device="cpu")
+            t0 = time.perf_counter()
+            host_recs = [host.detect_image(im) for im in images]
+            host_s = time.perf_counter() - t0
     finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
         reset_cfg()
     worst, bf16_worst = 0.0, []
     for photo, a, b, c in zip(PHOTOS, card_recs, host_recs, bf16_recs):
@@ -4271,7 +4243,7 @@ def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from ctpn_tpu_torch.ops import _build
+    from ctpn_tpu_torch.ops import _build, _kernel
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -4279,18 +4251,8 @@ def main(argv=()) -> int:
     log(f"[1/24] device: {torch.cuda.get_device_name(0)} | {card} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
-    # a checkout from before the resolve kernel (timed with --kernels-only
-    # beside the current tree) has three kernels
-    has_resolve = (_build.CSRC / "nms_resolve.cu").exists()
-    has_epilogue = (_build.CSRC / "conv_epilogue.cu").exists()
-    has_walk = (_build.CSRC / "chain_walk.cu").exists()
     t0 = time.perf_counter()
-    logs = _build.build(["nms_fused", "nms_bitmask", "stem_fused"]
-                        + ["nms_resolve"] * has_resolve
-                        + ["conv_epilogue"] * has_epilogue
-                        + ["stage_clock"] * (_build.CSRC / "stage_clock.cu").exists()
-                        + ["quad_nms"] * (_build.CSRC / "quad_nms.cu").exists()
-                        + ["chain_walk"] * has_walk)
+    logs = _build.build(_kernel.sources() + ["stage_clock"])
     log(f"[2/24] build: {time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -4309,23 +4271,13 @@ def main(argv=()) -> int:
         return 0
 
     log("[3/24] kernels against their plain versions")
-    entries = [check_nms_kernel(dev), check_bitmask_kernel(dev), check_stem_kernel(dev)]
-    if has_resolve:
-        entries.append(check_resolve_kernel(dev))
-    if has_epilogue:
-        entries.append(check_conv_epilogue_kernel(dev))
-    if has_walk:
-        entries.append(check_chain_walk_kernel(dev))
+    entries = [check_nms_kernel(dev), check_bitmask_kernel(dev), check_stem_kernel(dev),
+               check_resolve_kernel(dev), check_conv_epilogue_kernel(dev),
+               check_chain_walk_kernel(dev)]
     if "--kernels-only" in argv:
-        if not has_resolve:
-            log("  nms_resolve: this checkout has no resolve kernel; entry left out")
         print(json.dumps({"kernels": entries}))
         print(card)
         return 0
-    for name, present in (("nms_resolve", has_resolve), ("conv_epilogue", has_epilogue),
-                          ("chain_walk", has_walk)):
-        if not present:
-            raise AssertionError(f"ctpn_tpu_torch/ops/csrc/{name}.cu is missing")
 
     log("[4/24] main path (default config)")
     default_recs = drive_main_path(dev, entries[0], entries[4], entries[5])

@@ -21,10 +21,11 @@ code and no cfg. That is the one difference from the JAX artifact, whose
 Pallas kernel is inlined into its StableHLO. The hand-written kernels are
 ``torch.library`` ops (``ctpn_torch::nms_keep_sorted_fused``,
 ``suppression_bitmask``, ``nms_resolve``, ``fused_stem_block``,
-``conv_epilogue``, ``chain_walk``): the program holds each as one node, and the op's
-registration in ``ctpn_tpu_torch.ops`` gives it its kernel where the
-program runs, so an artifact exported on the card launches the same
-kernels as the live pipeline (and counts them in the same ``LAUNCHES``).
+``conv_epilogue``, ``chain_walk``): the program holds each as one node,
+and the op's registration (``ops/_kernel.py``, whose registry this module
+imports) gives it its kernel where the program runs, so an artifact
+exported on the card launches the same kernels as the live pipeline (and
+counts them in the same ``LAUNCHES``).
 An artifact exported before the conv epilogue existed holds the separate
 aten passes instead, and still loads.
 
@@ -58,15 +59,16 @@ from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-# the op registrations: a loaded program resolves its kernel nodes here
-from ctpn_tpu_torch.ops import (  # noqa: F401
-    chain_walk, conv_epilogue, nms_bitmask, nms_fused, nms_resolve, stem_fused)
 from ctpn_tpu_torch.inference.graphs import DetectGraphs
+from ctpn_tpu_torch.ops import _kernel
 from ctpn_tpu_torch.ops.proposal import Proposals
 from ctpn_tpu_torch.parallel.dp import shard_detect_fn
 from ctpn_tpu_torch.parallel.mesh import as_devices, data_devices
-from ctpn_tpu_torch.postprocess.connector import TextLines, full_f32_matmul
-from ctpn_tpu_torch.utils.device import resolve_device
+from ctpn_tpu_torch.postprocess.connector import TextLines
+from ctpn_tpu_torch.utils.device import full_f32_matmul, resolve_device
+
+# the op registrations: a loaded program resolves its kernel nodes there
+_kernel.registry()
 
 FORMAT = "ctpn-torch-frozen-v1"
 JAX_FORMAT = "ctpn-frozen-v1"  # ctpn_tpu's StableHLO artifact

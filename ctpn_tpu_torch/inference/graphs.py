@@ -34,7 +34,7 @@ step (``training/graphs.py::TrainGraphs``).
 Nothing in a call waits for the card: the caller's stream waits for the
 wrapper's stream, and results are fetched with ``.cpu()`` as before. The
 warm-up and the capture run with TF32 matmuls off
-(``connector.full_f32_matmul``), so the graph keeps full-f32 matmuls
+(``utils/device.py::full_f32_matmul``), so the graph keeps full-f32 matmuls
 whatever another thread sets later. A capture or replay that fails raises:
 no call falls back to the eager program. Like the JAX package's traced
 programs, a graph keeps the cfg it was captured under; ``variant`` names
@@ -60,8 +60,8 @@ import torch
 from torch.utils._pytree import tree_leaves, tree_map
 
 from ctpn_tpu_torch.ops import _launches
-from ctpn_tpu_torch.postprocess.connector import full_f32_matmul
 from ctpn_tpu_torch.utils import timer
+from ctpn_tpu_torch.utils.device import full_f32_matmul
 
 # one warm-up and capture at a time in the process: entering a capture
 # synchronizes the card and empties the allocator's cache of every card,

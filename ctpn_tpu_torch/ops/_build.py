@@ -10,8 +10,8 @@ runs at import time: the CPU tests import every module of the package on a
 machine with no ``nvcc``.
 
 Each C entry point takes its pointers and the stream as ``void*`` and
-returns ``cudaGetLastError()``; the Python wrappers declare ``argtypes``
-and raise on a non-zero return.
+returns ``cudaGetLastError()``; ``ops/_kernel.py`` declares its
+``argtypes`` once and raises on a non-zero return.
 """
 
 from __future__ import annotations

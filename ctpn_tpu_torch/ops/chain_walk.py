@@ -49,12 +49,12 @@ connector's matrix products.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import torch
 
-from ctpn_tpu_torch.ops import _launches
+from ctpn_tpu_torch.ops import _kernel
+from ctpn_tpu_torch.ops._kernel import INT, PTR
 
 MAX_K = 8  # features per node the kernel keeps in registers
 
@@ -119,11 +119,7 @@ def chain_walk_ref(succ: torch.Tensor, feats: torch.Tensor, x1: torch.Tensor,
     return sums.float(), cnt, lo, hi, has_out & ~has_in
 
 
-def _declare(lib: ctypes.CDLL) -> None:
-    fn = lib.ctpn_chain_walk
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, p]
-    fn.restype = ctypes.c_int
+_KERNEL = _kernel.Entry("chain_walk", [PTR] * 9 + [INT] * 4)
 
 
 def _launch(succ: torch.Tensor, feats: torch.Tensor, x1: torch.Tensor,
@@ -134,40 +130,22 @@ def _launch(succ: torch.Tensor, feats: torch.Tensor, x1: torch.Tensor,
     n, p = succ.shape
     if n == 0 or p == 0:
         return out
-    from ctpn_tpu_torch.ops import _build
-
-    lib = _build.load("chain_walk")
-    _declare(lib)
-    succ, feats, x1, x2 = (t.contiguous() for t in (succ, feats, x1, x2))
-    sums, cnt, lo, hi, start = out
-    dev = succ.device
-    with torch.cuda.device(dev):
-        err = lib.ctpn_chain_walk(
-            succ.data_ptr(), feats.data_ptr(), x1.data_ptr(), x2.data_ptr(),
-            sums.data_ptr(), cnt.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-            start.data_ptr(), n, p, feats.shape[2], int(steps),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"chain_walk kernel launch failed: CUDA error {err}")
-    _launches.count(chain_walk, dev)
+    _KERNEL(succ.device, *(t.contiguous() for t in (succ, feats, x1, x2)), *out,
+            n, p, feats.shape[2], int(steps))
     return out
 
 
-# the op: one node in an exported program; the CPU kernel is the plain
-# version, the CUDA kernel launches the hand-written kernel or raises
-_lib = torch.library.Library("ctpn_torch", "FRAGMENT")
-_lib.define("chain_walk(Tensor succ, Tensor feats, Tensor x1, Tensor x2, int steps) "
-            "-> (Tensor, Tensor, Tensor, Tensor, Tensor)")
-_lib.impl("chain_walk", chain_walk_ref, "CPU")
-_lib.impl("chain_walk", _launch, "CUDA")
-
-
-@torch.library.register_fake("ctpn_torch::chain_walk", lib=_lib)
 def _fake(succ, feats, x1, x2, steps):
     _check(succ, feats, x1, x2, steps)
     return _outputs(succ, feats.shape[2])
 
 
+_kernel.op("chain_walk(Tensor succ, Tensor feats, Tensor x1, Tensor x2, int steps) "
+           "-> (Tensor, Tensor, Tensor, Tensor, Tensor)",
+           cpu=chain_walk_ref, cuda=_launch, fake=_fake)
+
+
+@_KERNEL.counts
 def chain_walk(succ: torch.Tensor, feats: torch.Tensor, x1: torch.Tensor,
                x2: torch.Tensor, steps: int) -> Walk:
     """(sums, cnt, min_x1, max_x2, is_start) of every node's successor path.
@@ -178,6 +156,3 @@ def chain_walk(succ: torch.Tensor, feats: torch.Tensor, x1: torch.Tensor,
     """
     _check(succ, feats, x1, x2, steps)
     return torch.ops.ctpn_torch.chain_walk(succ, feats, x1, x2, int(steps))
-
-
-_launches.init(chain_walk)

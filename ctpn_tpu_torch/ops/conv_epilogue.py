@@ -27,13 +27,13 @@ PyTorch's max-pool scans it.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from ctpn_tpu_torch.ops import _launches
+from ctpn_tpu_torch.ops import _kernel
+from ctpn_tpu_torch.ops._kernel import INT, PTR
 
 VEC = 8  # bf16 channels per 16-byte vector of the kernel
 
@@ -80,11 +80,7 @@ def conv_epilogue_ref(y: torch.Tensor, bias: Optional[torch.Tensor], pool: bool)
     return y.contiguous(memory_format=torch.channels_last)
 
 
-def _declare(lib: ctypes.CDLL) -> None:
-    fn = lib.ctpn_conv_epilogue
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, i, i, i, i, i, p]
-    fn.restype = ctypes.c_int
+_KERNEL = _kernel.Entry("conv_epilogue", [PTR, PTR, PTR, INT, INT, INT, INT, INT])
 
 
 def _launch(y: torch.Tensor, bias: Optional[torch.Tensor], pool: bool) -> torch.Tensor:
@@ -100,39 +96,21 @@ def _launch(y: torch.Tensor, bias: Optional[torch.Tensor], pool: bool) -> torch.
         raise ValueError(f"conv_epilogue: {n * ho * wo} output pixels, at most 2**31 - 1")
     if out.numel() == 0:
         return out
-    from ctpn_tpu_torch.ops import _build
-
-    lib = _build.load("conv_epilogue")
-    _declare(lib)
     h, w = y.shape[2:]
-    with torch.cuda.device(y.device):
-        err = lib.ctpn_conv_epilogue(
-            y.data_ptr(),
-            None if bias is None else bias.data_ptr(),
-            out.data_ptr(),
-            n, c, h, w, int(pool),
-            torch.cuda.current_stream(y.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"conv_epilogue kernel launch failed: CUDA error {err}")
-    _launches.count(conv_epilogue, y.device)
+    _KERNEL(y.device, y, bias, out, n, c, h, w, int(pool))
     return out
 
 
-# the op: one node in an exported program; the CPU kernel is the plain
-# version, the CUDA kernel launches the hand-written kernel or raises
-_lib = torch.library.Library("ctpn_torch", "FRAGMENT")
-_lib.define("conv_epilogue(Tensor y, Tensor? bias, bool pool) -> Tensor")
-_lib.impl("conv_epilogue", conv_epilogue_ref, "CPU")
-_lib.impl("conv_epilogue", _launch, "CUDA")
-
-
-@torch.library.register_fake("ctpn_torch::conv_epilogue", lib=_lib)
 def _fake(y, bias, pool):
     _check(y, bias, pool)
     return _out_like(y, pool)
 
 
+_kernel.op("conv_epilogue(Tensor y, Tensor? bias, bool pool) -> Tensor",
+           cpu=conv_epilogue_ref, cuda=_launch, fake=_fake)
+
+
+@_KERNEL.counts
 def conv_epilogue(y: torch.Tensor, bias: Optional[torch.Tensor], pool: bool) -> torch.Tensor:
     """``relu(y + bias)``, then the 2x2/2 max-pool if ``pool``: (N, C, H, W)
     bf16 channels_last -> the same, or (N, C, H // 2, W // 2).
@@ -144,6 +122,3 @@ def conv_epilogue(y: torch.Tensor, bias: Optional[torch.Tensor], pool: bool) -> 
     """
     _check(y, bias, pool)
     return torch.ops.ctpn_torch.conv_epilogue(y, bias, pool)
-
-
-_launches.init(conv_epilogue)

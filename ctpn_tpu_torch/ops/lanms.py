@@ -36,12 +36,12 @@ int32 the quads closed past the cap, which are dropped. Slots past
 
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import torch
 
-from ctpn_tpu_torch.ops import _launches
+from ctpn_tpu_torch.ops import _kernel
+from ctpn_tpu_torch.ops._kernel import FLOAT, INT, PTR
 from ctpn_tpu_torch.ops.quad_nms import quad_iou
 
 Walk = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -144,20 +144,12 @@ def lanms_walk_ref(cells: torch.Tensor, count: torch.Tensor, thresh: float, cap:
             kept.to(torch.int32), (closed - kept).to(torch.int32))
 
 
-def _declare(lib: ctypes.CDLL) -> None:
-    fn = lib.ctpn_lanms_walk
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, p, i, i, i, ctypes.c_float, p]
-    fn.restype = ctypes.c_int
+_KERNEL = _kernel.Entry("lanms_walk", [PTR] * 6 + [INT, INT, INT, FLOAT], source="quad_nms")
 
 
 def _launch(cells: torch.Tensor, count: torch.Tensor, thresh: float, cap: int) -> Walk:
     """The op's CUDA implementation: launch the kernel or raise."""
     _check(cells, count, cap)
-    from ctpn_tpu_torch.ops import _build
-
-    lib = _build.load("quad_nms")
-    _declare(lib)
     dev = cells.device
     batch, m = cells.shape[:2]
     merged = torch.zeros((batch, cap, 9), dtype=torch.float32, device=dev)
@@ -166,26 +158,11 @@ def _launch(cells: torch.Tensor, count: torch.Tensor, thresh: float, cap: int) -
     over = torch.zeros((batch,), dtype=torch.int32, device=dev)
     if batch == 0:
         return merged, ncells, kept, over
-    cells, count = cells.contiguous(), count.contiguous()
-    with torch.cuda.device(dev):
-        err = lib.ctpn_lanms_walk(cells.data_ptr(), count.data_ptr(), merged.data_ptr(),
-                                  ncells.data_ptr(), kept.data_ptr(), over.data_ptr(),
-                                  batch, m, cap, float(thresh),
-                                  torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"lanms_walk kernel launch failed: CUDA error {err}")
-    _launches.count(lanms_walk, dev)
+    _KERNEL(dev, cells.contiguous(), count.contiguous(), merged, ncells, kept, over,
+            batch, m, cap, float(thresh))
     return merged, ncells, kept, over
 
 
-_lib = torch.library.Library("ctpn_torch", "FRAGMENT")
-_lib.define("lanms_walk(Tensor cells, Tensor count, float thresh, int cap) "
-            "-> (Tensor, Tensor, Tensor, Tensor)")
-_lib.impl("lanms_walk", lanms_walk_ref, "CPU")
-_lib.impl("lanms_walk", _launch, "CUDA")
-
-
-@torch.library.register_fake("ctpn_torch::lanms_walk", lib=_lib)
 def _fake(cells, count, thresh, cap):
     _check(cells, count, cap)
     b = cells.shape[0]
@@ -193,6 +170,12 @@ def _fake(cells, count, thresh, cap):
             cells.new_empty((b,), dtype=torch.int32), cells.new_empty((b,), dtype=torch.int32))
 
 
+_kernel.op("lanms_walk(Tensor cells, Tensor count, float thresh, int cap) "
+           "-> (Tensor, Tensor, Tensor, Tensor)",
+           cpu=lanms_walk_ref, cuda=_launch, fake=_fake)
+
+
+@_KERNEL.counts
 def lanms_walk(cells: torch.Tensor, count: torch.Tensor, thresh: float, cap: int) -> Walk:
     """(merged, cells, count, overflow) of the locality-aware walk.
 
@@ -202,6 +185,3 @@ def lanms_walk(cells: torch.Tensor, count: torch.Tensor, thresh: float, cap: int
     """
     _check(cells, count, cap)
     return torch.ops.ctpn_torch.lanms_walk(cells, count, float(thresh), int(cap))
-
-
-_launches.init(lanms_walk)

@@ -27,12 +27,11 @@ PyTorch's uint32 lacks shifts and most other operations on the CPU.
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
-from ctpn_tpu_torch.ops import _launches
+from ctpn_tpu_torch.ops import _kernel
+from ctpn_tpu_torch.ops._kernel import FLOAT, INT, PTR
 from ctpn_tpu_torch.ops.nms_fused import _check, _suppress
 
 BITS = 32
@@ -84,58 +83,32 @@ def suppression_bitmask_ref(
     return out
 
 
-def _declare(lib: ctypes.CDLL) -> None:
-    fn = lib.ctpn_nms_bitmask
-    p = ctypes.c_void_p
-    fn.argtypes = [p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_float, p]
-    fn.restype = ctypes.c_int
+_KERNEL = _kernel.Entry("nms_bitmask", [PTR, PTR, PTR, INT, INT, FLOAT])
 
 
 def _launch(boxes: torch.Tensor, valid: torch.Tensor, thresh: float) -> torch.Tensor:
     """The op's CUDA implementation: launch the kernel or raise."""
     _check(boxes, valid)
-    from ctpn_tpu_torch.ops import _build
-
-    lib = _build.load("nms_bitmask")
-    _declare(lib)
     dev = boxes.device
     batch, n = valid.shape
     mask = torch.empty((batch, n, num_words(n)), dtype=torch.int32, device=dev)
     if batch == 0 or n == 0:
         return mask
-    boxes = boxes.contiguous()
-    valid = valid.contiguous()
-    with torch.cuda.device(dev):
-        err = lib.ctpn_nms_bitmask(
-            boxes.data_ptr(),
-            valid.data_ptr(),
-            mask.data_ptr(),
-            batch,
-            n,
-            float(thresh),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"nms_bitmask kernel launch failed: CUDA error {err}")
-    _launches.count(suppression_bitmask, dev)
+    _KERNEL(dev, boxes.contiguous(), valid.contiguous(), mask, batch, n, float(thresh))
     return mask
 
 
-# the op: one node in an exported program; the CPU kernel is the plain
-# version, the CUDA kernel launches the hand-written kernel or raises
-_lib = torch.library.Library("ctpn_torch", "FRAGMENT")
-_lib.define("suppression_bitmask(Tensor boxes, Tensor valid, float thresh) -> Tensor")
-_lib.impl("suppression_bitmask", suppression_bitmask_ref, "CPU")
-_lib.impl("suppression_bitmask", _launch, "CUDA")
-
-
-@torch.library.register_fake("ctpn_torch::suppression_bitmask", lib=_lib)
 def _fake(boxes, valid, thresh):
     _check(boxes, valid)
     batch, n = valid.shape
     return boxes.new_empty((batch, n, num_words(n)), dtype=torch.int32)
 
 
+_kernel.op("suppression_bitmask(Tensor boxes, Tensor valid, float thresh) -> Tensor",
+           cpu=suppression_bitmask_ref, cuda=_launch, fake=_fake)
+
+
+@_KERNEL.counts
 def suppression_bitmask(
     boxes: torch.Tensor, valid: torch.Tensor, thresh: float
 ) -> torch.Tensor:
@@ -151,6 +124,3 @@ def suppression_bitmask(
     if boxes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"suppression_bitmask: unsupported device {boxes.device}")
     return torch.ops.ctpn_torch.suppression_bitmask(boxes, valid, float(thresh))
-
-
-_launches.init(suppression_bitmask)

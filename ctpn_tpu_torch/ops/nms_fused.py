@@ -31,12 +31,12 @@ the rest of the block in which the cap is reached. Flags after the
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
 
-from ctpn_tpu_torch.ops import _launches
+from ctpn_tpu_torch.ops import _kernel
+from ctpn_tpu_torch.ops._kernel import FLOAT, INT, PTR
 
 BLOCK = 512  # boxes per block of the kernel's walk
 CLUSTER = 8  # CTAs per image; each keeps its own copy of the kept-box list
@@ -128,12 +128,7 @@ def nms_keep_sorted_fused_ref(
     return keep
 
 
-def _declare(lib: ctypes.CDLL) -> None:
-    fn = lib.ctpn_nms_fused
-    p = ctypes.c_void_p
-    fn.argtypes = [p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_float, p]
-    fn.restype = ctypes.c_int
+_KERNEL = _kernel.Entry("nms_fused", [PTR, PTR, PTR, PTR, INT, INT, INT, FLOAT])
 
 
 def _launch(
@@ -144,58 +139,35 @@ def _launch(
 ) -> torch.Tensor:
     """The op's CUDA implementation: launch the kernel or raise."""
     _check(boxes, valid)
-    from ctpn_tpu_torch.ops import _build
-
-    lib = _build.load("nms_fused")
-    _declare(lib)
     dev = boxes.device
     batch, k = valid.shape
     keep = torch.zeros((batch, k), dtype=torch.bool, device=dev)
     if batch == 0 or k == 0:
         return keep
     cap = _cap(k, max_keep)
-    boxes = boxes.contiguous()
-    valid = valid.contiguous()
     scratch = (
         torch.empty((batch, CLUSTER, cap, 4), dtype=torch.float32, device=dev)
         if cap > SMEM_KEPT_MAX
         else None
     )
-    with torch.cuda.device(dev):
-        err = lib.ctpn_nms_fused(
-            boxes.data_ptr(),
-            valid.data_ptr(),
-            keep.data_ptr(),
-            None if scratch is None else scratch.data_ptr(),
-            batch,
-            k,
-            cap,
-            float(thresh),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"nms_fused kernel launch failed: CUDA error {err}")
-    _launches.count(nms_keep_sorted_fused, dev)
+    _KERNEL(dev, boxes.contiguous(), valid.contiguous(), keep, scratch, batch, k, cap,
+            float(thresh))
     return keep
 
 
-# the op: one node in an exported program; the CPU kernel is the plain
-# version, the CUDA kernel launches the hand-written kernel or raises
-_lib = torch.library.Library("ctpn_torch", "FRAGMENT")
-_lib.define(
-    "nms_keep_sorted_fused(Tensor boxes, Tensor valid, float thresh, int? max_keep)"
-    " -> Tensor"
-)
-_lib.impl("nms_keep_sorted_fused", nms_keep_sorted_fused_ref, "CPU")
-_lib.impl("nms_keep_sorted_fused", _launch, "CUDA")
-
-
-@torch.library.register_fake("ctpn_torch::nms_keep_sorted_fused", lib=_lib)
 def _fake(boxes, valid, thresh, max_keep):
     _check(boxes, valid)
     return torch.empty_like(valid)
 
 
+_kernel.op(
+    "nms_keep_sorted_fused(Tensor boxes, Tensor valid, float thresh, int? max_keep)"
+    " -> Tensor",
+    cpu=nms_keep_sorted_fused_ref, cuda=_launch, fake=_fake,
+)
+
+
+@_KERNEL.counts
 def nms_keep_sorted_fused(
     boxes: torch.Tensor,
     valid: torch.Tensor,
@@ -216,6 +188,3 @@ def nms_keep_sorted_fused(
     return torch.ops.ctpn_torch.nms_keep_sorted_fused(
         boxes, valid, float(thresh), None if max_keep is None else int(max_keep)
     )
-
-
-_launches.init(nms_keep_sorted_fused)

@@ -33,11 +33,10 @@ bit(j, i) for j < i)``. Every box is resolved: there is no ``max_keep``.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from ctpn_tpu_torch.ops import _launches
+from ctpn_tpu_torch.ops import _kernel
+from ctpn_tpu_torch.ops._kernel import INT, PTR
 from ctpn_tpu_torch.ops.nms_bitmask import BITS, num_words
 
 
@@ -137,56 +136,31 @@ def _check(mask: torch.Tensor, valid: torch.Tensor) -> None:
         raise ValueError("mask and valid must be on the same device")
 
 
-def _declare(lib: ctypes.CDLL) -> None:
-    fn = lib.ctpn_nms_resolve
-    p = ctypes.c_void_p
-    fn.argtypes = [p, p, p, ctypes.c_int, ctypes.c_int, p]
-    fn.restype = ctypes.c_int
+_KERNEL = _kernel.Entry("nms_resolve", [PTR, PTR, PTR, INT, INT])
 
 
 def _launch(mask: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """The op's CUDA implementation: launch the kernel or raise."""
     _check(mask, valid)
-    from ctpn_tpu_torch.ops import _build
-
-    lib = _build.load("nms_resolve")
-    _declare(lib)
     dev = mask.device
     batch, n = valid.shape
     keep = torch.empty((batch, n), dtype=torch.bool, device=dev)
     if batch == 0 or n == 0:
         return keep
-    mask = mask.contiguous()
-    valid = valid.contiguous()
-    with torch.cuda.device(dev):
-        err = lib.ctpn_nms_resolve(
-            mask.data_ptr(),
-            valid.data_ptr(),
-            keep.data_ptr(),
-            batch,
-            n,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"nms_resolve kernel launch failed: CUDA error {err}")
-    _launches.count(nms_resolve, dev)
+    _KERNEL(dev, mask.contiguous(), valid.contiguous(), keep, batch, n)
     return keep
 
 
-# the op: one node in an exported program; the CPU kernel is the plain
-# version, the CUDA kernel launches the hand-written kernel or raises
-_lib = torch.library.Library("ctpn_torch", "FRAGMENT")
-_lib.define("nms_resolve(Tensor mask, Tensor valid) -> Tensor")
-_lib.impl("nms_resolve", nms_fixed_point_blocked, "CPU")
-_lib.impl("nms_resolve", _launch, "CUDA")
-
-
-@torch.library.register_fake("ctpn_torch::nms_resolve", lib=_lib)
 def _fake(mask, valid):
     _check(mask, valid)
     return torch.empty_like(valid)
 
 
+_kernel.op("nms_resolve(Tensor mask, Tensor valid) -> Tensor",
+           cpu=nms_fixed_point_blocked, cuda=_launch, fake=_fake)
+
+
+@_KERNEL.counts
 def nms_resolve(mask: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """(B, N) bool greedy keep flags of a (B, N, ceil(N/32)) int32 bitmask.
 
@@ -199,6 +173,3 @@ def nms_resolve(mask: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     if mask.device.type not in ("cpu", "cuda"):
         raise ValueError(f"nms_resolve: unsupported device {mask.device}")
     return torch.ops.ctpn_torch.nms_resolve(mask, valid)
-
-
-_launches.init(nms_resolve)

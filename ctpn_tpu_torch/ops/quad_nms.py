@@ -34,11 +34,10 @@ first: the row loops stop at the count of valid quads.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from ctpn_tpu_torch.ops import _launches
+from ctpn_tpu_torch.ops import _kernel
+from ctpn_tpu_torch.ops._kernel import FLOAT, INT, PTR
 from ctpn_tpu_torch.ops.nms_bitmask import BITS, num_words, pack_bits
 
 MAXV = 16  # vertices a clipped polygon may hold (a convex quad needs 8)
@@ -152,51 +151,32 @@ def quad_bitmask_ref(quads: torch.Tensor, valid: torch.Tensor, thresh: float) ->
     return mask
 
 
-def _declare(lib: ctypes.CDLL) -> None:
-    fn = lib.ctpn_quad_bitmask
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, i, i, ctypes.c_float, p]
-    fn.restype = ctypes.c_int
+_KERNEL = _kernel.Entry("quad_bitmask", [PTR, PTR, PTR, INT, INT, FLOAT], source="quad_nms")
 
 
 def _launch(quads: torch.Tensor, valid: torch.Tensor, thresh: float) -> torch.Tensor:
     """The op's CUDA implementation: launch the kernel or raise."""
     _check(quads, valid)
-    from ctpn_tpu_torch.ops import _build
-
-    lib = _build.load("quad_nms")
-    _declare(lib)
     dev = quads.device
     batch, k = valid.shape
     mask = torch.empty((batch, k, num_words(k)), dtype=torch.int32, device=dev)
     if mask.numel() == 0:
         return mask
-    quads, valid = quads.contiguous(), valid.contiguous()
-    with torch.cuda.device(dev):
-        err = lib.ctpn_quad_bitmask(quads.data_ptr(), valid.data_ptr(), mask.data_ptr(),
-                                    batch, k, float(thresh),
-                                    torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"quad_bitmask kernel launch failed: CUDA error {err}")
-    _launches.count(quad_bitmask, dev)
+    _KERNEL(dev, quads.contiguous(), valid.contiguous(), mask, batch, k, float(thresh))
     return mask
 
 
-# the op: the CPU kernel is the plain version, the CUDA kernel launches the
-# hand-written kernel or raises
-_lib = torch.library.Library("ctpn_torch", "FRAGMENT")
-_lib.define("quad_bitmask(Tensor quads, Tensor valid, float thresh) -> Tensor")
-_lib.impl("quad_bitmask", quad_bitmask_ref, "CPU")
-_lib.impl("quad_bitmask", _launch, "CUDA")
-
-
-@torch.library.register_fake("ctpn_torch::quad_bitmask", lib=_lib)
 def _fake(quads, valid, thresh):
     _check(quads, valid)
     b, k = valid.shape
     return quads.new_empty((b, k, num_words(k)), dtype=torch.int32)
 
 
+_kernel.op("quad_bitmask(Tensor quads, Tensor valid, float thresh) -> Tensor",
+           cpu=quad_bitmask_ref, cuda=_launch, fake=_fake)
+
+
+@_KERNEL.counts
 def quad_bitmask(quads: torch.Tensor, valid: torch.Tensor, thresh: float) -> torch.Tensor:
     """(B, K, ceil(K/32)) int32 suppression bitmask of score-sorted quads.
 
@@ -206,6 +186,3 @@ def quad_bitmask(quads: torch.Tensor, valid: torch.Tensor, thresh: float) -> tor
     """
     _check(quads, valid)
     return torch.ops.ctpn_torch.quad_bitmask(quads, valid, float(thresh))
-
-
-_launches.init(quad_bitmask)

@@ -52,7 +52,6 @@ layout.
 
 from __future__ import annotations
 
-import ctypes
 import threading
 import weakref
 from typing import Tuple
@@ -60,7 +59,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from ctpn_tpu_torch.ops import _launches
+from ctpn_tpu_torch.ops import _kernel, _launches
+from ctpn_tpu_torch.ops._kernel import INT, PTR
 
 CH = 64  # output channels of both convs (VGG16's block 1)
 CIN = 3
@@ -177,11 +177,7 @@ def packed_stem_weights(w1, b1, w2, b2) -> tuple:
         return packed
 
 
-def _declare(lib: ctypes.CDLL) -> None:
-    fn = lib.ctpn_stem_fused
-    p = ctypes.c_void_p
-    fn.argtypes = [p, p, p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
-    fn.restype = ctypes.c_int
+_KERNEL = _kernel.Entry("stem_fused", [PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT])
 
 
 def _out_like(x: torch.Tensor) -> torch.Tensor:
@@ -204,53 +200,28 @@ def _launch(
     _check(x, w1, b1, w2, b2)
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("fused_stem_block: x must be channels_last on CUDA")
-    from ctpn_tpu_torch.ops import _build
-
-    lib = _build.load("stem_fused")
-    _declare(lib)
     n, _, h, w = x.shape
     out = _out_like(x)
     if n == 0:
         return out
-    w1k, b1k, w2k, b2k = packed_stem_weights(w1, b1, w2, b2)
+    packed = packed_stem_weights(w1, b1, w2, b2)
     # a captured launch reads them on every replay: the capture keeps them
     # (the cache may drop them)
-    _launches.hold(w1k, b1k, w2k, b2k)
-    with torch.cuda.device(x.device):
-        err = lib.ctpn_stem_fused(
-            x.data_ptr(),
-            w1k.data_ptr(),
-            b1k.data_ptr(),
-            w2k.data_ptr(),
-            b2k.data_ptr(),
-            out.data_ptr(),
-            n,
-            h,
-            w,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"stem_fused kernel launch failed: CUDA error {err}")
-    _launches.count(fused_stem_block, x.device)
+    _launches.hold(*packed)
+    _KERNEL(x.device, x, *packed, out, n, h, w)
     return out
 
 
-# the op: one node in an exported program; the CPU kernel is the plain
-# version, the CUDA kernel launches the hand-written kernel or raises
-_lib = torch.library.Library("ctpn_torch", "FRAGMENT")
-_lib.define(
-    "fused_stem_block(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2) -> Tensor"
-)
-_lib.impl("fused_stem_block", fused_stem_block_ref, "CPU")
-_lib.impl("fused_stem_block", _launch, "CUDA")
-
-
-@torch.library.register_fake("ctpn_torch::fused_stem_block", lib=_lib)
 def _fake(x, w1, b1, w2, b2):
     _check(x, w1, b1, w2, b2)
     return _out_like(x)
 
 
+_kernel.op("fused_stem_block(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2) -> Tensor",
+           cpu=fused_stem_block_ref, cuda=_launch, fake=_fake)
+
+
+@_KERNEL.counts
 def fused_stem_block(
     x: torch.Tensor,
     w1: torch.Tensor,
@@ -269,6 +240,3 @@ def fused_stem_block(
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_stem_block: unsupported device {x.device}")
     return torch.ops.ctpn_torch.fused_stem_block(x, w1, b1, w2, b2)
-
-
-_launches.init(fused_stem_block)

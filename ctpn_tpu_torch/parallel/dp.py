@@ -35,7 +35,8 @@ import torch.nn as nn
 from ctpn_tpu_torch.inference.graphs import DetectGraphs
 from ctpn_tpu_torch.ops.proposal import Proposals
 from ctpn_tpu_torch.parallel.mesh import as_devices, data_devices, split_batch
-from ctpn_tpu_torch.postprocess.connector import TextLines, full_f32_matmul
+from ctpn_tpu_torch.postprocess.connector import TextLines
+from ctpn_tpu_torch.utils.device import full_f32_matmul
 
 if TYPE_CHECKING:  # the frozen loader imports this module: no training code
     from ctpn_tpu_torch.training.train_step import Batch
@@ -124,7 +125,7 @@ def shard_detect_fn(
     always runs in the same worker thread of its own: cuDNN keeps its
     chosen execution plans per thread, so a new thread per call would
     choose them again on every call. TF32 matmuls are off from before the
-    workers start until after they join (``connector.full_f32_matmul``,
+    workers start until after they join (``utils/device.py::full_f32_matmul``,
     whose flag is global to the process), so every replica runs its
     BiLSTM's matmuls in the same precision whichever thread is inside.
     """

@@ -84,6 +84,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ctpn_tpu_torch.ops import _kernel
+
 REPO = Path(__file__).resolve().parents[2]
 ARTIFACT = REPO / "data" / "artifacts" / "ctpn_synth_f16.npz"
 COMMITTED = REPO / "docs" / "demo_results" / "H"
@@ -217,19 +219,6 @@ def equal_outputs(got: Sequence[np.ndarray], want: Sequence[np.ndarray]) -> bool
 # ------------------------------------------------------- launch accounting
 
 
-def wrappers() -> dict:
-    """Each kernel's wrapper, whose counts ``ops/_launches.py`` keeps."""
-    from ctpn_tpu_torch.ops import (chain_walk, conv_epilogue, nms_bitmask, nms_fused,
-                                    nms_resolve, stem_fused)
-
-    return {"nms_bitmask": nms_bitmask.suppression_bitmask,
-            "nms_resolve": nms_resolve.nms_resolve,
-            "stem_fused": stem_fused.fused_stem_block,
-            "nms_fused": nms_fused.nms_keep_sorted_fused,
-            "conv_epilogue": conv_epilogue.conv_epilogue,
-            "chain_walk": chain_walk.chain_walk}
-
-
 def epilogue_launches(route: str) -> int:
     """The conv epilogues of one program run under the cfg: one per conv
     of the trunk and ``rpn_conv`` in bf16 (13 + 1, the stem kernel running
@@ -246,7 +235,7 @@ def counts_by_device(since: Optional[dict] = None) -> dict:
     counts of an earlier reading ``since``. The counts are only read, never
     reset: a caller may count a whole run around this module."""
     out = {}
-    for name, fn in wrappers().items():
+    for name, fn in _kernel.wrappers().items():
         now = Counter({str(k): v for k, v in fn.LAUNCHES_BY_DEVICE.items()})
         now.subtract(Counter((since or {}).get(name, {})))
         out[name] = {k: v for k, v in sorted(now.items()) if v}
@@ -259,7 +248,7 @@ def expected_counts(devices: Sequence[torch.device], per_replica: dict) -> dict:
     on_card = Counter(d.index for d in devices if d.type == "cuda")
     return {name: {str(k): per_replica.get(name, 0) * r for k, r in sorted(on_card.items())
                    if per_replica.get(name, 0)}
-            for name in wrappers()}
+            for name in _kernel.registry()}
 
 
 def check_counts(devices, per_replica: dict, got: dict, what: str) -> None:

@@ -31,9 +31,7 @@ whole pipeline is fixed-shape tensor ops over the padded proposal set:
 
 from __future__ import annotations
 
-import contextlib
 import math
-import threading
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -45,34 +43,6 @@ class TextLines(NamedTuple):
     recs: torch.Tensor  # (N, max_lines, 9) float32 quadrilateral + score
     valid: torch.Tensor  # (N, max_lines) bool
     count: torch.Tensor  # (N,) int32
-
-
-# ``allow_tf32`` is one flag for the whole process: the contexts of all
-# threads count their depth here, so a thread leaving its context does not
-# switch TF32 back on under another thread that is still inside one
-_f32_lock = threading.Lock()
-_f32_depth = 0
-_f32_saved = False
-
-
-@contextlib.contextmanager
-def full_f32_matmul():
-    """Float32 matmuls in full precision on the card (no TF32) while any
-    thread is inside this context; the flag is restored when the last one
-    leaves."""
-    global _f32_depth, _f32_saved
-    with _f32_lock:
-        if _f32_depth == 0:
-            _f32_saved = torch.backends.cuda.matmul.allow_tf32
-            torch.backends.cuda.matmul.allow_tf32 = False
-        _f32_depth += 1
-    try:
-        yield
-    finally:
-        with _f32_lock:
-            _f32_depth -= 1
-            if _f32_depth == 0:
-                torch.backends.cuda.matmul.allow_tf32 = _f32_saved
 
 
 def _pairwise_candidates(

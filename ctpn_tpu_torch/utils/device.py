@@ -1,8 +1,9 @@
-"""Device selection for the port's entry points, and host constants kept on
-the device."""
+"""Device selection for the port's entry points, host constants kept on
+the device, and the process's float32 matmul precision."""
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Callable, Dict, Hashable, Tuple, Union
 
@@ -52,3 +53,31 @@ def device_constant(key: Hashable, device: torch.device,
             t = torch.from_numpy(np.array(make())).to(device)
             _constants[(key, device)] = t
         return t
+
+
+# ``allow_tf32`` is one flag for the whole process: the contexts of all
+# threads count their depth here, so a thread leaving its context does not
+# switch TF32 back on under another thread that is still inside one
+_f32_lock = threading.Lock()
+_f32_depth = 0
+_f32_saved = False
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """Float32 matmuls in full precision on the card (no TF32) while any
+    thread is inside this context; the flag is restored when the last one
+    leaves."""
+    global _f32_depth, _f32_saved
+    with _f32_lock:
+        if _f32_depth == 0:
+            _f32_saved = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = False
+        _f32_depth += 1
+    try:
+        yield
+    finally:
+        with _f32_lock:
+            _f32_depth -= 1
+            if _f32_depth == 0:
+                torch.backends.cuda.matmul.allow_tf32 = _f32_saved

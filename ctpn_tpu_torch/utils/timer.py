@@ -43,7 +43,6 @@ bitmask, resolve, records).
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import math
 import os
 import threading
@@ -52,6 +51,9 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from ctpn_tpu_torch.ops import _kernel
+from ctpn_tpu_torch.ops._kernel import INT, PTR
 
 
 class Stopwatch:
@@ -200,27 +202,17 @@ def _stamp_ref(ring: torch.Tensor, slot: int) -> None:
         ring[-1] += 1
 
 
+# not counted: a stamp is the clock's, not one of the program's kernels,
+# and the launch gates count the program's exactly
+_STAMP = _kernel.Entry("stage_stamp", [PTR, INT, INT, INT], source="stage_clock")
+
+
 def _stamp_launch(ring: torch.Tensor, slot: int) -> None:
     """The op's CUDA implementation: one thread writes ``%globaltimer``."""
-    from ctpn_tpu_torch.ops import _build
-
-    lib = _build.load("stage_clock")
-    fn = lib.ctpn_stage_stamp
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    dev = ring.device
-    with torch.cuda.device(dev):
-        err = fn(ring.data_ptr(), ROWS, _slots(ring), int(slot),
-                 torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"stage_stamp kernel launch failed: CUDA error {err}")
+    _STAMP(ring.device, ring, ROWS, _slots(ring), int(slot))
 
 
-_lib = torch.library.Library("ctpn_torch", "FRAGMENT")
-_lib.define("stage_stamp(Tensor(a!) ring, int slot) -> ()")
-_lib.impl("stage_stamp", _stamp_ref, "CPU")
-_lib.impl("stage_stamp", _stamp_launch, "CUDA")
+_kernel.op("stage_stamp(Tensor(a!) ring, int slot) -> ()", cpu=_stamp_ref, cuda=_stamp_launch)
 
 
 class StageClock:

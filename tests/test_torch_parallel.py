@@ -31,6 +31,7 @@ from ctpn_tpu_torch.ops import _launches
 from ctpn_tpu_torch.parallel import (data_devices, replicate_model, shard_detect_fn,
                                      split_batch)
 from ctpn_tpu_torch.postprocess import connector
+from ctpn_tpu_torch.utils.device import full_f32_matmul
 from ctpn_tpu_torch.utils.weights import params_from_jax
 from tests.test_torch_train_step import BH, BW, TINY
 
@@ -179,14 +180,14 @@ def test_full_f32_matmul_holds_while_any_thread_is_inside():
     a_in, b_in, a_out = threading.Event(), threading.Event(), threading.Event()
 
     def thread_a():
-        with connector.full_f32_matmul():
+        with full_f32_matmul():
             a_in.set()
             b_in.wait(10)
         a_out.set()
 
     def thread_b():
         a_in.wait(10)
-        with connector.full_f32_matmul():
+        with full_f32_matmul():
             b_in.set()
             a_out.wait(10)
             seen.append(torch.backends.cuda.matmul.allow_tf32)
