@@ -22,10 +22,10 @@ counts through replays. Every bf16 detect program also launches the conv
 epilogue once per conv of the trunk and ``rpn_conv``: 14 per program run on
 the default route and in O mode, 12 on the served route (the stem kernel
 runs block 1), 14 per image on the host path; and every CTPN program
-launches the connector's chain walk once per run (none on the host path,
-whose connector is NumPy's). The launch gates below count them beside the
-kernels they name; training and float32 launch no epilogue, training no
-walk.
+launches the connector's successor graph and chain walk once each per run
+(none on the host path, whose connector is NumPy's). The launch gates
+below count them beside the kernels they name; training and float32
+launch no epilogue, training no connector kernel.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only
@@ -59,13 +59,24 @@ Phases (any failure exits non-zero and prints no result line):
    walk: made-up forests with shared tails, no edges, a chain past the
    cap, P off the CTA and past shared memory, successors out of range,
    then the program's own successor graphs at (48, 1000) from the
-   benchmark cell's renders). The
+   benchmark cell's renders; successor graph: strip scenes, ties in the
+   nearest column on both sides, column gaps at and past ``max_gap``,
+   overlap and similarity at their thresholds, no valid node, one node,
+   the 16-px anchor grid at P off the CTA, past 48 KB of shared memory,
+   with its inputs read from global memory (12000) and with its keys in
+   global memory (16385), other settings, then the program's own
+   proposals at (48, 1000) from the benchmark cell's renders, and
+   ``torch.profiler`` over ``detect_lines`` on them). The
    conv epilogue must equal its plain version and those passes bit for
    bit; its ms per site is printed beside its byte bound, the plain
    version's and the PyTorch passes' on the bias-less output
    (``library_ms``). The chain walk must equal its plain version bit for
    bit, on the card and on the CPU, and is timed beside the dense closure
-   it replaced (``library_ms``). The fused NMS keep
+   it replaced (``library_ms``). The successor graph must equal its plain
+   version (the dense form it replaced) bit for bit, on the card and, up
+   to P 2500 and on the program's proposals, on the CPU; it is timed
+   beside its bound, and ``detect_lines`` must run no op with an input of
+   N x P x P elements (its kernels counted and timed). The fused NMS keep
    mask's prefix, the bitmask words and the resolve's keep flags must be
    identical (tolerance 0: integer outputs), and the resolve must also
    give the fused kernel's uncapped keep mask on the same boxes; the
@@ -1188,6 +1199,41 @@ def cell_renders(n: int = EPILOGUE_BATCH, seed: int = WALK_SEED) -> tuple:
     return np.stack([p[0] for p in preps]), np.stack([p[1] for p in preps])
 
 
+def connector_calls(dev) -> dict:
+    """The arguments of the program's calls to ``detect_lines``, the
+    successor graph and the chain walk, caught in one eager run of the
+    default route with the shipped weights on the benchmark cell's (48,
+    1000) renders: each name to its one call's arguments."""
+    from ctpn_tpu_torch.inference import pipeline
+    from ctpn_tpu_torch.inference.pipeline import CTPNPredictor
+    from ctpn_tpu_torch.postprocess import connector
+    from ctpn_tpu_torch.utils.weights import load_params
+
+    pred = CTPNPredictor(load_params(str(ARTIFACT), device=dev), device=dev)
+    data, infos = cell_renders()
+    x, info = torch.from_numpy(data).to(dev), torch.from_numpy(infos).to(dev)
+    sites = {"detect_lines": pipeline, "successors": connector, "chain_walk": connector}
+    caught = {name: [] for name in sites}
+    real = {name: getattr(module, name) for name, module in sites.items()}
+
+    def catcher(name):
+        return lambda *a, **kw: caught[name].append((a, kw)) or real[name](*a, **kw)
+
+    for name, module in sites.items():
+        setattr(module, name, catcher(name))
+    try:
+        with torch.inference_mode():
+            pred.program(x, info)
+    finally:
+        for name, module in sites.items():
+            setattr(module, name, real[name])
+    torch.cuda.synchronize()
+    for name, calls in caught.items():
+        if len(calls) != 1:
+            raise AssertionError(f"the program called {name} {len(calls)} times, not once")
+    return {name: calls[0] for name, calls in caught.items()}
+
+
 def made_up_walks(rng, dev) -> list:
     """(name, succ, feats, x1, x2, steps) of the walk's edge cases: forests
     whose heads converge on shared tails, no edges, a chain longer than
@@ -1261,19 +1307,16 @@ def same_walk(got, want, what: str) -> None:
                                  f"of {name} differ from the plain version")
 
 
-def check_chain_walk_kernel(dev) -> dict:
+def check_chain_walk_kernel(dev, calls: dict = None) -> dict:
     """The chain walk against its plain version, bit for bit: the made-up
     graphs (plain version on the card and on the CPU), then the program's
     own successor graphs at (48, 1000) from the benchmark cell's renders
-    (the arguments of the connector's call, caught in one eager run of the
-    default route with the shipped weights). Timed there beside its byte
-    bound, the plain version and the dense closure it replaced
-    (``library_ms``)."""
-    from ctpn_tpu_torch.inference.pipeline import CTPNPredictor
+    (the arguments of the connector's call, ``connector_calls``). Timed
+    there beside its byte bound, the plain version and the dense closure
+    it replaced (``library_ms``)."""
     from ctpn_tpu_torch.ops import chain_walk as CW
-    from ctpn_tpu_torch.postprocess import connector
-    from ctpn_tpu_torch.utils.weights import load_params
 
+    calls = calls or connector_calls(dev)
     rng = np.random.RandomState(11)
     with torch.inference_mode():
         for name, *args in made_up_walks(rng, dev):
@@ -1285,20 +1328,7 @@ def check_chain_walk_kernel(dev) -> dict:
             log(f"  chain_walk {name}: equal to the plain version bit for bit "
                 f"(longest walk {int(got[1].max())} nodes)")
 
-        pred = CTPNPredictor(load_params(str(ARTIFACT), device=dev), device=dev)
-        data, infos = cell_renders()
-        x, info = torch.from_numpy(data).to(dev), torch.from_numpy(infos).to(dev)
-        caught = []
-        real = connector.chain_walk
-        connector.chain_walk = lambda *a: caught.append(a) or real(*a)
-        try:
-            pred.program(x, info)
-        finally:
-            connector.chain_walk = real
-        torch.cuda.synchronize()
-        if len(caught) != 1:
-            raise AssertionError(f"the program called the walk {len(caught)} times, not once")
-        args = caught[0]
+        args = calls["chain_walk"][0]
         succ, feats, steps = args[0], args[1], args[4]
         got = CW.chain_walk(*args)
         torch.cuda.synchronize()
@@ -1323,7 +1353,7 @@ def check_chain_walk_kernel(dev) -> dict:
         # flags written
         n_bytes = n * p * (4 + 8 + 4 * k) + n * p * (4 * k + 12 + 1)
         bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    del pred, x, caught, args, got, dense_sums
+    del args, got, dense_sums
     torch.cuda.empty_cache()
     log(f"  chain_walk, the program's graphs {json.dumps(graph)}: equal to the plain "
         f"version bit for bit; kernel {ms:.4f} ms (launcher alone {direct_ms:.4f}), bound "
@@ -1343,6 +1373,217 @@ def check_chain_walk_kernel(dev) -> dict:
         "bound_by": "bytes",
         "library_ms": library_ms,
         "shapes": [dict(graph, call=f"chain_walk {tuple(feats.shape)} steps {steps}")],
+    }
+
+
+# ---------------------------------------------------------------- successor graph
+
+PAIR_TEST_OPS = 13  # float ops of one pair test: h, overlap, clamp, min/max h, 2 divides, 2 compares
+
+
+def padded_scenes(scenes, p: int) -> tuple:
+    """(boxes, scores, valid) of ``scenes`` (each boxes, scores) padded to P."""
+    boxes = np.zeros((len(scenes), p, 4), np.float32)
+    scores = np.full((len(scenes), p), -1.0, np.float32)
+    valid = np.zeros((len(scenes), p), bool)
+    for i, (b, sc) in enumerate(scenes):
+        boxes[i, :len(b)], scores[i, :len(b)], valid[i, :len(b)] = b, sc, True
+    return boxes, scores, valid
+
+
+def grid_scene(rng, n: int, p: int, im_w: int = 912, im_h: int = 608) -> tuple:
+    """Proposals on the program's 16-px anchor grid, many per column,
+    heights of the anchor ladder jittered, scores in (0.7, 1], a tenth
+    invalid (a copy of ``tests/test_torch_successors.py::grid_scene``)."""
+    x1 = 16.0 * rng.randint(0, im_w // 16, (n, p))
+    h = rng.choice([11, 16, 23, 33, 48, 68, 97], (n, p)) * rng.uniform(0.9, 1.1, (n, p))
+    y1 = rng.uniform(0, im_h - 100, (n, p))
+    boxes = np.stack([x1, y1, x1 + 15, y1 + h - 1], -1).astype(np.float32)
+    return boxes, rng.uniform(0.7, 1.0, (n, p)).astype(np.float32), rng.rand(n, p) > 0.1
+
+
+def rule_scenes() -> list:
+    """(name, boxes, scores, valid) of the tests' scenes built for each rule
+    (``tests/test_torch_successors.py``), each a batch of small images."""
+    def strip(x1, y1, y2):
+        return [x1, y1, x1 + 15, y2]
+
+    ties = [strip(0, 10, 40), strip(32, 10, 40), strip(16, 10, 40), strip(32, 10, 40),
+            strip(16, 10, 40), strip(16, 10, 40)]
+    nearest = [strip(0, 10, 40), strip(16, 10, 40), strip(32, 10, 40)]
+    gaps = [[strip(100, 10, 40), strip(100 + dx, 10, 40)] for dx in (50, 51, 50.9, 49.5)]
+    thresholds = [[strip(0, 0.0, 9.0), strip(16, a, b)]
+                  for a, b in ((3.0, 12.0), (3.01, 12.01), (0.0, 6.0), (0.0, 5.99))]
+    out = [("ties in the nearest column on both sides (1, 6)",
+            *padded_scenes([(np.array(ties, np.float32),
+                             np.array([0.95, 0.9, 0.8, 0.9, 0.8, 0.8], np.float32))], 6)),
+           ("the nearest precursor column (1, 3)",
+            *padded_scenes([(np.array(nearest, np.float32),
+                             np.array([0.99, 0.8, 0.9], np.float32))], 3)),
+           ("column gaps 50, 51, 50.9, 49.5 (4, 2)",
+            *padded_scenes([(np.array(g, np.float32), np.array([0.9, 0.8], np.float32))
+                            for g in gaps], 2)),
+           ("overlap and similarity at and under 0.7 (4, 2)",
+            *padded_scenes([(np.array(t, np.float32), np.array([0.9, 0.8], np.float32))
+                            for t in thresholds], 2))]
+    one = padded_scenes([(np.array([strip(0, 10, 40)], np.float32),
+                          np.array([0.9], np.float32))] * 2, 1)
+    one[2][1] = False
+    out.append(("one node, valid and not (2, 1)", *one))
+    boxes, scores, _ = grid_scene(np.random.RandomState(3), 2, 64)
+    out.append(("no valid node (2, 64)", boxes, scores, np.zeros((2, 64), bool)))
+    return out
+
+
+def successor_cases(rng) -> list:
+    """(name, boxes, scores, valid, settings) of the successor kernel's
+    cases, the settings (max_gap, min_v_overlaps, min_size_sim)."""
+    default = (50, 0.7, 0.7)
+    cases = [(name, b, sc, v, default) for name, b, sc, v in rule_scenes()]
+    for slope in (0.0, 0.08):
+        strips = [strip_scene(rng, n_lines=5, slope=slope) for _ in range(4)]
+        cases.append((f"strip scenes, slope {slope} (4, 160)",
+                      *padded_scenes(strips, 160), default))
+    for n, p, what in ((48, 1000, "the anchor grid"), (1, 1037, "P off the CTA"),
+                       (2, 2500, "past 48 KB of shared memory"),
+                       (1, 12000, "inputs read from global memory"),
+                       (1, 16384, "the most keys in shared memory"),
+                       (1, 16385, "keys in global memory")):
+        cases.append((f"{what} ({n}, {p})", *grid_scene(rng, n, p), default))
+    for settings in ((16, 0.7, 0.7), (50, 0.5, 0.9), (0, 0.7, 0.7), (-3, 0.7, 0.7),
+                     (1000, 0.7, 0.7)):
+        cases.append((f"max_gap, overlap, similarity {settings} (2, 200)",
+                      *grid_scene(rng, 2, 200), settings))
+    return cases
+
+
+def same_successors(got: torch.Tensor, want: torch.Tensor, what: str) -> None:
+    if got.dtype != torch.int32 or got.shape != want.shape or want.dtype != torch.int32:
+        raise AssertionError(f"successors {what}: {got.dtype} {tuple(got.shape)}, plain "
+                             f"{want.dtype} {tuple(want.shape)}")
+    if not torch.equal(got.cpu(), want.cpu()):
+        raise AssertionError(f"successors {what}: {int((got.cpu() != want.cpu()).sum())} "
+                             "of the nodes differ from the plain version")
+
+
+def window_pair_tests(boxes: torch.Tensor, valid: torch.Tensor, max_gap: int) -> int:
+    """Ordered pairs of valid nodes of one image within max_gap columns,
+    in another column: the pair tests a scan to the window's edges makes,
+    and more than the kernel's, which stops at the nearest candidate
+    column."""
+    total = 0
+    cols = torch.floor(boxes[..., 0]).to(torch.int64).cpu().numpy()
+    for col, ok in zip(cols, valid.cpu().numpy()):
+        c = np.sort(col[ok])
+        near = np.searchsorted(c, c + max_gap, side="right") - np.searchsorted(c, c, "right")
+        total += 2 * int(near.sum())
+    return total
+
+
+def profile_detect_lines(args, kw) -> dict:
+    """One eager ``detect_lines`` on the program's own arguments under
+    ``torch.profiler``: its device kernels counted and timed by name, and
+    the largest input of any op it ran, in elements."""
+    from ctpn_tpu_torch.postprocess.detector import detect_lines
+
+    detect_lines(*args, **kw)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
+        detect_lines(*args, **kw)
+        torch.cuda.synchronize()
+    kernels, largest = {}, 0
+    for e in prof.events():
+        for k in getattr(e, "kernels", None) or []:
+            row = kernels.setdefault(k.name[:80], [0, 0.0])
+            row[0] += 1
+            row[1] += k.duration / 1e3
+        for shape in e.input_shapes or []:
+            if shape and all(isinstance(d, int) for d in shape):
+                largest = max(largest, int(np.prod(shape)))
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])
+    return {"kernels": sum(n for n, _ in kernels.values()),
+            "device_ms": sum(ms for _, ms in kernels.values()),
+            "largest_input_elems": largest,
+            "by_kernel": [[name, n, ms] for name, (n, ms) in top[:12]]}
+
+
+def check_successors_kernel(dev, calls: dict = None) -> dict:
+    """The successor graph against its plain version, bit for bit: the
+    made-up cases (plain version on the card; on the CPU too up to P
+    2500), then the program's own proposals at (48, 1000) from the
+    benchmark cell's renders (the arguments of the connector's call,
+    ``connector_calls``; plain version on the card and on the CPU). Timed
+    there beside its bound and the plain version (the dense form it
+    replaced); then ``detect_lines`` on the program's arguments under
+    ``torch.profiler``: no op may take an input of N x P x P elements."""
+    from ctpn_tpu_torch.ops import successors as SU
+
+    calls = calls or connector_calls(dev)
+    rng = np.random.RandomState(13)
+    with torch.inference_mode():
+        for name, *arrays, settings in successor_cases(rng):
+            args = [torch.from_numpy(a).to(dev) for a in arrays]
+            got = SU.successors(*args, *settings)
+            torch.cuda.synchronize()
+            same_successors(got, SU.successors_ref(*args, *settings), name)
+            on_cpu = arrays[1].shape[1] <= 2500
+            if on_cpu:
+                cpu = [torch.from_numpy(a) for a in arrays]
+                same_successors(got, SU.successors_ref(*cpu, *settings),
+                                name + ", plain version on the CPU")
+            log(f"  successors {name}: equal to the plain version bit for bit"
+                f"{' (card and CPU)' if on_cpu else ''}, {int((got >= 0).sum())} edges")
+
+        args = calls["successors"][0]  # the connector passes all six positionally
+        boxes, scores, valid = args[:3]
+        settings = tuple(args[3:])
+        got = SU.successors(*args)
+        torch.cuda.synchronize()
+        same_successors(got, SU.successors_ref(*args), "the program's proposals")
+        same_successors(got, SU.successors_ref(boxes.cpu(), scores.cpu(), valid.cpu(),
+                                               *settings),
+                        "the program's proposals, plain version on the CPU")
+        ms = cuda_ms(lambda: SU.successors(*args), 20)
+        direct_ms = launch_ms(SU, *args)
+        plain_ms = cuda_ms(lambda: SU.successors_ref(*args), 3)
+        n, p = scores.shape
+        tests = window_pair_tests(boxes, valid, settings[0])
+        # boxes, scores and flags read, the successors written
+        n_bytes = n * p * (16 + 4 + 1 + 4)
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = tests * PAIR_TEST_OPS / F32_OPS_PER_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        graph = {"shape": [n, p], "settings": list(settings),
+                 "valid": int(valid.sum()), "edges": int((got >= 0).sum()),
+                 "window_pair_tests": tests, "dense_pair_tests": n * p * p}
+        profile = profile_detect_lines(*calls["detect_lines"])
+    del args, got, boxes, scores, valid
+    torch.cuda.empty_cache()
+    if not profile["kernels"]:
+        raise AssertionError("detect_lines: the profiler saw no device kernel")
+    if profile["largest_input_elems"] >= n * p * p:
+        raise AssertionError(f"detect_lines ran an op on {profile['largest_input_elems']} "
+                             f"elements, N x P x P = {n * p * p}")
+    log(f"  successors, the program's proposals {json.dumps(graph)}: equal to the plain "
+        f"version bit for bit (card and CPU); kernel {ms:.4f} ms (launcher alone "
+        f"{direct_ms:.4f}), bound {bound_ms:.5f} ms (bytes {bytes_ms:.5f}, {n_bytes} bytes; "
+        f"pair tests {ops_ms:.5f}), {100 * bound_ms / ms:.2f} % of it; plain {plain_ms:.4f} ms")
+    log("  detect_lines profile " + json.dumps(profile))
+    return {
+        "name": "successors",
+        "route": "cuda",
+        "source": "ctpn_tpu_torch/ops/csrc/chain_walk.cu",
+        "replaces": "ctpn_tpu/postprocess/connector.py:build_successors",
+        "launches": None,  # filled from the main path's run
+        "max_abs_err": 0.0,  # bit for bit
+        "ms": ms,
+        "launch_ms": direct_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "pair tests",
+        "shapes": [dict(graph, call=f"successors ({n}, {p})")],
+        "detect_lines_profile": profile,
     }
 
 
@@ -1448,7 +1689,7 @@ def check_budget(name: str, lines: int, n_ref: int, what: str) -> None:
 
 
 def drive_main_path(dev, kernel_entry: dict, epilogue_entry: dict = None,
-                    walk_entry: dict = None) -> list:
+                    walk_entry: dict = None, successors_entry: dict = None) -> list:
     from ctpn_tpu_torch.config import cfg
     from ctpn_tpu_torch.inference.pipeline import CTPNPredictor
     from ctpn_tpu_torch.ops import nms_fused as NF
@@ -1484,6 +1725,8 @@ def drive_main_path(dev, kernel_entry: dict, epilogue_entry: dict = None,
         epilogue_entry["launches"] = counts["conv_epilogue"]
     if walk_entry is not None:
         walk_entry["launches"] = counts["chain_walk"]
+    if successors_entry is not None:
+        successors_entry["launches"] = counts["successors"]
     total = sum(len(r) for r, _, _ in results)
     hits = sum(h for _, h, _ in results)
     n_ref = sum(n for _, _, n in results)
@@ -1579,10 +1822,11 @@ def zero_launch_counts() -> None:
 # kernel launches per program run (one padded batch) on each route, in
 # bf16: a conv epilogue per conv of the trunk and rpn_conv (13 + 1; on the
 # served route the stem kernel runs block 1's two convs), and the
-# connector's chain walk once
-ROUTE_LAUNCHES = {"default": {"nms_fused": 2, "conv_epilogue": 14, "chain_walk": 1},
+# connector's successor graph and chain walk once each
+ROUTE_LAUNCHES = {"default": {"nms_fused": 2, "conv_epilogue": 14, "successors": 1,
+                              "chain_walk": 1},
                   "served": {"nms_bitmask": 2, "nms_resolve": 2, "stem_fused": 1,
-                             "conv_epilogue": 12, "chain_walk": 1}}
+                             "conv_epilogue": 12, "successors": 1, "chain_walk": 1}}
 
 
 def route_launches(route: str, runs: int) -> dict:
@@ -4272,15 +4516,18 @@ def main(argv=()) -> int:
 
     log("[3/24] kernels against their plain versions")
     entries = [check_nms_kernel(dev), check_bitmask_kernel(dev), check_stem_kernel(dev),
-               check_resolve_kernel(dev), check_conv_epilogue_kernel(dev),
-               check_chain_walk_kernel(dev)]
+               check_resolve_kernel(dev), check_conv_epilogue_kernel(dev)]
+    calls = connector_calls(dev)
+    entries += [check_chain_walk_kernel(dev, calls), check_successors_kernel(dev, calls)]
+    del calls
+    torch.cuda.empty_cache()
     if "--kernels-only" in argv:
         print(json.dumps({"kernels": entries}))
         print(card)
         return 0
 
     log("[4/24] main path (default config)")
-    default_recs = drive_main_path(dev, entries[0], entries[4], entries[5])
+    default_recs = drive_main_path(dev, entries[0], entries[4], entries[5], entries[6])
 
     log("[5/24] serving path (TPU.NMS_FUSED False, TPU.FUSED_STEM True)")
     drive_serving_path(dev, entries[1], entries[3], entries[2], default_recs)

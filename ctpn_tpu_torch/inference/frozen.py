@@ -21,9 +21,9 @@ code and no cfg. That is the one difference from the JAX artifact, whose
 Pallas kernel is inlined into its StableHLO. The hand-written kernels are
 ``torch.library`` ops (``ctpn_torch::nms_keep_sorted_fused``,
 ``suppression_bitmask``, ``nms_resolve``, ``fused_stem_block``,
-``conv_epilogue``, ``chain_walk``): the program holds each as one node,
-and the op's registration (``ops/_kernel.py``, whose registry this module
-imports) gives it its kernel where the program runs, so an artifact
+``conv_epilogue``, ``successors``, ``chain_walk``): the program holds each
+as one node, and the op's registration (``ops/_kernel.py``, whose registry
+this module imports) gives it its kernel where the program runs, so an artifact
 exported on the card launches the same kernels as the live pipeline (and
 counts them in the same ``LAUNCHES``).
 An artifact exported before the conv epilogue existed holds the separate

@@ -674,9 +674,9 @@ def leg_inference(devices: List[torch.device], small: bool) -> dict:
     params = load_params(str(ARTIFACT), device=home)
     report = {}
     for route, sets, per_replica in (
-            ("default", [], {"nms_fused": 2, "chain_walk": 1}),
+            ("default", [], {"nms_fused": 2, "successors": 1, "chain_walk": 1}),
             ("served", SERVED_ROUTE, {"nms_bitmask": 2, "nms_resolve": 2, "stem_fused": 1,
-                                      "chain_walk": 1})):
+                                      "successors": 1, "chain_walk": 1})):
         _set_route(sets, small)
         per_replica = dict(per_replica, conv_epilogue=epilogue_launches(route))
         pred = CTPNPredictor(params, device=home)
@@ -794,7 +794,7 @@ def leg_frozen(devices: List[torch.device], inference: dict, small: bool,
         raise AssertionError("the frozen loader imported ctpn_tpu_torch.models")
     if probe["meta"]["dp_devices"] != len(devices):
         raise AssertionError(f"meta dp_devices {probe['meta']['dp_devices']}")
-    check_counts(devices, {"nms_fused": 2, "chain_walk": 1,
+    check_counts(devices, {"nms_fused": 2, "successors": 1, "chain_walk": 1,
                            "conv_epilogue": epilogue_launches("default")},
                  probe["launches_per_card"],
                  "frozen DP program, default route")

@@ -5,14 +5,16 @@ The reference walks per-column Python lists
 (`lib/text_connector/text_proposal_graph_builder.py`, `other.py`); here the
 whole pipeline is fixed-shape tensor ops over the padded proposal set:
 
-1. **Pairwise candidates** — (N, P, P) "j is a successor candidate of i":
-   vertical overlap >= 0.7, size similarity >= 0.7,
+1. **Pairwise candidates** — "j is a successor candidate of i": vertical
+   overlap >= 0.7, size similarity >= 0.7,
    0 < col_j - col_i <= MAX_HORIZONTAL_GAP.
 2. **Nearest-column rule** — candidates restricted to the nearest candidate
    column (mirrored for precursors).
 3. **Mutual-best edges** — best successor by score (ties -> lowest index,
    as ``np.argmax``), kept iff the source's score >= the best precursor
-   score of the target.
+   score of the target. Steps 1-3 are the ``ctpn_torch::successors`` op
+   (``ops/successors.py``): on the card one kernel that tests each node's
+   neighbours in column order, and writes no (N, P, P) tensor.
 4. **Chain membership** — every node's successor path, walked by the
    ``ctpn_torch::chain_walk`` op (``ops/chain_walk.py``) as far as
    ``2 ** ceil(log2(min(P, max_len)))`` successors: the reach of the JAX
@@ -32,41 +34,18 @@ whole pipeline is fixed-shape tensor ops over the padded proposal set:
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from ctpn_tpu_torch.ops.chain_walk import chain_walk
+from ctpn_tpu_torch.ops.successors import successors
 
 
 class TextLines(NamedTuple):
     recs: torch.Tensor  # (N, max_lines, 9) float32 quadrilateral + score
     valid: torch.Tensor  # (N, max_lines) bool
     count: torch.Tensor  # (N,) int32
-
-
-def _pairwise_candidates(
-    boxes, valid, max_gap, min_v_overlaps, min_size_sim
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(N, P, P) bool: j is a successor candidate of i; and (N, P) columns."""
-    y1, y2 = boxes[..., 1], boxes[..., 3]
-    h = y2 - y1 + 1.0
-    col = torch.floor(boxes[..., 0]).to(torch.int32)
-
-    inter = (
-        torch.minimum(y2[:, :, None], y2[:, None, :])
-        - torch.maximum(y1[:, :, None], y1[:, None, :])
-        + 1.0
-    )
-    min_h = torch.minimum(h[:, :, None], h[:, None, :])
-    max_h = torch.maximum(h[:, :, None], h[:, None, :])
-    v_ov = torch.clamp(inter, min=0.0) / min_h
-    sim = min_h / max_h
-    meet = (v_ov >= min_v_overlaps) & (sim >= min_size_sim)
-
-    dcol = col[:, None, :] - col[:, :, None]  # col_j - col_i
-    pairv = valid[:, :, None] & valid[:, None, :]
-    return meet & pairv & (dcol > 0) & (dcol <= max_gap), col
 
 
 def build_successors(
@@ -77,30 +56,9 @@ def build_successors(
     min_v_overlaps: float = 0.7,
     min_size_sim: float = 0.7,
 ) -> torch.Tensor:
-    """(N, P) int32 successor index per node (or -1): the kept graph edges."""
-    cand, col = _pairwise_candidates(
-        boxes, valid, max_gap, min_v_overlaps, min_size_sim
-    )
-    big = 1 << 30
-    neg_inf = -float("inf")
-
-    # successor side: restrict to nearest candidate column of i
-    cand_col = torch.where(cand, col[:, None, :], big)
-    min_col = cand_col.min(dim=2).values
-    succ_sel = cand & (col[:, None, :] == min_col[:, :, None])
-    has_succ = succ_sel.any(dim=2)
-    succ_scores = torch.where(succ_sel, scores[:, None, :], neg_inf)
-    best_j = torch.argmax(succ_scores, dim=2)  # ties -> lowest index
-
-    # precursor side: restrict to nearest candidate column of j (from below)
-    prec_col = torch.where(cand, col[:, :, None], -big)
-    max_col = prec_col.max(dim=1).values
-    prec_sel = cand & (col[:, :, None] == max_col[:, None, :])
-    prec_scores = torch.where(prec_sel, scores[:, :, None], neg_inf)
-    prec_best = prec_scores.max(dim=1).values
-
-    edge = has_succ & (scores >= torch.gather(prec_best, 1, best_j))
-    return torch.where(edge, best_j, -1).to(torch.int32)
+    """(N, P) int32 successor index per node (or -1): the kept graph edges,
+    from the ``ctpn_torch::successors`` op (``ops/successors.py``)."""
+    return successors(boxes, scores, valid, max_gap, min_v_overlaps, min_size_sim)
 
 
 def walk_steps(p: int, max_len: Optional[int] = None) -> int:
