@@ -1,0 +1,16 @@
+"""The box kernel's share of its roofline: the least time of one program
+run's boxes (``flops_craft.boxes_bound_s``: each kept component's box of
+labels and maps read and its record written, at the HBM rate, on the
+reference's own components) over the kernel's traced time per run."""
+
+
+def read(run):
+    trace, work = run.readings.get("trace"), run.readings.get("craft_boxes")
+    if not trace or not work:
+        return None
+    hits = [v for name, v in trace["kernels"].items() if "craft_boxes_kernel" in name]
+    n = sum(v["n"] for v in hits)
+    if n == 0:
+        return None
+    per_run = sum(v["s"] for v in hits) / (n / work["launches_per_run"])
+    return 100.0 * work["bound_s_per_run"] / per_run

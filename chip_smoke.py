@@ -30,9 +30,11 @@ launch no epilogue, training no connector kernel.
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only
     python3 chip_smoke.py --east
+    python3 chip_smoke.py --craft
 
 ``--east`` runs phases 1, 2 and 25 alone (EAST) and prints their line and
-the card line.
+the card line; ``--craft`` runs phases 1, 2 and 26 alone (CRAFT; the
+program's part only once its weights are committed).
 ``--kernels-only`` stops after phase 3 and prints the ``kernels`` line
 (without launch counts) and the card line, but no final result line: to
 compare two checkouts' kernels on one card, run each checkout's own copy
@@ -318,6 +320,23 @@ Phases (any failure exits non-zero and prints no result line):
     walk's, the bitmask's and the resolve's ms at the cell's shape beside
     their bounds (the live cells' and quads' bytes at 3.35 TB/s against
     the IoU tests at 112 float ops each at the float32 peak).
+
+26. CRAFT (``--craft`` runs it alone): the labelling and box kernels
+    against their plain versions bit for bit (made-up maps of character
+    blobs and links at the cell's shape with cut extents, small and wide
+    maps, empty maps and extents, a cap reached); then CRAFT's captured
+    program on ``data/artifacts/craft_vgg16bn_synth_f16.npz`` at the cell
+    ``craft_device_b32``'s shape (32 held-out renders, 736x1280): 23 conv
+    epilogues (11 in the trunk, 12 in the batched decoder), one
+    ``ccl_label`` and one ``craft_boxes`` per replayed run,
+    replays equal to the first bit for bit and to the eager program, no
+    overflow of the cap, every image with boxes, each image's maps and
+    boxes the same alone and in another slot, the taps and maps of four
+    slots against each image alone (printed); the conv epilogue at
+    all 23 sites, and both kernels on the program's own maps against their
+    plain versions bit for bit; and their ms at the cell's shape beside
+    their byte bounds at 3.35 TB/s. No other route launches either kernel
+    (every launch gate above counts them at 0).
 
 Every recall gate counts lines as ``ctpn-torch-eval`` does
 (``eval.match_boxes``: one-to-one, IoU >= 0.5, integer corner boxes).
@@ -4483,6 +4502,252 @@ def drive_east(dev, artifact: Path = EAST_ARTIFACT) -> dict:
             "epilogue_sites": len(sites)}
 
 
+# ------------------------------------------------------------------ CRAFT
+
+CRAFT_ARTIFACT = REPO / "data" / "artifacts" / "craft_vgg16bn_synth_f16.npz"
+# the cell craft_device_b32's shape: 32 renders at 1280x720 padded to 736x1280
+CRAFT_BATCH, CRAFT_BUCKET = 32, (736, 1280)
+# kernel launches per CRAFT program run in bf16 at the cell's batch: a conv
+# epilogue per conv with a ReLU (11 of the trunk; 8 of the decoder's blocks
+# and 4 of conv_cls, on the whole batch), one labelling and one box kernel
+CRAFT_SITES = 23
+CRAFT_LAUNCHES = {"conv_epilogue": CRAFT_SITES, "ccl_label": 1, "craft_boxes": 1}
+CRAFT_KW = dict(low_text=0.4, link_threshold=0.4, text_threshold=0.7, min_area=10)
+
+
+def craft_cfg(bucket=CRAFT_BUCKET) -> None:
+    from ctpn_tpu_torch.config import cfg_from_list, reset_cfg
+
+    reset_cfg()
+    cfg_from_list(["NET_NAME", "CRAFT_VGG16_BN", "TPU.BUCKETS", [list(bucket)]])
+
+
+def blob_maps(rng, b: int, h: int, w: int, words: int) -> torch.Tensor:
+    """(b, h, w, 2) made-up maps: rotated bars of characters (region) with
+    links between them (affinity), noise, and scores near the thresholds."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    maps = np.zeros((b, h, w, 2), np.float32)
+    maps[..., 0] = rng.uniform(-0.3, 0.45, (b, h, w))
+    maps[..., 1] = rng.uniform(-0.3, 0.42, (b, h, w))
+    for i in range(b):
+        for _ in range(words):
+            cx, cy = rng.uniform(0, w), rng.uniform(0, h)
+            a, n = rng.uniform(-0.8, 0.8), rng.randint(1, 9)
+            size = rng.uniform(2, 12)
+            for c in range(n):
+                px = cx + c * 1.4 * size * np.cos(a)
+                py = cy + c * 1.4 * size * np.sin(a)
+                d = ((xx - px) ** 2 + (yy - py) ** 2) / (size * size / 4)
+                maps[i, ..., 0] = np.maximum(maps[i, ..., 0], np.exp(-d) * rng.uniform(0.6, 1.0))
+                if c:
+                    qx, qy = px - 0.7 * size * np.cos(a), py - 0.7 * size * np.sin(a)
+                    d = ((xx - qx) ** 2 + (yy - qy) ** 2) / (size * size / 6)
+                    maps[i, ..., 1] = np.maximum(maps[i, ..., 1], np.exp(-d) * 0.8)
+    maps[rng.rand(b, h, w) < 0.002, 0] = 0.7  # exact thresholds here and there
+    maps[rng.rand(b, h, w) < 0.002, 1] = 0.4
+    return torch.from_numpy(maps)
+
+
+def same_labels(got, want, what: str) -> None:
+    names = ("labels", "stats", "score", "count", "overflow", "on", "labelled")
+    for a, b, name in zip(got, want, names):
+        if not torch.equal(a.cpu(), b.cpu()):
+            raise AssertionError(f"ccl_label {what}: {name} differs from the plain version")
+
+
+def check_craft_kernels(dev) -> list:
+    """The labelling and box kernels against their plain versions, bit for
+    bit, on made-up maps: the cell's shape with its extents, small maps,
+    empty maps, extents of one row and one column, a cap reached."""
+    from ctpn_tpu_torch.ops import ccl, craft_boxes as cb
+
+    rng = np.random.RandomState(26)
+    cases = [("cell", blob_maps(rng, 4, 368, 640, 120), [[360, 640], [368, 640], [300, 500],
+                                                         [368, 1]], 512),
+             ("small", blob_maps(rng, 3, 33, 47, 10), [[33, 47], [1, 47], [20, 30]], 64),
+             ("empty", torch.full((2, 40, 64, 2), -1.0), [[40, 64], [0, 0]], 16),
+             ("cap", blob_maps(rng, 2, 120, 200, 200), [[120, 200], [120, 200]], 5),
+             ("wide", blob_maps(rng, 1, 64, 1500, 300), [[64, 1500]], 1024)]
+    kept = 0
+    for name, maps, ext, cap in cases:
+        extent = torch.tensor(ext, dtype=torch.int32)
+        args = (CRAFT_KW["low_text"], CRAFT_KW["link_threshold"], CRAFT_KW["text_threshold"],
+                CRAFT_KW["min_area"], cap)
+        got = ccl.ccl_label(maps.to(dev), extent.to(dev), *args)
+        want = ccl.ccl_label_ref(maps, extent, *args)
+        same_labels(got, want, f"{name} {tuple(maps.shape)}")
+        recs = cb.craft_boxes(maps.to(dev), *[t.to(dev) for t in want[:4]], extent.to(dev),
+                              CRAFT_KW["low_text"], 2.0)
+        plain = cb.craft_boxes_ref(maps, *want[:4], extent, CRAFT_KW["low_text"], 2.0)
+        if not torch.equal(recs.cpu(), plain):
+            raise AssertionError(f"craft_boxes {name}: boxes differ from the plain version")
+        kept += int(want[3].sum())
+        log(f"  ccl_label, craft_boxes {name} {tuple(maps.shape)} cap {cap}: equal; kept "
+            f"{want[3].tolist()} overflow {want[4].tolist()} labelled {want[6].tolist()}")
+    return [{"name": "ccl_label", "cases": len(cases), "equal": True, "kept": kept},
+            {"name": "craft_boxes", "cases": len(cases), "equal": True}]
+
+
+def craft_batch(pred, n: int = CRAFT_BATCH):
+    """``n`` held-out renders at 1280x720, prepped by CRAFT's rule."""
+    from ctpn_tpu_torch.cli.train_craft_synth import holdout
+
+    preps = [pred.prep(im) for im, _ in holdout(n)]
+    return np.stack([p[0] for p in preps]), np.stack([p[1] for p in preps])
+
+
+def check_craft_epilogue_sites(model, xs) -> list:
+    """The conv epilogue at each of CRAFT's 23 sites on the batch ``xs``
+    (normalised), against its plain version bit for bit."""
+    from ctpn_tpu_torch.models import vgg
+    from ctpn_tpu_torch.ops import conv_epilogue as EP
+
+    sites, real = [], vgg.conv_epilogue
+
+    def checked(y, b, pool):
+        got = real(y, b, pool)
+        want = EP.conv_epilogue_ref(y, b, pool)
+        same = got.shape == want.shape and torch.equal(bits_of(got), bits_of(want))
+        sites.append({"shape": list(y.shape), "pool": pool, "equal": bool(same)})
+        return got
+
+    vgg.conv_epilogue = checked
+    try:
+        with torch.inference_mode():
+            model.decoder(model.trunk_taps(xs))
+        torch.cuda.synchronize()
+    finally:
+        vgg.conv_epilogue = real
+    log("  conv_epilogue at CRAFT's sites: " + "; ".join(
+        f"{tuple(s['shape'])}{' pool' if s['pool'] else ''} "
+        f"{'equal' if s['equal'] else 'DIFFERS'}" for s in sites))
+    if len(sites) != CRAFT_SITES or sum(s["pool"] for s in sites) != 3:
+        raise AssertionError(f"CRAFT: {len(sites)} epilogue sites, "
+                             f"{sum(s['pool'] for s in sites)} pooled (want 23, 3)")
+    bad = [s for s in sites if not s["equal"]]
+    if bad:
+        raise AssertionError(f"conv_epilogue differs from its plain version at {bad}")
+    return sites
+
+
+def craft_answers(out, n: int) -> list:
+    text, recs = out
+    r, c = recs.recs.cpu().numpy(), recs.count.cpu().numpy()
+    m = text.maps.cpu().numpy()
+    return [(r[i, :int(c[i])], m[i]) for i in range(n)]
+
+
+def drive_craft(dev, artifact: Path = CRAFT_ARTIFACT) -> dict:
+    """CRAFT on the card at the cell's shape: launches per replayed run,
+    repeats bit for bit, each image's maps and boxes in every slot and
+    alone, the eager program against the replay, the cap's overflow, the
+    taps and maps of four slots, the conv epilogue's 23 sites and
+    both new kernels on the batch's own maps against their plain versions,
+    and their times beside their bounds."""
+    from ctpn_tpu_torch.inference.pipeline import CRAFTPredictor, CTPNPredictor, craft_normalised
+    from ctpn_tpu_torch.ops import ccl, craft_boxes as cb
+    from ctpn_tpu_torch.postprocess.craft import craft_kwargs, map_extent
+    from ctpn_tpu_torch.utils.weights import load_params
+
+    craft_cfg()
+    pred = CTPNPredictor(load_params(str(artifact), device=dev), device=dev)
+    assert isinstance(pred, CRAFTPredictor)
+    data, infos = craft_batch(pred)
+    x, info = torch.from_numpy(data).to(dev), torch.from_numpy(infos).to(dev)
+    first = pred.graphs(x, info)
+    first = pred.graphs(x, info)  # the first replay
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    runs = [pred.graphs(x, info) for _ in range(5)]
+    torch.cuda.synchronize()
+    expect_launches(launch_counts(), {k: 5 * v for k, v in CRAFT_LAUNCHES.items()},
+                    "CRAFT, 5 replayed runs")
+    base = craft_answers(first, CRAFT_BATCH)
+
+    def same(a, b):
+        return np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+
+    for out in runs:
+        if not all(same(a, b) for a, b in zip(craft_answers(out, CRAFT_BATCH), base)):
+            raise AssertionError("CRAFT: a replay's maps or boxes differ from the first")
+    eager = pred.program(x, info)
+    if not all(same(a, b) for a, b in zip(craft_answers(eager, CRAFT_BATCH), base)):
+        raise AssertionError("CRAFT: the eager program's answers differ from the replay")
+    t = first[0]
+    counts = {k: getattr(t, k).cpu().tolist() for k in ("on", "labelled", "count")}
+    over = int(t.overflow.sum())
+    log("  CRAFT per image: pixels on mean %.1f, components mean %.1f max %d, kept mean %.2f "
+        "max %d min %d; overflow %d" % (
+            np.mean(counts["on"]), np.mean(counts["labelled"]), max(counts["labelled"]),
+            np.mean(counts["count"]), max(counts["count"]), min(counts["count"]), over))
+    if over:
+        raise AssertionError(f"CRAFT: {over} components past the cap")
+    if min(counts["count"]) == 0:
+        raise AssertionError("CRAFT: an image without boxes")
+
+    # slots: every image alone (batch 1) and in the batch rolled by 13
+    slot_diff = 0
+    for i in range(CRAFT_BATCH):
+        alone = craft_answers(pred.graphs(x[i:i + 1], info[i:i + 1]), 1)[0]
+        slot_diff += not same(alone, base[i])
+    rolled = craft_answers(pred.graphs(x.roll(13, 0), info.roll(13, 0)), CRAFT_BATCH)
+    slot_diff += sum(not same(rolled[(i + 13) % CRAFT_BATCH], base[i])
+                     for i in range(CRAFT_BATCH))
+    m = pred.model
+    with torch.inference_mode():
+        xs = craft_normalised(x[:4])
+        taps_b = m.trunk_taps(xs)
+        maps_b = m.maps(taps_b)
+        split = {}
+        for j in range(4):
+            taps_1 = m.trunk_taps(xs[j:j + 1])
+            names = ["conv2_2", "conv3_2", "conv4_2", "conv5_2"]
+            d = {n: float((a[j:j + 1].float() - b.float()).abs().max())
+                 for n, a, b in zip(names, taps_b, taps_1)}
+            d["maps"] = float((maps_b[j:j + 1] - m.maps(taps_1)).abs().max())
+            split[j] = d
+    log(f"  CRAFT slots: {slot_diff} of {2 * CRAFT_BATCH} image runs differ from the batch's; "
+        f"maps batch vs alone (max abs): {json.dumps(split)}")
+    if slot_diff:
+        raise AssertionError("CRAFT: an image's maps or boxes depend on its slot")
+
+    sites = check_craft_epilogue_sites(m, craft_normalised(x))
+
+    # both kernels on the batch's own maps, against their plain versions
+    kw = craft_kwargs()
+    maps = first[0].maps
+    extent = map_extent(info, maps)
+    args = (kw["low_text"], kw["link_threshold"], kw["text_threshold"], kw["min_area"],
+            kw["max_boxes"])
+    got = ccl.ccl_label(maps, extent, *args)
+    want = ccl.ccl_label_ref(maps, extent, *args)  # the plain version, on the card
+    same_labels(got, want, f"on the batch's maps {tuple(maps.shape)}")
+    recs = cb.craft_boxes(maps, *got[:4], extent, kw["low_text"], 2.0)
+    plain = cb.craft_boxes_ref(maps, *got[:4], extent, kw["low_text"], 2.0)
+    if not torch.equal(recs.cpu(), plain.cpu()):
+        raise AssertionError("craft_boxes on the batch's maps differs from the plain version")
+    log("  ccl_label and craft_boxes on the batch's own maps: equal to their plain versions "
+        "bit for bit")
+    ccl_ms = cuda_ms(lambda: ccl.ccl_label(maps, extent, *args), 20)
+    boxes_ms = cuda_ms(lambda: cb.craft_boxes(maps, *got[:4], extent, kw["low_text"], 2.0), 20)
+    ext = extent.cpu().numpy()
+    pixels = int((ext[:, 0] * ext[:, 1]).sum())
+    st, cnt = got[1].cpu().numpy(), got[3].cpu().numpy()
+    box_px = int(sum(int(st[i, k, 4]) * int(st[i, k, 5]) for i in range(len(cnt))
+                     for k in range(int(cnt[i]))))
+    # bytes the work needs: the maps read and the labels written over the
+    # extents; the boxes' label and region reads over each component's box
+    ccl_bytes = pixels * (8 + 4)
+    boxes_bytes = box_px * (4 + 8) + int(cnt.sum()) * (24 + 4 + 36)
+    times = {"ccl_label_ms": ccl_ms, "ccl_bound_ms": ccl_bytes / HBM_BYTES_PER_S * 1e3,
+             "craft_boxes_ms": boxes_ms,
+             "craft_boxes_bound_ms": boxes_bytes / HBM_BYTES_PER_S * 1e3,
+             "pixels": pixels, "box_pixels": box_px, "kept": int(cnt.sum())}
+    log("  CRAFT kernels at (32, 736x1280): " + json.dumps(times))
+    return {"counts": counts, "times": times, "slot_differences": slot_diff, "maps": split,
+            "epilogue_sites": len(sites)}
+
+
 def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4504,6 +4769,15 @@ def main(argv=()) -> int:
             # notes (C75xx: e.g. wgmma serialized)
             if any(k in line for k in ("registers", "smem", "spill", "(C75")):
                 log(f"  {name}: {line.strip()}")
+
+    if "--craft" in argv:
+        log("[26/26] CRAFT: the labelling and box kernels, the captured program at "
+            "(32, 736x1280)")
+        entries = check_craft_kernels(dev)
+        craft = drive_craft(dev) if CRAFT_ARTIFACT.exists() else None
+        print(json.dumps({"kernels": entries, "craft": craft}))
+        print(card)
+        return 0
 
     if "--east" in argv:
         log("[25/25] EAST: the walk and quad bitmask kernels, the captured program at "
@@ -4654,8 +4928,16 @@ def main(argv=()) -> int:
     east = drive_east(dev)
     log(f"  EAST phase {time.perf_counter() - t0:.1f} s")
 
+    log("[26/26] CRAFT: the labelling and box kernels, the captured program at "
+        "(32, 736x1280)")
+    t0 = time.perf_counter()
+    zero_launch_counts()
+    entries += check_craft_kernels(dev)
+    craft = drive_craft(dev)
+    log(f"  CRAFT phase {time.perf_counter() - t0:.1f} s")
+
     log(f"[21/24] result (all phases {time.perf_counter() - t_start:.1f} s)")
-    print(json.dumps({"kernels": entries, "east": east}))
+    print(json.dumps({"kernels": entries, "east": east, "craft": craft}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -4,8 +4,8 @@ The PyTorch port keeps the same schema and key names as the JAX package so
 that one YAML file (``configs/text.yml``) loads into both; the ``TPU.*``
 knobs keep their names too. Of those, the port reads ``BUCKETS``,
 ``COMPUTE_DTYPE``, ``PARAM_DTYPE``, ``MAX_LINES``, ``NMS_FUSED``,
-``FUSED_STEM``, EAST's caps ``EAST_MAX_MERGED`` and ``EAST_MAX_RECORDS``
-and, in training, ``MAX_GT``, ``MAX_DONTCARE``,
+``FUSED_STEM``, EAST's caps ``EAST_MAX_MERGED`` and ``EAST_MAX_RECORDS``,
+CRAFT's ``CRAFT_MAX_BOXES`` and, in training, ``MAX_GT``, ``MAX_DONTCARE``,
 ``PREFETCH_DEPTH`` and ``REMAT``; the others (tile sizes, ``MESH_AXIS``,
 ``PACKED_STEM``, whose packed block equals the stock convs) are accepted
 and change nothing.
@@ -84,6 +84,12 @@ def _default_cfg() -> AttrDict:
     c.DEDUP_BOXES = 1.0 / 16.0
     # BGR pixel means, same ordering/values as reference config.py:200
     c.PIXEL_MEANS = [102.9801, 115.9465, 122.7717]
+    # CRAFT's input normalisation (new): the channel order the network
+    # reads, then minus PIXEL_MEANS and over PIXEL_STDS, both in that order.
+    # The shipped CRAFT weights sit on CTPN's trunk (BGR, its means, std 1);
+    # clovaai's published ones read RGB with ImageNet's mean and std x 255
+    c.CHANNEL_ORDER = "BGR"
+    c.PIXEL_STDS = [1.0, 1.0, 1.0]
     c.RNG_SEED = 3
     c.EPS = 1e-14
     c.ROOT_DIR = osp.abspath(osp.join(osp.dirname(__file__), ".."))
@@ -199,6 +205,17 @@ def _default_cfg() -> AttrDict:
     # and the IoU over which locality-aware NMS folds and NMS suppresses
     x.SCORE_MAP_THRESH = 0.8
     x.NMS_THRESH = 0.2
+    # CRAFT (NET_NAME CRAFT_VGG16_BN; clovaai/CRAFT-pytorch test.py and
+    # craft_utils.py): a component is kept when its largest region score
+    # reaches TEXT_THRESHOLD and its area MIN_COMPONENT_AREA; a pixel is on
+    # over LOW_TEXT (region) or LINK_THRESHOLD (affinity); the host resize
+    # takes the long side to min(MAG_RATIO x long side, CANVAS_SIZE)
+    x.TEXT_THRESHOLD = 0.7
+    x.LOW_TEXT = 0.4
+    x.LINK_THRESHOLD = 0.4
+    x.MIN_COMPONENT_AREA = 10
+    x.CANVAS_SIZE = 1280
+    x.MAG_RATIO = 1.5
     c.TEXT = x
 
     # ---- TPU build knobs (new; no reference equivalent) ----
@@ -218,6 +235,9 @@ def _default_cfg() -> AttrDict:
     # bitmask's and resolve's work grows as its square
     p.EAST_MAX_MERGED = 1024
     p.EAST_MAX_RECORDS = 512  # EAST: records kept by NMS per image
+    # CRAFT: components kept (one box each) per image; the rest are counted;
+    # 128 is 4.1x the most any 720p render of the benchmark kept (31)
+    p.CRAFT_MAX_BOXES = 128
     p.NMS_TILE = 256  # Pallas NMS bitmask row-tile size (multiple of 8)
     p.NMS_TILE_J = 2048  # Pallas NMS bitmask column-tile size (mult. of 16)
     # single-kernel NMS (build+resolve fused, early exit); False: the

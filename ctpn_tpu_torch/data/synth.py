@@ -277,13 +277,16 @@ def _text_fill(
     return tuple(int(c) for c in rng.randint(lo, hi, 3))
 
 
-def _word_boxes(probe, text: str, font, x: float, y: float):
+def _word_boxes(probe, text: str, font, x: float, y: float, chars=None):
     """Axis-aligned bbox of every word of ``text`` drawn at (x, y).
 
     Ground truth is per WORD (ICDAR-style, the labeling the CTPN family is
     designed for): the text connector splits lines at horizontal gaps >
     ``MAX_HORIZONTAL_GAP`` (`text_proposal_graph_builder.py:10-20`), so a
     line-level box spanning wide spaces is unreachable by construction.
+
+    ``chars``, a list, gets for each word kept the bboxes of its
+    characters (the glyphs with ink, each at its advance in the word).
     """
     out = []
     prefix = ""
@@ -292,8 +295,26 @@ def _word_boxes(probe, text: str, font, x: float, y: float):
         b = probe.textbbox((x + off, y), word, font=font)
         if b[2] > b[0] and b[3] > b[1]:
             out.append(b)
+            if chars is not None:
+                chars.append(_char_boxes(probe, word, font, x + off, y) or [b])
         prefix += word + " "
     return out
+
+
+def _char_boxes(probe, word: str, font, x: float, y: float):
+    """The bbox of each character of ``word`` drawn at (x, y) that has ink."""
+    out = []
+    for j, c in enumerate(word):
+        off = probe.textlength(word[:j], font=font) if j else 0.0
+        b = probe.textbbox((x + off, y), c, font=font)
+        if b[2] > b[0] and b[3] > b[1]:
+            out.append(b)
+    return out
+
+
+def _corners(box) -> Tuple[float, ...]:
+    x0, y0, x1, y1 = box
+    return (x0, y0, x1, y0, x1, y1, x0, y1)
 
 
 def _render_line(
@@ -301,9 +322,11 @@ def _render_line(
     rng: np.random.RandomState,
     y_hint: Optional[int] = None,
     size: Optional[int] = None,
+    chars: Optional[list] = None,
 ) -> Optional[List[Tuple[float, ...]]]:
     """Draw one text line (possibly rotated); returns per-word 8-coord
-    polygons (None if the line did not fit)."""
+    polygons (None if the line did not fit). ``chars``, a list, gets one
+    list of character polygons per word returned."""
     width, height = img.size
     # include display sizes (96-150 px): the reference demo set has
     # signage/headline text far above body-text scale
@@ -328,10 +351,13 @@ def _render_line(
 
     fill = _text_fill(rng, _mean_color(img, (x, y, x + tw, y + th)))
 
+    word_chars = [] if chars is not None else None
     if abs(angle) < 0.5:
         d = ImageDraw.Draw(img)
-        boxes = _word_boxes(d, text, font, x, y)
+        boxes = _word_boxes(d, text, font, x, y, word_chars)
         d.text((x, y), text, font=font, fill=fill)
+        if boxes and chars is not None:
+            chars.extend([_corners(c) for c in w] for w in word_chars)
         return [
             (x0, y0, x1, y0, x1, y1, x0, y1) for x0, y0, x1, y1 in boxes
         ] or None
@@ -356,19 +382,24 @@ def _render_line(
     rotm = np.array([[c, s], [-s, c]])
     center = np.array([cx, cy])
     line_origin = np.array([x + tw / 2.0, y + th / 2.0])
-    polys = []
-    for x0, y0, x1, y1 in _word_boxes(probe, text, font, x, y):
+    def turned(box):
+        x0, y0, x1, y1 = box
         corners = np.array(
             [[x0, y0], [x1, y0], [x1, y1], [x0, y1]], dtype=np.float64
         )
         pts = (corners - line_origin) @ rotm.T + center
-        polys.append(tuple(float(v) for v in pts.reshape(-1)))
+        return tuple(float(v) for v in pts.reshape(-1))
+
+    polys = [turned(b) for b in _word_boxes(probe, text, font, x, y, word_chars)]
+    if polys and chars is not None:
+        chars.extend([turned(c) for c in w] for w in word_chars)
     return polys or None
 
 
 def _render_edge_clipped_line(
     img: Image.Image,
     rng: np.random.RandomState,
+    chars: Optional[list] = None,
 ) -> Optional[List[Tuple[float, ...]]]:
     """One text line straddling an image border, GT clipped to the canvas.
 
@@ -404,16 +435,27 @@ def _render_edge_clipped_line(
                                min(x + tw, width), min(y + th, height)))
     )
     d = ImageDraw.Draw(img)
-    word_boxes = _word_boxes(d, text, font, x, y)
+    word_chars = [] if chars is not None else None
+    word_boxes = _word_boxes(d, text, font, x, y, word_chars)
     d.text((x, y), text, font=font, fill=fill)
-    polys = []
-    for x0, y0, x1, y1 in word_boxes:
-        cx0, cy0 = max(x0, 0.0), max(y0, 0.0)
-        cx1, cy1 = min(x1, float(width)), min(y1, float(height))
+    polys, kept_chars = [], []
+
+    def clipped(box):
+        x0, y0, x1, y1 = box
+        return max(x0, 0.0), max(y0, 0.0), min(x1, float(width)), min(y1, float(height))
+
+    for k, (x0, y0, x1, y1) in enumerate(word_boxes):
+        cx0, cy0, cx1, cy1 = clipped((x0, y0, x1, y1))
         word_h = max(y1 - y0, 1.0)
         if cx1 - cx0 < 4 or cy1 - cy0 < max(6.0, 0.4 * word_h):
             continue
         polys.append((cx0, cy0, cx1, cy0, cx1, cy1, cx0, cy1))
+        if chars is not None:
+            inside = [clipped(c) for c in word_chars[k]]
+            inside = [c for c in inside if c[2] > c[0] and c[3] > c[1]]
+            kept_chars.append([_corners(c) for c in inside] or [polys[-1]])
+    if polys and chars is not None:
+        chars.extend(kept_chars)
     return polys or None
 
 
@@ -421,6 +463,7 @@ def _render_glyph_line(
     img: Image.Image,
     rng: np.random.RandomState,
     y_hint: Optional[int] = None,
+    chars: Optional[list] = None,
 ) -> Optional[List[Tuple[float, ...]]]:
     """One line of procedural stroke glyphs (CJK-like texture).
 
@@ -467,6 +510,9 @@ def _render_glyph_line(
                         y0 + rng.uniform(0.2, 0.5) * size],
                        fill=fill, width=w_stroke)
         gx += size + gap
+    if chars is not None:  # the line is one word of square glyphs
+        chars.append([_corners((x + k * (size + gap), y, x + k * (size + gap) + size, y + th))
+                      for k in range(n_glyphs)])
     return [(x, y, x + tw, y, x + tw, y + th, x, y + th)]
 
 
@@ -475,8 +521,14 @@ def render_image(
     width: int = 900,
     height: int = 600,
     max_lines: int = 6,
+    chars: Optional[list] = None,
 ) -> Tuple[np.ndarray, List[Tuple[float, ...]]]:
-    """One RGB uint8 image + list of 8-coord per-word text polygons."""
+    """One RGB uint8 image + list of 8-coord per-word text polygons.
+
+    ``chars``, a list, gets for each polygon, in order, the list of its
+    characters' 8-coord polygons (a glyph line's glyphs). It draws nothing
+    more and takes nothing more from ``rng``: the image and the polygons
+    are those of a call without it."""
     img = _background(rng, width, height)
     polys: List[Tuple[float, ...]] = []
 
@@ -484,7 +536,7 @@ def render_image(
         size = int(rng.randint(16, 36))
         y = rng.randint(8, height // 3)
         for _ in range(rng.randint(2, 6)):
-            p = _render_line(img, rng, y_hint=y, size=size)
+            p = _render_line(img, rng, y_hint=y, size=size, chars=chars)
             if p is not None:
                 polys.extend(p)
             y += int(size * rng.uniform(1.3, 1.9))
@@ -494,7 +546,7 @@ def render_image(
     if rng.rand() < 0.25:  # dense glyph block: stacked CJK-like lines
         y = rng.randint(8, height // 2)
         for _ in range(rng.randint(2, 7)):
-            p = _render_glyph_line(img, rng, y_hint=y)
+            p = _render_glyph_line(img, rng, y_hint=y, chars=chars)
             if p is not None:
                 polys.extend(p)
                 y = int(p[0][7] + rng.uniform(0.2, 0.7) * (p[0][7] - p[0][1]))
@@ -506,14 +558,14 @@ def render_image(
     n_lines = rng.randint(1, max_lines + 1)
     for _ in range(n_lines):
         for _attempt in range(6):
-            p = (_render_glyph_line(img, rng) if rng.rand() < 0.15
-                 else _render_line(img, rng))
+            p = (_render_glyph_line(img, rng, chars=chars) if rng.rand() < 0.15
+                 else _render_line(img, rng, chars=chars))
             if p is not None:
                 polys.extend(p)
                 break
 
     if rng.rand() < 0.25:  # border-clipped line: text cut by the frame
-        p = _render_edge_clipped_line(img, rng)
+        p = _render_edge_clipped_line(img, rng, chars=chars)
         if p is not None:
             polys.extend(p)
 

@@ -24,6 +24,13 @@ the trunk's taps, the merge branch and heads, then the post-process of
 locality-aware walk, quad NMS), all on the card in the captured program; it
 answers with ``(EastQuads, EastRecords)`` in place of ``(Proposals,
 TextLines)``, and the host only unscales the quads (no line-union pass).
+
+With ``cfg.NET_NAME`` ``CRAFT_VGG16_BN`` it is a :class:`CRAFTPredictor`,
+which runs CRAFT (``models/craft.py``) through :func:`craft_program`: the
+normalisation, the trunk's taps, the decoder, then the connected
+components and the boxes of ``postprocess/craft.py``, all on the card in
+the captured program; it answers with ``(CraftText, CraftRecords)``, and
+the host resizes by CRAFT's rule and unscales the boxes.
 """
 
 from __future__ import annotations
@@ -36,15 +43,19 @@ import torch
 from ctpn_tpu_torch.config import cfg
 from ctpn_tpu_torch.inference.graphs import DetectGraphs
 from ctpn_tpu_torch.inference.records import unscale_quads, unscale_records
+from ctpn_tpu_torch.models.craft import CRAFT
 from ctpn_tpu_torch.models.ctpn import CTPN, CTPNOutputs
 from ctpn_tpu_torch.models.east import EAST
 from ctpn_tpu_torch.ops.proposal import Proposals, proposal_layer
 from ctpn_tpu_torch.postprocess.connector import TextLines
 from ctpn_tpu_torch.postprocess.detector import detect_lines
+from ctpn_tpu_torch.postprocess.craft import (CraftRecords, CraftText, craft_kwargs,
+                                              craft_postprocess)
 from ctpn_tpu_torch.postprocess.east import EastQuads, EastRecords, east_kwargs, east_postprocess
 from ctpn_tpu_torch.utils import timer
 from ctpn_tpu_torch.utils.device import device_constant, resolve_device
-from ctpn_tpu_torch.utils.image import load_image_bgr, prep_image, resize_im
+from ctpn_tpu_torch.utils.image import (craft_resize_factor, load_image_bgr, prep_image,
+                                        resize_by_factor, resize_im)
 from ctpn_tpu_torch.utils.weights import params_from_jax
 
 
@@ -190,6 +201,61 @@ def build_east_detect_fn(
     return detect
 
 
+def craft_normalised(images: torch.Tensor) -> torch.Tensor:
+    """``images`` (N, H, W, 3) uint8 or float32 BGR in the network's
+    channel order (``cfg.CHANNEL_ORDER``), minus ``cfg.PIXEL_MEANS`` and
+    over ``cfg.PIXEL_STDS`` (both in that order), float32, on their device."""
+    order = str(cfg.CHANNEL_ORDER)
+    if order not in ("BGR", "RGB"):
+        raise ValueError(f"cfg.CHANNEL_ORDER must be 'BGR' or 'RGB', got {order!r}")
+    pixel = tuple(float(m) for m in cfg.PIXEL_MEANS)
+    stds = tuple(float(m) for m in cfg.PIXEL_STDS)
+    means = device_constant(("pixel_means", pixel), images.device,
+                            lambda: np.asarray(pixel, np.float32))
+    x = images.float()
+    if order == "RGB":
+        x = x.flip(-1)
+    x = x - means
+    if stds != (1.0, 1.0, 1.0):
+        x = x / device_constant(("pixel_stds", stds), images.device,
+                                lambda: np.asarray(stds, np.float32))
+    return x
+
+
+def craft_program(
+    model: CRAFT,
+    images: torch.Tensor,
+    im_info: torch.Tensor,
+    kw: Mapping[str, Any],
+    on_stage: Optional[Callable[[str], None]] = None,
+) -> Tuple[CraftText, CraftRecords]:
+    """CRAFT's detect program: the normalisation and the trunk's taps
+    (``trunk``), slice5, the decoder and the heads (``decoder``), then
+    ``label`` and ``boxes`` (``postprocess/craft.py``); ``on_stage`` is
+    called after each. Like :func:`detect_program`, no host sync: a CUDA
+    graph captures all of it."""
+    mark = on_stage or (lambda name: None)
+    taps = model.trunk_taps(craft_normalised(images))
+    mark("trunk")
+    maps = model.maps(taps)
+    mark("decoder")
+    return craft_postprocess(maps, im_info, kw, mark)
+
+
+def build_craft_detect_fn(
+    model: CRAFT, on_stage: Optional[Callable[[str], None]] = None
+) -> Callable[[torch.Tensor, torch.Tensor], Tuple[CraftText, CraftRecords]]:
+    """Returns fn(images, im_info) -> (CraftText, CraftRecords), batched,
+    with the cfg's thresholds and cap (``craft_kwargs``)."""
+    kw = craft_kwargs()
+
+    @torch.inference_mode()
+    def detect(images: torch.Tensor, im_info: torch.Tensor):
+        return craft_program(model, images, im_info, kw, on_stage)
+
+    return detect
+
+
 def _stamped(clock, detect):
     """``detect`` behind the stage clock's ``start`` stamp."""
 
@@ -227,11 +293,14 @@ class CTPNPredictor:
     pad_span = "predict.pad"
 
     def __new__(cls, params=None, model=None, mode=None, device="cuda"):
-        from ctpn_tpu_torch.models.factory import EAST_NAMES
+        from ctpn_tpu_torch.models.factory import CRAFT_NAMES, EAST_NAMES
 
         if cls is CTPNPredictor and (
                 isinstance(model, EAST) or (model is None and cfg.NET_NAME in EAST_NAMES)):
             cls = EASTPredictor
+        elif cls is CTPNPredictor and (
+                isinstance(model, CRAFT) or (model is None and cfg.NET_NAME in CRAFT_NAMES)):
+            cls = CRAFTPredictor
         return super().__new__(cls)
 
     def __init__(
@@ -243,7 +312,7 @@ class CTPNPredictor:
     ):
         self.device = resolve_device(device)
         self.model = (model or self._network()).to(self.device)
-        self.model.load_state_dict(params_from_jax(params))
+        self.model.load_state_dict(self._state(params))
         self.model.eval()
         self.mode = mode or cfg.TEST.DETECT_MODE
         self.clock = timer.StageClock(self.device, self.stages) if timer.enabled() else None
@@ -258,6 +327,9 @@ class CTPNPredictor:
         from ctpn_tpu_torch.models.factory import get_network
 
         return get_network("VGGnet_test", self.device)
+
+    def _state(self, params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+        return params_from_jax(params)
 
     def _build(self, on_stage: Optional[Callable[[str], None]] = None):
         return build_detect_fn(self.model, mode=self.mode, on_stage=on_stage)
@@ -389,3 +461,73 @@ class EASTPredictor(CTPNPredictor):
 
     def detect_image_host(self, im_bgr: np.ndarray) -> np.ndarray:
         raise ValueError("detect_image_host runs CTPN's host post-process; EAST has none")
+
+
+class CRAFTPredictor(CTPNPredictor):
+    """:class:`CTPNPredictor` for CRAFT (``models/craft.py``, default
+    ``get_network(cfg.NET_NAME)``): the program is :func:`craft_program`,
+    which answers with ``(CraftText, CraftRecords)``
+    (``postprocess/craft.py``) in place of ``(Proposals, TextLines)``;
+    ``graphs``' key carries ``"CRAFT"``; the stage clock has CRAFT's
+    stages; the host resizes by CRAFT's rule (:meth:`detect_image`) and
+    unscales the boxes alone (no line union); there is no host
+    post-process (:meth:`detect_image_host`). Its host calls are
+    ``ctpn.craft.*`` spans. The trunk's ``conv5_3``, which CRAFT never
+    runs, is dropped from the weights (the shipped trunk artifact holds it).
+    """
+
+    stages = timer.CRAFT_STAGES
+    pad_span = "craft.pad"
+
+    def _network(self) -> torch.nn.Module:
+        from ctpn_tpu_torch.models.factory import get_network
+
+        return get_network(cfg.NET_NAME, self.device)
+
+    def _state(self, params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+        return {k: v for k, v in params_from_jax(params).items()
+                if not k.startswith("trunk.conv5_3.")}
+
+    def _build(self, on_stage: Optional[Callable[[str], None]] = None):
+        return build_craft_detect_fn(self.model, on_stage=on_stage)
+
+    def _variant(self) -> Callable[[], Tuple]:
+        return lambda: ("CRAFT",)
+
+    def run_batch(self, images: np.ndarray, im_info: np.ndarray):
+        with timer.span("craft.run"):
+            return super().run_batch(images, im_info)
+
+    def fetch(self, recs, i: int = 0) -> Tuple[np.ndarray, int]:
+        with timer.span("craft.fetch"):
+            return super().fetch(recs, i)
+
+    def unscale(self, recs: np.ndarray, count: int, f1: float, info,
+                y_off: float = 0.0) -> np.ndarray:
+        """One image's padded boxes on the host -> boxes ``[x1, y1, ..., x4,
+        y4, score]`` in ORIGINAL image coords (``unscale_quads``)."""
+        with timer.span("craft.unscale"):
+            return unscale_quads(recs, count, f1, info, y_off=y_off)
+
+    def prep(self, im_bgr: np.ndarray) -> Tuple[np.ndarray, np.ndarray, float]:
+        """One uint8 BGR image -> (padded image, im_info [h, w, 1], factor)
+        by CRAFT's resize (:func:`~ctpn_tpu_torch.utils.image.craft_resize_factor`,
+        bilinear; a factor of 1 copies the pixels)."""
+        h, w = im_bgr.shape[:2]
+        f, (bh, bw) = craft_resize_factor(h, w, float(cfg.TEXT.MAG_RATIO),
+                                          int(cfg.TEXT.CANVAS_SIZE), cfg.TPU.BUCKETS)
+        resized = im_bgr if f == 1.0 else resize_by_factor(im_bgr, f)
+        rh, rw = min(resized.shape[0], bh), min(resized.shape[1], bw)
+        data = np.zeros((bh, bw, 3), np.uint8)
+        data[:rh, :rw] = resized[:rh, :rw]
+        return data, np.array([rh, rw, 1.0], np.float32), f
+
+    def detect_image(self, im_bgr: np.ndarray) -> np.ndarray:
+        """One uint8 BGR image -> (M, 9) boxes in ORIGINAL image coords."""
+        data, info, f = self.prep(im_bgr)
+        _, recs = self.run_batch(data[None], info[None])
+        boxes, count = self.fetch(recs)
+        return self.unscale(boxes, count, f, info)
+
+    def detect_image_host(self, im_bgr: np.ndarray) -> np.ndarray:
+        raise ValueError("detect_image_host runs CTPN's host post-process; CRAFT has none")

@@ -4,7 +4,10 @@ Port of ``ctpn_tpu.models.vgg``: 3x3 SAME convs + ReLU, 2x2/2 VALID
 max-pools after blocks 1-4 (block 5 keeps full resolution, total stride
 16). EAST (``models/east.py``) builds the trunk with ``pool_last``, which
 pools after block 5 too (stride 32), and reads the outputs of pools 2-5
-(``forward(taps=True)``). Parameters are float32; each conv casts them to the input's compute
+(``forward(taps=True)``); CRAFT (``models/craft.py``) builds it to
+``conv5_2`` and reads named convs inside the blocks
+(``forward(taps=("conv2_2", ...), last_relu=False)``).
+Parameters are float32; each conv casts them to the input's compute
 dtype (bfloat16 by default), as flax's ``dtype`` does. Inside, the convs
 run NCHW; on CUDA the activations are kept channels_last for cuDNN.
 
@@ -53,7 +56,8 @@ VGG_STAGES: Tuple[Tuple[int, int, int], ...] = (
 
 
 class Conv3x3(nn.Conv2d):
-    """3x3 SAME conv whose float32 parameters cast to the input's dtype.
+    """3x3 SAME conv whose float32 parameters cast to the input's dtype
+    (``dilation`` > 1: CRAFT's fc6, padded by its dilation).
 
     ``per_image`` runs one conv per image of the batch. cuDNN splits the
     reduction of a small-spatial conv (the stride-16 layers, 38x57 at
@@ -63,19 +67,19 @@ class Conv3x3(nn.Conv2d):
     image per conv gives every slot the same sums.
     """
 
-    def __init__(self, cin: int, cout: int, per_image: bool = False):
-        super().__init__(cin, cout, 3, padding=1)
+    def __init__(self, cin: int, cout: int, per_image: bool = False, dilation: int = 1):
+        super().__init__(cin, cout, 3, padding=dilation, dilation=dilation)
         self.per_image = per_image
 
     def forward(self, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
         """The conv; ``bias=False`` leaves the bias out."""
         w = self.weight.to(x.dtype)
         b = self.bias.to(x.dtype) if bias else None
-        pad = self.padding
+        pad, dil = self.padding, self.dilation
         if self.per_image and x.shape[0] > 1:
-            return torch.cat([F.conv2d(x[i:i + 1], w, b, padding=pad)
+            return torch.cat([F.conv2d(x[i:i + 1], w, b, padding=pad, dilation=dil)
                               for i in range(x.shape[0])])
-        return F.conv2d(x, w, b, padding=pad)
+        return F.conv2d(x, w, b, padding=pad, dilation=dil)
 
     def conv_relu(self, x: torch.Tensor, pool: bool = False) -> torch.Tensor:
         """ReLU of the conv, then the 2x2/2 max-pool if ``pool``.
@@ -137,35 +141,53 @@ class VGG16Trunk(nn.Module):
                 cin = ch
         self.out_channels = cin
 
-    def forward(self, x: torch.Tensor, remat: bool = False, taps: bool = False):
+    def forward(self, x: torch.Tensor, remat: bool = False, taps=False,
+                last_relu: bool = True):
         """``remat`` keeps only each block's input for the backward pass and
         recomputes the block there (training; same values). A block draws
         no random numbers, so the generator's state is not stashed: that
         would read the CUDA generator inside a captured step.
 
-        ``taps`` returns the list of the outputs of blocks 2 to the last
-        (after their pools: with ``pool_last``, pool2-pool5 at strides 4,
-        8, 16 and 32) in place of the last output alone."""
+        ``taps`` True returns the list of the outputs of blocks 2 to the
+        last (after their pools: with ``pool_last``, pool2-pool5 at strides
+        4, 8, 16 and 32) in place of the last output alone. ``taps`` a tuple
+        of conv names (``"conv2_2"``, ...; not in a fused block 1) returns
+        those convs' outputs, after their ReLU and before any pool after
+        them, in the trunk's order. ``last_relu=False`` leaves the ReLU off
+        the last conv (CRAFT reads ``conv5_2`` before it)."""
+        names = () if isinstance(taps, bool) else tuple(taps)
         outs = []
         for block, reps, _ in self.stages:
+            bare = not last_relu and block == self.stages[-1][0]
             if block == 1 and self.fused_stem and reps == 2:
-                x = self._fused_block1(x)
+                x, read = self._fused_block1(x), ()
             elif remat:
-                x = checkpoint(self._block, block, reps, x, use_reentrant=False,
-                               preserve_rng_state=False)
+                x, *read = checkpoint(self._block, block, reps, x, names, bare,
+                                      use_reentrant=False, preserve_rng_state=False)
             else:
-                x = self._block(block, reps, x)
-            if taps and block >= 2:
+                x, *read = self._block(block, reps, x, names, bare)
+            outs += read
+            if taps is True and block >= 2:
                 outs.append(x)
-        return outs if taps else x
+        return outs if taps is True or names else x
 
-    def _block(self, block: int, reps: int, x: torch.Tensor) -> torch.Tensor:
+    def _block(self, block: int, reps: int, x: torch.Tensor, names=(), bare_last=False):
+        """The block's convs: (output, outputs of the convs in ``names``);
+        ``bare_last`` runs its last conv without its ReLU."""
+        read = []
         for rep in range(1, reps + 1):
+            name = f"conv{block}_{rep}"
+            conv = getattr(self, name)
             # pools 1-4, after the block's last conv: stride 16 at conv5_3;
             # with pool_last a fifth, stride 32
-            x = getattr(self, f"conv{block}_{rep}").conv_relu(
-                x, pool=rep == reps and (block < 5 or self.pool_last))
-        return x
+            pool = rep == reps and (block < 5 or self.pool_last)
+            tapped, bare = name in names, bare_last and rep == reps
+            x = conv(x) if bare else conv.conv_relu(x, pool=pool and not tapped)
+            if tapped:
+                read.append(x)
+            if pool and (tapped or bare):  # pooled after the read
+                x = F.max_pool2d(x, 2, 2)
+        return (x, *read)
 
     def _fused_block1(self, x: torch.Tensor) -> torch.Tensor:
         y = fused_stem_block(

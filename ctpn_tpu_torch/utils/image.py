@@ -57,6 +57,21 @@ def pick_bucket(h: int, w: int, buckets: Sequence[Sequence[int]] = None) -> Tupl
     return bh, bw
 
 
+def craft_resize_factor(h: int, w: int, mag_ratio: float, canvas_size: int,
+                        buckets: Sequence[Sequence[int]] = None) -> Tuple[float, Tuple[int, int]]:
+    """CRAFT's resize (clovaai ``imgproc.py::resize_aspect_ratio``): the
+    long side to ``min(mag_ratio * long side, canvas_size)``, the sizes
+    padded up to multiples of 32, in the smallest bucket that holds them;
+    where none does, the factor shrinks until the image fits the largest
+    bucket. Returns (factor, bucket)."""
+    f = min(mag_ratio * max(h, w), float(canvas_size)) / max(h, w)
+    th, tw = int(h * f), int(w * f)
+    bh, bw = pick_bucket(-(-th // 32) * 32, -(-tw // 32) * 32, buckets)
+    if th > bh or tw > bw:
+        f = min(f, bh / h, bw / w)
+    return f, (bh, bw)
+
+
 def prep_image(
     im: np.ndarray,
     scale: int = None,

@@ -31,13 +31,17 @@ Spans, all host seconds: ``graphs.upload``, ``graphs.replay``,
 ``serve.accept_wait`` (``serving.py``); ``stream.prep``, ``stream.wait``
 and ``stream.fetch`` (``inference/streaming.py``); ``east.pad``,
 ``east.run``, ``east.fetch`` and ``east.unscale``, the host calls of the
-predictor's EAST path (``inference/pipeline.py``).
+predictor's EAST path, and ``craft.pad``, ``craft.run``, ``craft.fetch``
+and ``craft.unscale``, those of its CRAFT path (``inference/pipeline.py``).
 
 The stage clock's stages are :data:`STAGES` for CTPN's program and
 :data:`EAST_STAGES` for EAST's: ``trunk`` (the VGG16 taps), ``merge`` (the
 merge branch and the heads), ``decode`` (threshold, raster compaction,
 RBOX restore), ``lanms`` (the locality-aware walk) and ``quad_nms`` (sort,
-bitmask, resolve, records).
+bitmask, resolve, records); and :data:`CRAFT_STAGES` for CRAFT's:
+``trunk`` (the normalisation and the taps), ``decoder`` (slice5, the
+U-net blocks and ``conv_cls``), ``label`` (the connected components) and
+``boxes`` (the minimum-area boxes).
 """
 
 from __future__ import annotations
@@ -185,6 +189,7 @@ def span(name: str):
 # --------------------------------------------------------- stage clock
 STAGES = ("start", "forward", "proposal_layer", "detect_lines")
 EAST_STAGES = ("start", "trunk", "merge", "decode", "lanms", "quad_nms")
+CRAFT_STAGES = ("start", "trunk", "decoder", "label", "boxes")
 ROWS = 256
 
 
@@ -217,9 +222,9 @@ _kernel.op("stage_stamp(Tensor(a!) ring, int slot) -> ()", cpu=_stamp_ref, cuda=
 
 class StageClock:
     """A ring of ``ROWS`` rows of stamps in ns, one per stage of
-    ``stages`` (:data:`STAGES`, or :data:`EAST_STAGES`), on ``device``; the
-    row counter (runs stamped in full) is the ring's last element, kept on
-    the device.
+    ``stages`` (:data:`STAGES`, :data:`EAST_STAGES` or
+    :data:`CRAFT_STAGES`), on ``device``; the row counter (runs stamped in
+    full) is the ring's last element, kept on the device.
 
     ``stamp(name)`` queues the stamp of stage ``name`` on the current
     stream: a program calls ``stamp("start")`` first and passes ``stamp``

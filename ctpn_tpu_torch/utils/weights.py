@@ -13,7 +13,16 @@ weights ``w_h_fw``/``w_h_bw`` in the ``h @ w_h`` layout ``(hidden, 4*hidden)``.
 An ``.npz`` may name another artifact beside it whose trunk it shares
 (``__trunk__``, with ``__trunk_sha256__``): :func:`read_artifact` reads
 that artifact's ``VGG16Trunk_0`` leaves in, checked against the digest.
-EAST's artifact stores its merge branch and heads so, on CTPN's trunk.
+EAST's artifact stores its merge branch and heads so, on CTPN's trunk, and
+CRAFT's its slice5, decoder and ``conv_cls``, its large kernels as int8
+with a scale per output channel (:func:`quantized`, :func:`dequantized`),
+which keeps its 8.3 M parameters to a few MB.
+
+CRAFT's published weights come as a clovaai/CRAFT-pytorch state dict
+(``basenet.slice1.0.weight``, ..., ``upconv1.conv.1.running_var``,
+``conv_cls.8.bias``; a ``module.`` prefix from ``DataParallel`` is
+stripped as its ``copyStateDict`` does): :func:`craft_params_from_clovaai`
+folds each batch norm into its conv and gives the port's parameter tree.
 
 The pretrained-format converters are NumPy copies of the JAX package's
 (``ctpn_tpu/utils/weights.py``), on the JAX-layout tree as nested dicts of
@@ -58,10 +67,46 @@ def read_artifact(artifact: str) -> Dict[str, np.ndarray]:
         raise ValueError(
             f"expected an .npz artifact or an orbax artifact directory, got {artifact}")
     with np.load(artifact) as flat:
-        out = {k: flat[k].astype(np.float32) for k in flat.files if k not in _TRUNK_REF}
+        out = {k: flat[k] for k in flat.files if k not in _TRUNK_REF}
         ref = {k: str(flat[k]) for k in _TRUNK_REF if k in flat.files}
+    out = dequantized(out)
     if ref:
         out.update(_trunk_of(artifact, ref["__trunk__"], ref.get("__trunk_sha256__")))
+    return out
+
+
+# a leaf stored as int8 has its float32 scale per output channel (its last
+# axis) beside it under this suffix (CRAFT's artifact, ``cli/train_craft_synth.py``)
+SCALE_SUFFIX = "__scale"
+
+
+def dequantized(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """``flat``'s leaves as float32: an int8 leaf times its ``__scale``
+    (float32 product), the others widened."""
+    out = {}
+    for k, v in flat.items():
+        if k.endswith(SCALE_SUFFIX):
+            continue
+        if v.dtype == np.int8:
+            v = v.astype(np.float32) * flat[k + SCALE_SUFFIX].astype(np.float32)
+        out[k] = np.asarray(v, np.float32)
+    return out
+
+
+def quantized(flat: Mapping[str, np.ndarray], least: int = 1 << 16) -> Dict[str, np.ndarray]:
+    """Leaves of at least ``least`` elements as int8 with a float32 scale
+    per output channel (the last axis: HWIO and Dense kernels), the largest
+    magnitude to 127; the others float16. :func:`dequantized` reads it."""
+    out = {}
+    for k, v in flat.items():
+        v = np.asarray(v, np.float32)
+        if v.size < least:
+            out[k] = v.astype(np.float16)
+            continue
+        axes = tuple(range(v.ndim - 1))
+        scale = np.maximum(np.abs(v).max(axis=axes), 1e-12).astype(np.float32) / 127
+        out[k] = np.clip(np.rint(v / scale), -127, 127).astype(np.int8)
+        out[k + SCALE_SUFFIX] = scale
     return out
 
 
@@ -126,6 +171,56 @@ def _as_tensor(v: ArrayLike) -> torch.Tensor:
     if isinstance(v, torch.Tensor):
         return v.detach().to(torch.float32)
     return torch.from_numpy(np.array(v, dtype=np.float32))
+
+
+# CRAFT's convs: the port's name, clovaai's conv and its batch norm (None:
+# none). Trunk convs sit under ``VGG16Trunk_0``; ``cls_out`` is a Dense.
+CRAFT_CLOVAAI = (
+    ("conv1_1", "basenet.slice1.0", "basenet.slice1.1"),
+    ("conv1_2", "basenet.slice1.3", "basenet.slice1.4"),
+    ("conv2_1", "basenet.slice1.7", "basenet.slice1.8"),
+    ("conv2_2", "basenet.slice1.10", "basenet.slice1.11"),
+    ("conv3_1", "basenet.slice2.14", "basenet.slice2.15"),
+    ("conv3_2", "basenet.slice2.17", "basenet.slice2.18"),
+    ("conv3_3", "basenet.slice3.20", "basenet.slice3.21"),
+    ("conv4_1", "basenet.slice3.24", "basenet.slice3.25"),
+    ("conv4_2", "basenet.slice3.27", "basenet.slice3.28"),
+    ("conv4_3", "basenet.slice4.30", "basenet.slice4.31"),
+    ("conv5_1", "basenet.slice4.34", "basenet.slice4.35"),
+    ("conv5_2", "basenet.slice4.37", "basenet.slice4.38"),
+    ("fc6", "basenet.slice5.1", None),
+    ("fc7", "basenet.slice5.2", None),
+    *((f"up{k}_1x1", f"upconv{k}.conv.0", f"upconv{k}.conv.1") for k in range(1, 5)),
+    *((f"up{k}_3x3", f"upconv{k}.conv.3", f"upconv{k}.conv.4") for k in range(1, 5)),
+    ("cls1", "conv_cls.0", None),
+    ("cls2", "conv_cls.2", None),
+    ("cls3", "conv_cls.4", None),
+    ("cls4", "conv_cls.6", None),
+    ("cls_out", "conv_cls.8", None),
+)
+BN_EPS = 1e-5  # torch.nn.BatchNorm2d's default, clovaai's
+
+
+def craft_params_from_clovaai(state: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """A clovaai/CRAFT-pytorch state dict -> the port's CRAFT parameters
+    (flat ``a/b/c`` keys, float32, the layout of :func:`load_params`),
+    each batch norm folded into its conv in float64: ``w * g / sqrt(var +
+    eps)`` and ``(b - mean) * g / sqrt(var + eps) + beta``."""
+    flat = {(k[len("module."):] if k.startswith("module.") else k):
+            np.asarray(v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v,
+                       np.float64) for k, v in state.items()}
+    out: Dict[str, np.ndarray] = {}
+    for name, conv, bn in CRAFT_CLOVAAI:
+        w, b = flat[f"{conv}.weight"], flat[f"{conv}.bias"]
+        if bn is not None:
+            scale = flat[f"{bn}.weight"] / np.sqrt(flat[f"{bn}.running_var"] + BN_EPS)
+            w = w * scale[:, None, None, None]
+            b = (b - flat[f"{bn}.running_mean"]) * scale + flat[f"{bn}.bias"]
+        key = f"{_TRUNK_SCOPE}/{name}" if name.startswith("conv") else name
+        kernel = w[:, :, 0, 0].T if name == "cls_out" else w.transpose(2, 3, 1, 0)
+        out[f"{key}/kernel"] = np.ascontiguousarray(kernel, np.float32)
+        out[f"{key}/bias"] = b.astype(np.float32)
+    return out
 
 
 def params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

@@ -1,6 +1,6 @@
 """The seam of the hand-written kernels (``ctpn_tpu_torch/ops/_kernel.py``).
 
-The registry must hold the nine counted kernels by the names the
+The registry must hold the eleven counted kernels by the names the
 certificates print, each with its source; the ops' schemas must stay as
 they are, so that an exported artifact still loads; and a launch must hand
 the entry point its pointers and the stream, raise naming the kernel on a
@@ -33,6 +33,8 @@ KERNELS = {  # registry name: (module, wrapper)
     "successors": ("successors", "successors"),
     "lanms_walk": ("lanms", "lanms_walk"),
     "quad_bitmask": ("quad_nms", "quad_bitmask"),
+    "ccl_label": ("ccl", "ccl_label"),
+    "craft_boxes": ("craft_boxes", "craft_boxes"),
 }
 
 SCHEMAS = [
@@ -50,6 +52,11 @@ SCHEMAS = [
     "ctpn_torch::lanms_walk(Tensor cells, Tensor count, float thresh, int cap) "
     "-> (Tensor, Tensor, Tensor, Tensor)",
     "ctpn_torch::quad_bitmask(Tensor quads, Tensor valid, float thresh) -> Tensor",
+    "ctpn_torch::ccl_label(Tensor maps, Tensor extent, float low_text, float link_threshold, "
+    "float text_threshold, int min_area, int cap) "
+    "-> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)",
+    "ctpn_torch::craft_boxes(Tensor maps, Tensor labels, Tensor stats, Tensor score, "
+    "Tensor count, Tensor extent, float low_text, float scale) -> Tensor",
     "ctpn_torch::stage_stamp(Tensor(a!) ring, int slot) -> ()",
 ]
 
@@ -64,11 +71,13 @@ def fake_cuda(monkeypatch):
 
 
 def test_registry_holds_the_eight_kernels_each_with_its_source():
-    """Nine since the successor graph's kernel joined the eight (the name is
-    kept, so that the test keeps its history)."""
+    """Eleven since the successor graph's kernel and CRAFT's labelling and
+    box kernels joined the eight (the name is kept, so that the test keeps
+    its history)."""
     reg = _kernel.registry()
     assert sorted(reg) == sorted(KERNELS)
     assert reg["successors"].source == "chain_walk"
+    assert reg["ccl_label"].source == reg["craft_boxes"].source == "craft_ccl"
     for name, entry in reg.items():
         module, wrapper = KERNELS[name]
         assert entry.wrapper is getattr(
@@ -77,8 +86,8 @@ def test_registry_holds_the_eight_kernels_each_with_its_source():
         assert isinstance(entry.wrapper.LAUNCHES_BY_DEVICE, Counter)
         assert (_build.CSRC / f"{entry.source}.cu").is_file()
     assert _kernel.wrappers() == {name: e.wrapper for name, e in reg.items()}
-    assert _kernel.sources() == ["chain_walk", "conv_epilogue", "nms_bitmask", "nms_fused",
-                                 "nms_resolve", "quad_nms", "stem_fused"]
+    assert _kernel.sources() == ["chain_walk", "conv_epilogue", "craft_ccl", "nms_bitmask",
+                                 "nms_fused", "nms_resolve", "quad_nms", "stem_fused"]
     assert "stage_stamp" not in reg
 
 
