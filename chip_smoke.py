@@ -31,10 +31,12 @@ launch no epilogue, training no connector kernel.
     python3 chip_smoke.py --kernels-only
     python3 chip_smoke.py --east
     python3 chip_smoke.py --craft
+    python3 chip_smoke.py --resize-concat
 
 ``--east`` runs phases 1, 2 and 25 alone (EAST) and prints their line and
 the card line; ``--craft`` runs phases 1, 2 and 26 alone (CRAFT; the
-program's part only once its weights are committed).
+program's part only once its weights are committed); ``--resize-concat``
+runs phases 1, 2 and 27 alone (the decoders' skip inputs).
 ``--kernels-only`` stops after phase 3 and prints the ``kernels`` line
 (without launch counts) and the card line, but no final result line: to
 compare two checkouts' kernels on one card, run each checkout's own copy
@@ -310,7 +312,8 @@ Phases (any failure exits non-zero and prints no result line):
     multiples, identical quads, invalid tails); then EAST's captured
     program on ``data/artifacts/east_vgg16_synth_f16.npz`` at the cell
     ``east_device_b32``'s shape (32 held-out renders, 736x1280): 20 conv
-    epilogues, one walk, one bitmask and one resolve per replayed run,
+    epilogues, three ``resize_concat`` (the merge branch's skip inputs),
+    one walk, one bitmask and one resolve per replayed run,
     replays equal to the first bit for bit and to the eager program, no
     overflow of the caps, every image with records, each image's records
     the same alone and in another slot, the taps and merge maps of four
@@ -327,7 +330,8 @@ Phases (any failure exits non-zero and prints no result line):
     maps, empty maps and extents, a cap reached); then CRAFT's captured
     program on ``data/artifacts/craft_vgg16bn_synth_f16.npz`` at the cell
     ``craft_device_b32``'s shape (32 held-out renders, 736x1280): 23 conv
-    epilogues (11 in the trunk, 12 in the batched decoder), one
+    epilogues (11 in the trunk, 12 in the batched decoder), four
+    ``resize_concat`` (the blocks' skip inputs), one
     ``ccl_label`` and one ``craft_boxes`` per replayed run,
     replays equal to the first bit for bit and to the eager program, no
     overflow of the cap, every image with boxes, each image's maps and
@@ -337,6 +341,21 @@ Phases (any failure exits non-zero and prints no result line):
     plain versions bit for bit; and their ms at the cell's shape beside
     their byte bounds at 3.35 TB/s. No other route launches either kernel
     (every launch gate above counts them at 0).
+
+27. the decoders' skip inputs (``--resize-concat`` runs it alone): the
+    ``resize_concat`` kernel against its plain version (``F.interpolate``
+    and ``torch.cat`` on the card) bit for bit on made-up maps with -0.0,
+    NaN and infinities among the values: uneven ratios (19x29 to 38x57,
+    37x57 to 75x113), a shrink, a 1x1 map, equal sizes, narrow and wide
+    slices; then at every call site of both cells, on the cells' own
+    renders through the trunk at their batch and shape (EAST's three merge
+    stages, CRAFT's four blocks), each call checked bit for bit as the
+    model makes it; each site's ms beside its byte bound (the low-resolution
+    map and the skip read, the concatenated buffer written, at 3.35 TB/s)
+    and beside the plain passes' ms. The launch gates of phases 25 and 26
+    count it (3 per EAST run, 4 per CRAFT run); every CTPN route and every
+    training phase counts it at 0, and so does EAST's and CRAFT's forward
+    with gradients on (here).
 
 Every recall gate counts lines as ``ctpn-torch-eval`` does
 (``eval.match_boxes``: one-to-one, IoU >= 0.5, integer corner boxes).
@@ -4234,8 +4253,9 @@ EAST_ARTIFACT = REPO / "data" / "artifacts" / "east_vgg16_synth_f16.npz"
 EAST_BATCH, EAST_BUCKET = 32, (736, 1280)
 # kernel launches per EAST program run in bf16: a conv epilogue per conv
 # (13 of the trunk, 6 of the merge branch, the last conv), the walk, the
-# quad bitmask and the resolve
-EAST_LAUNCHES = {"conv_epilogue": 20, "lanms_walk": 1, "quad_bitmask": 1, "nms_resolve": 1}
+# quad bitmask and the resolve; the merge branch's three skip inputs
+EAST_LAUNCHES = {"conv_epilogue": 20, "lanms_walk": 1, "quad_bitmask": 1, "nms_resolve": 1,
+                 "resize_concat": 3}
 # float ops of one quad IoU test at its least (benchmark/flops_east.py)
 QUAD_IOU_OPS = 112
 
@@ -4509,9 +4529,11 @@ CRAFT_ARTIFACT = REPO / "data" / "artifacts" / "craft_vgg16bn_synth_f16.npz"
 CRAFT_BATCH, CRAFT_BUCKET = 32, (736, 1280)
 # kernel launches per CRAFT program run in bf16 at the cell's batch: a conv
 # epilogue per conv with a ReLU (11 of the trunk; 8 of the decoder's blocks
-# and 4 of conv_cls, on the whole batch), one labelling and one box kernel
+# and 4 of conv_cls, on the whole batch), the four blocks' skip inputs, one
+# labelling and one box kernel
 CRAFT_SITES = 23
-CRAFT_LAUNCHES = {"conv_epilogue": CRAFT_SITES, "ccl_label": 1, "craft_boxes": 1}
+CRAFT_LAUNCHES = {"conv_epilogue": CRAFT_SITES, "resize_concat": 4, "ccl_label": 1,
+                  "craft_boxes": 1}
 CRAFT_KW = dict(low_text=0.4, link_threshold=0.4, text_threshold=0.7, min_area=10)
 
 
@@ -4748,6 +4770,124 @@ def drive_craft(dev, artifact: Path = CRAFT_ARTIFACT) -> dict:
             "epilogue_sites": len(sites)}
 
 
+# ---------------------------------------------------------- resize_concat
+
+
+def check_resize_concat_kernel(dev) -> dict:
+    """The resize-and-concatenate kernel against its plain version, bit for
+    bit, on made-up maps with -0.0, NaN and infinities among the values."""
+    from ctpn_tpu_torch.ops import resize_concat as RC
+
+    rng = np.random.RandomState(27)
+    cases = [  # (n, c1, h, w), (c2, H, W)
+        ((4, 64, 19, 29), (32, 38, 57)), ((4, 64, 37, 57), (32, 75, 113)),
+        ((2, 24, 37, 57), (8, 75, 113)), ((2, 16, 75, 113), (8, 37, 57)),
+        ((3, 8, 1, 1), (16, 9, 13)), ((2, 512, 23, 40), (512, 46, 80)),
+        ((2, 1024, 46, 80), (512, 46, 80)), ((2, 64, 184, 320), (128, 368, 640)),
+        ((1, 8, 5, 7), (8, 5, 7)),
+    ]
+    for (n, c1, h, w), (c2, hh, ww) in cases:
+        x = edge_values(rng, (n, c1, h, w), dev)
+        skip = edge_values(rng, (n, c2, hh, ww), dev)
+        got = RC.resize_concat(x, skip)
+        want = RC.resize_concat_ref(x, skip)
+        if not (got.shape == want.shape and torch.equal(bits_of(got), bits_of(want))):
+            raise AssertionError(f"resize_concat {(n, c1, h, w)} to {(c2, hh, ww)} differs "
+                                 "from the plain version")
+        if not got.is_contiguous(memory_format=torch.channels_last):
+            raise AssertionError("resize_concat's output is not channels_last")
+    log(f"  resize_concat on {len(cases)} made-up cases (edge values, uneven ratios, a "
+        "shrink, equal sizes): equal to the plain version bit for bit")
+    return {"name": "resize_concat", "cases": len(cases), "equal": True}
+
+
+def check_resize_concat_sites(run, what: str, want: int) -> list:
+    """Every call of the op while ``run()`` runs a model: each checked
+    against the plain version bit for bit as the model makes it, then
+    timed on its own inputs (the op, its launcher alone, the plain passes)
+    beside its byte bound."""
+    from ctpn_tpu_torch.models import vgg
+    from ctpn_tpu_torch.ops import resize_concat as RC
+
+    calls, real = [], vgg.resize_concat
+
+    def checked(h, skip):
+        got = real(h, skip)
+        want_ = RC.resize_concat_ref(h, skip)
+        calls.append((h, skip, got.shape == want_.shape
+                      and torch.equal(bits_of(got), bits_of(want_))))
+        return got
+
+    vgg.resize_concat = checked
+    try:
+        with torch.inference_mode():
+            run()
+        torch.cuda.synchronize()
+    finally:
+        vgg.resize_concat = real
+    sites = []
+    for h, skip, equal in calls:
+        out_bytes = h.shape[0] * (h.shape[1] + skip.shape[1]) * skip.shape[2] * skip.shape[3] * 2
+        bound = (h.numel() * 2 + skip.numel() * 2 + out_bytes) / HBM_BYTES_PER_S * 1e3
+        ms = cuda_ms(lambda: real(h, skip), 20)
+        sites.append({"h": list(h.shape), "skip": list(skip.shape), "equal": bool(equal),
+                      "ms": ms, "launcher_ms": launch_ms(RC, h, skip), "bound_ms": bound,
+                      "bound_pct": 100 * bound / ms,
+                      "plain_ms": cuda_ms(lambda: RC.resize_concat_ref(h, skip), 20)})
+    del calls
+    for s in sites:
+        log(f"  resize_concat at {what}'s {tuple(s['h'])} + {tuple(s['skip'])}: "
+            f"{'equal' if s['equal'] else 'DIFFERS'}; {s['ms']:.4f} ms ({s['launcher_ms']:.4f} "
+            f"launcher), bound {s['bound_ms']:.4f} ({s['bound_pct']:.1f} %), plain "
+            f"{s['plain_ms']:.4f}")
+    if len(sites) != want:
+        raise AssertionError(f"{what}: {len(sites)} resize_concat sites (want {want})")
+    bad = [(s["h"], s["skip"]) for s in sites if not s["equal"]]
+    if bad:
+        raise AssertionError(f"resize_concat differs from its plain version at {what}'s {bad}")
+    return sites
+
+
+def drive_resize_concat(dev) -> dict:
+    """Phase 27: the kernel on made-up cases, then at every call site of
+    EAST's and CRAFT's cells on their own renders at their batch and shape,
+    and no launch with gradients on."""
+    from ctpn_tpu_torch.inference.pipeline import CTPNPredictor, craft_normalised, mean_subtracted
+    from ctpn_tpu_torch.ops import resize_concat as RC
+    from ctpn_tpu_torch.utils.weights import load_params
+
+    entry = check_resize_concat_kernel(dev)
+    result = {"kernel": entry}
+    for name, cfg_fn, artifact, want in (("EAST", east_cfg, EAST_ARTIFACT, 3),
+                                         ("CRAFT", craft_cfg, CRAFT_ARTIFACT, 4)):
+        cfg_fn()
+        pred = CTPNPredictor(load_params(str(artifact), device=dev), device=dev)
+        m = pred.model
+        if name == "EAST":
+            data, _ = east_batch()
+            xs = mean_subtracted(torch.from_numpy(data).to(dev))
+            run = lambda: m.merge(m.trunk_taps(xs))  # noqa: E731
+        else:
+            data, _ = craft_batch(pred)
+            xs = craft_normalised(torch.from_numpy(data).to(dev))
+            run = lambda: m.decoder(m.trunk_taps(xs))  # noqa: E731
+        result[name] = check_resize_concat_sites(run, name, want)
+        total = {k: sum(s[k] for s in result[name]) for k in ("ms", "bound_ms", "plain_ms")}
+        log(f"  resize_concat, {name}'s {want} sites per batch of {xs.shape[0]}: "
+            f"{total['ms']:.4f} ms, bound {total['bound_ms']:.4f}, plain {total['plain_ms']:.4f}")
+        zero_launch_counts()
+        with torch.enable_grad():  # training runs the plain passes
+            run_grad = m.maps if name == "CRAFT" else m.merge
+            run_grad(m.trunk_taps(xs[:2]))
+        torch.cuda.synchronize()
+        if RC.resize_concat.LAUNCHES:
+            raise AssertionError(f"{name} with gradients on launched resize_concat")
+        del pred, m, xs, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    return result
+
+
 def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4776,6 +4916,13 @@ def main(argv=()) -> int:
         entries = check_craft_kernels(dev)
         craft = drive_craft(dev) if CRAFT_ARTIFACT.exists() else None
         print(json.dumps({"kernels": entries, "craft": craft}))
+        print(card)
+        return 0
+
+    if "--resize-concat" in argv:
+        log("[27/27] resize_concat: made-up cases, every call site of EAST and CRAFT at "
+            "(32, 736x1280)")
+        print(json.dumps({"resize_concat": drive_resize_concat(dev)}))
         print(card)
         return 0
 
@@ -4936,8 +5083,17 @@ def main(argv=()) -> int:
     craft = drive_craft(dev)
     log(f"  CRAFT phase {time.perf_counter() - t0:.1f} s")
 
+    log("[27/27] resize_concat: made-up cases, every call site of EAST and CRAFT at "
+        "(32, 736x1280)")
+    t0 = time.perf_counter()
+    zero_launch_counts()
+    resize = drive_resize_concat(dev)
+    entries.append(resize["kernel"])
+    log(f"  resize_concat phase {time.perf_counter() - t0:.1f} s")
+
     log(f"[21/24] result (all phases {time.perf_counter() - t_start:.1f} s)")
-    print(json.dumps({"kernels": entries, "east": east, "craft": craft}))
+    print(json.dumps({"kernels": entries, "east": east, "craft": craft,
+                      "resize_concat": resize}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -27,8 +27,10 @@ two channels with no activation, in float32 (``cls_out``, a ``Linear``
 over the channels): the region and affinity maps at stride 2, no sigmoid.
 
 Every conv with a ReLU runs ``Conv3x3.conv_relu`` (the ``conv_epilogue``
-op in bfloat16 inference); ``conv2_2``'s pool runs after its epilogue as
-its own pass, and ``conv5_2``, ``fc6`` and ``fc7`` are convs with their
+op in bfloat16 inference), and each block's input ``vgg.upsample_concat``
+(the ``resize_concat`` op on the card: block 1's a copy, the others' a
+resize, written into the concatenated buffer in one pass); ``conv2_2``'s
+pool runs after its epilogue as its own pass, and ``conv5_2``, ``fc6`` and ``fc7`` are convs with their
 bias and nothing after. The trunk's one walk (``VGG16Trunk.forward``)
 reads the taps. ``per_image_tail`` runs block 5's convs (stride 16) one
 image at a time (``VGG16Trunk``'s): batched, cuDNN sums each image's
@@ -50,7 +52,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ctpn_tpu_torch.models.vgg import Conv1x1, Conv3x3, VGG16Trunk
+from ctpn_tpu_torch.models.vgg import Conv1x1, Conv3x3, VGG16Trunk, upsample_concat
 
 # VGG16's convs up to conv5_2
 CRAFT_STAGES: Tuple[Tuple[int, int, int], ...] = (
@@ -116,13 +118,9 @@ class CRAFT(nn.Module):
         """slice5, the four ``double_conv`` blocks and ``conv_cls``'s convs
         with a ReLU: (N, 16, H/2, W/2) in the compute dtype."""
         c2, c3, c4, c5 = taps
-        fc = self.fc7(self.fc6(F.max_pool2d(c5, 3, 1, 1)))
-        h = torch.cat([fc, c5], 1)
-        for k, skip in enumerate((None, c4, c3, c2), start=1):
-            if skip is not None:
-                h = F.interpolate(h, size=skip.shape[-2:], mode="bilinear", align_corners=False)
-                h = torch.cat([h, skip], 1)
-            h = getattr(self, f"up{k}_1x1").conv_relu(h)
+        h = self.fc7(self.fc6(F.max_pool2d(c5, 3, 1, 1)))
+        for k, skip in enumerate((c5, c4, c3, c2), start=1):
+            h = getattr(self, f"up{k}_1x1").conv_relu(upsample_concat(h, skip))
             h = getattr(self, f"up{k}_3x3").conv_relu(h)
         for conv in (self.cls1, self.cls2, self.cls3, self.cls4):
             h = conv.conv_relu(h)

@@ -20,12 +20,14 @@ follows, then the 1x1 heads at stride 4 (float32):
 No batch norm, as in the paper's figure (argman/EAST's would fold into the
 conv biases at inference). Every conv has its ReLU and, with gradients off
 in bfloat16, its bias and ReLU run as the ``conv_epilogue`` op
-(``vgg.Conv3x3.conv_relu``). ``per_image_tail`` runs the convs of block 5
-and of the whole merge branch one image at a time, so that an image's maps
-do not depend on its slot in the batch: at 736x1280, batch 32, on the
-H100, the batched merge convs moved the merge output by one bf16 step
-against the image alone, and 7 of 64 images' records with it, while the
-batched blocks 1-4 left every tap equal.
+(``vgg.Conv3x3.conv_relu``), and each unpool with its concatenation as
+the ``resize_concat`` op on the card (``vgg.upsample_concat``).
+``per_image_tail`` runs the convs of block 5 and of the whole merge branch
+one image at a time, so that an image's maps do not depend on its slot in
+the batch: at 736x1280, batch 32, on the H100, the batched merge convs
+moved the merge output by one bf16 step against the image alone, and 7 of
+64 images' records with it, while the batched blocks 1-4 left every tap
+equal.
 
 Input: (N, H, W, 3) float32, BGR, minus CTPN's pixel means (the trunk is
 CTPN's). The unpool samples with half-pixel centres (``align_corners=
@@ -40,9 +42,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
-from ctpn_tpu_torch.models.vgg import VGG_STAGES, Conv1x1, Conv3x3, VGG16Trunk
+from ctpn_tpu_torch.models.vgg import VGG_STAGES, Conv1x1, Conv3x3, VGG16Trunk, upsample_concat
 
 MERGE_WIDTHS: Tuple[int, int, int] = (128, 64, 32)
 OUT_WIDTH = 32
@@ -93,8 +94,7 @@ class EAST(nn.Module):
         """The merge branch and the last conv: (N, 32, H/4, W/4)."""
         h = taps[-1]
         for k, skip in enumerate(taps[-2::-1], start=2):
-            g = F.interpolate(h, size=skip.shape[-2:], mode="bilinear", align_corners=False)
-            h = getattr(self, f"merge{k}_1x1").conv_relu(torch.cat([g, skip], 1))
+            h = getattr(self, f"merge{k}_1x1").conv_relu(upsample_concat(h, skip))
             h = getattr(self, f"merge{k}_3x3").conv_relu(h)
         return self.out_conv.conv_relu(h)
 

@@ -30,7 +30,10 @@ in the batch.
 In inference (gradients off) in bfloat16, each conv's bias, ReLU and the
 pool after it run as one pass, the op ``ops/conv_epilogue.py``
 (``Conv3x3.conv_relu``), with the bits of the separate passes; training and
-float32 keep the separate passes.
+float32 keep the separate passes. :func:`upsample_concat`, the skip input
+of EAST's and CRAFT's decoders, runs the same way on the card: the op
+``ops/resize_concat.py`` in inference in bfloat16, else the resize and the
+concatenation.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ctpn_tpu_torch.ops.conv_epilogue import conv_epilogue
+from ctpn_tpu_torch.ops.resize_concat import resize_concat
 from ctpn_tpu_torch.ops.stem_fused import fused_stem_block
 
 # (block, reps, channels) for VGG16's conv layers
@@ -101,6 +105,24 @@ class Conv3x3(nn.Conv2d):
         else:
             y, b = self(x), None
         return conv_epilogue(y.contiguous(memory_format=torch.channels_last), b, pool)
+
+
+def upsample_concat(h: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+    """A U-shaped decoder's skip input: ``h`` resized bilinearly to
+    ``skip``'s size (``align_corners=False``; no resize when the sizes
+    agree), then concatenated with ``skip`` along the channels.
+
+    With gradients off and bfloat16 on CUDA, one pass, the op
+    :func:`~ctpn_tpu_torch.ops.resize_concat.resize_concat`, with the bits
+    of the separate passes; otherwise (training, float32, the CPU)
+    ``F.interpolate`` and ``torch.cat``.
+    """
+    if torch.is_grad_enabled() or h.dtype != torch.bfloat16 or not h.is_cuda:
+        if h.shape[-2:] != skip.shape[-2:]:
+            h = F.interpolate(h, size=skip.shape[-2:], mode="bilinear", align_corners=False)
+        return torch.cat([h, skip], 1)
+    return resize_concat(h.contiguous(memory_format=torch.channels_last),
+                         skip.contiguous(memory_format=torch.channels_last))
 
 
 class Conv1x1(Conv3x3):

@@ -34,15 +34,17 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",
 )
-# per-source extra flags: the NMS IoU test, the chain walk's sums and
-# CRAFT's box corners must round exactly as the plain versions do, so no
-# multiply-add contraction
+# per-source extra flags: the NMS IoU test, the chain walk's sums,
+# CRAFT's box corners and the bilinear blend must round exactly as the plain
+# versions do, so no multiply-add contraction but the blend's own
+# (``__fmaf_rn``)
 EXTRA_FLAGS: Dict[str, Sequence[str]] = {
     "chain_walk": ("-fmad=false",),
     "craft_ccl": ("-fmad=false",),
     "nms_fused": ("-fmad=false",),
     "nms_bitmask": ("-fmad=false",),
     "quad_nms": ("-fmad=false",),
+    "resize_concat": ("-fmad=false",),
 }
 
 # host C++: no -march=native and no contraction of a*b+c into an FMA, which

@@ -38,7 +38,8 @@ PTR, INT, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 # the modules of the counted kernels; importing one registers its kernels
 MODULES = ("nms_fused", "nms_bitmask", "nms_resolve", "stem_fused", "conv_epilogue",
-           "chain_walk", "successors", "lanms", "quad_nms", "ccl", "craft_boxes")
+           "chain_walk", "successors", "lanms", "quad_nms", "ccl", "craft_boxes",
+           "resize_concat")
 
 _LIB = torch.library.Library("ctpn_torch", "FRAGMENT")
 _REGISTRY: Dict[str, "Entry"] = {}

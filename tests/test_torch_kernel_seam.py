@@ -1,6 +1,6 @@
 """The seam of the hand-written kernels (``ctpn_tpu_torch/ops/_kernel.py``).
 
-The registry must hold the eleven counted kernels by the names the
+The registry must hold the twelve counted kernels by the names the
 certificates print, each with its source; the ops' schemas must stay as
 they are, so that an exported artifact still loads; and a launch must hand
 the entry point its pointers and the stream, raise naming the kernel on a
@@ -35,6 +35,7 @@ KERNELS = {  # registry name: (module, wrapper)
     "quad_bitmask": ("quad_nms", "quad_bitmask"),
     "ccl_label": ("ccl", "ccl_label"),
     "craft_boxes": ("craft_boxes", "craft_boxes"),
+    "resize_concat": ("resize_concat", "resize_concat"),
 }
 
 SCHEMAS = [
@@ -57,6 +58,7 @@ SCHEMAS = [
     "-> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)",
     "ctpn_torch::craft_boxes(Tensor maps, Tensor labels, Tensor stats, Tensor score, "
     "Tensor count, Tensor extent, float low_text, float scale) -> Tensor",
+    "ctpn_torch::resize_concat(Tensor h, Tensor skip) -> Tensor",
     "ctpn_torch::stage_stamp(Tensor(a!) ring, int slot) -> ()",
 ]
 
@@ -71,9 +73,9 @@ def fake_cuda(monkeypatch):
 
 
 def test_registry_holds_the_eight_kernels_each_with_its_source():
-    """Eleven since the successor graph's kernel and CRAFT's labelling and
-    box kernels joined the eight (the name is kept, so that the test keeps
-    its history)."""
+    """Twelve since the successor graph's kernel, CRAFT's labelling and
+    box kernels and the decoders' resize-and-concatenate kernel joined the
+    eight (the name is kept, so that the test keeps its history)."""
     reg = _kernel.registry()
     assert sorted(reg) == sorted(KERNELS)
     assert reg["successors"].source == "chain_walk"
@@ -86,8 +88,10 @@ def test_registry_holds_the_eight_kernels_each_with_its_source():
         assert isinstance(entry.wrapper.LAUNCHES_BY_DEVICE, Counter)
         assert (_build.CSRC / f"{entry.source}.cu").is_file()
     assert _kernel.wrappers() == {name: e.wrapper for name, e in reg.items()}
+    assert reg["resize_concat"].source == "resize_concat"
     assert _kernel.sources() == ["chain_walk", "conv_epilogue", "craft_ccl", "nms_bitmask",
-                                 "nms_fused", "nms_resolve", "quad_nms", "stem_fused"]
+                                 "nms_fused", "nms_resolve", "quad_nms", "resize_concat",
+                                 "stem_fused"]
     assert "stage_stamp" not in reg
 
 
