@@ -32,11 +32,14 @@ launch no epilogue, training no connector kernel.
     python3 chip_smoke.py --east
     python3 chip_smoke.py --craft
     python3 chip_smoke.py --resize-concat
+    python3 chip_smoke.py --db
 
 ``--east`` runs phases 1, 2 and 25 alone (EAST) and prints their line and
 the card line; ``--craft`` runs phases 1, 2 and 26 alone (CRAFT; the
 program's part only once its weights are committed); ``--resize-concat``
-runs phases 1, 2 and 27 alone (the decoders' skip inputs).
+runs phases 1, 2 and 27 alone (the decoders' skip inputs); ``--db`` runs
+phases 1, 2 and 28 alone (DBNet; the program's part only once its weights
+are committed).
 ``--kernels-only`` stops after phase 3 and prints the ``kernels`` line
 (without launch counts) and the card line, but no final result line: to
 compare two checkouts' kernels on one card, run each checkout's own copy
@@ -356,6 +359,28 @@ Phases (any failure exits non-zero and prints no result line):
     count it (3 per EAST run, 4 per CRAFT run); every CTPN route and every
     training phase counts it at 0, and so does EAST's and CRAFT's forward
     with gradients on (here).
+
+28. DBNet (``--db`` runs it alone): the deformable conv's kernel against
+    its plain version on made-up cases (offsets that leave the map, whole
+    pixels, stride 2, zero masks; columns equal but where the sigmoid's
+    ``exp`` moves a bfloat16 rounding, the products within a bfloat16
+    step), the 8-connected one-channel labelling and the box kernel
+    against their plain versions bit for bit (and CRAFT's labelling and
+    boxes as phase 26 holds them); then DB's captured program on
+    ``data/artifacts/dbnet_r50_dcn_synth.npz`` at the cell
+    ``db_device_b32``'s shape (32 held-out renders, 736x1312): 35 conv
+    epilogues, 13 deformable convs, one ``ccl_label`` and one ``db_boxes``
+    per replayed run and no other kernel, replays equal to the first bit
+    for bit and to the eager program, no overflow of the cap, each image's
+    map and boxes the same alone and in another slot (the slot gate); the
+    kernel at each of the 13 sites on the batch's own feature maps against
+    its plain version, with its ms beside the site's least time (its bytes
+    at 3.35 TB/s or its operations at the bfloat16 peak) and the plain
+    version's ms, and the size of the batch's offsets there (mean |dy| and
+    |dx|, the share of samples off the whole-pixel grid and off the map,
+    the mean mask: ``offset_stats``); both post-process kernels on the batch's own map
+    against their plain versions bit for bit, and their ms. Every other
+    route's launch gate counts the two new kernels at 0.
 
 Every recall gate counts lines as ``ctpn-torch-eval`` does
 (``eval.match_boxes``: one-to-one, IoU >= 0.5, integer corner boxes).
@@ -4770,6 +4795,326 @@ def drive_craft(dev, artifact: Path = CRAFT_ARTIFACT) -> dict:
             "epilogue_sites": len(sites)}
 
 
+# --------------------------------------------------------------------- DB
+
+DB_ARTIFACT = REPO / "data" / "artifacts" / "dbnet_r50_dcn_synth.npz"
+# the cell db_device_b32's shape: 32 renders at 1280x720 resized to 736x1312
+DB_BATCH, DB_BUCKET = 32, (736, 1312)
+# kernel launches per DB program run in bf16: a conv epilogue per conv with
+# a ReLU (the stem, two per bottleneck, the head's conv and first
+# transposed conv), a deformable conv per bottleneck of stages 2-4, one
+# labelling and one box kernel
+DB_SITES = 13
+DB_LAUNCHES = {"conv_epilogue": 35, "deform_conv": DB_SITES, "ccl_label": 1, "db_boxes": 1}
+DB_KW = dict(thresh=0.3, box_thresh=0.7, unclip=1.5, min_size=3.0)
+
+
+def db_cfg(bucket=DB_BUCKET) -> None:
+    from ctpn_tpu_torch.cli.train_db_synth import db_cfg as cfg_db
+    from ctpn_tpu_torch.config import cfg_from_list
+
+    cfg_db()
+    cfg_from_list(["TPU.BUCKETS", [list(bucket)]])
+
+
+def same_deform(got, want, what: str, cols=None) -> dict:
+    """The kernel's product against the plain version's: within a bfloat16
+    step of the largest output (a column's mask may round another way
+    where the sigmoid's exp differs by an ulp); the columns, where given,
+    equal but for such roundings."""
+    g, w = got.float(), want.float()
+    scale = float(w.abs().max()) or 1.0
+    gap = float((g - w).abs().max())
+    row = {"what": what, "max_abs": gap, "scale": scale,
+           "equal_frac": float((got == want).float().mean())}
+    if cols is not None:
+        kc, pc = cols
+        row["col_equal_frac"] = float((kc == pc).float().mean())
+        row["col_max_abs"] = float((kc.float() - pc.float()).abs().max())
+        if row["col_equal_frac"] < 0.999 or row["col_max_abs"] > 2 ** -7 * max(
+                float(pc.float().abs().max()), 1e-30):
+            raise AssertionError(f"deform_conv {what}: columns differ: {row}")
+    if gap > 2 ** -7 * scale:
+        raise AssertionError(f"deform_conv {what}: products differ: {row}")
+    return row
+
+
+def kernel_columns(x, om, stride):
+    from ctpn_tpu_torch.ops import deform_conv as D
+
+    n, c, h, w = x.shape
+    ho, wo = om.shape[2:]
+    col = torch.empty((n, ho * wo, 9 * c), dtype=torch.bfloat16, device=x.device)
+    D._KERNEL(x.device, x, om.permute(0, 2, 3, 1).contiguous(), col, n, c, h, w, ho, wo,
+              stride)
+    return col
+
+
+def db_blob_maps(rng, b: int, h: int, w: int, words: int) -> torch.Tensor:
+    """(b, h, w) made-up probability maps: rotated bars of words, noise,
+    values at the threshold here and there."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    maps = rng.uniform(0.0, 0.29, (b, h, w)).astype(np.float32)
+    for i in range(b):
+        for _ in range(words):
+            cx, cy = rng.uniform(0, w), rng.uniform(0, h)
+            a, L, t = rng.uniform(-0.6, 0.6), rng.uniform(4, 80), rng.uniform(2, 16)
+            u = (xx - cx) * np.cos(a) + (yy - cy) * np.sin(a)
+            v = -(xx - cx) * np.sin(a) + (yy - cy) * np.cos(a)
+            inside = (np.abs(u) <= L / 2) & (np.abs(v) <= t / 2)
+            maps[i][inside] = rng.uniform(0.6, 1.0, int(inside.sum()))
+    maps[rng.rand(b, h, w) < 0.002] = 0.3  # on the threshold: off
+    return torch.from_numpy(maps)
+
+
+def check_db_kernels(dev) -> list:
+    """The deformable conv against its plain version on made-up cases; the
+    8-connected labelling of one channel and the box kernel against their
+    plain versions, bit for bit, on made-up maps."""
+    from ctpn_tpu_torch.ops import ccl, db_boxes as DBB, deform_conv as D
+
+    g = torch.Generator().manual_seed(28)
+    rows = []
+    for name, (n, c, h, w, o, s, scale) in {
+            "between": (2, 128, 46, 82, 128, 1, 1.5), "stride2": (2, 128, 92, 164, 128, 2, 1.5),
+            "leave_the_map": (2, 256, 23, 41, 256, 1, 8.0), "integers": (2, 64, 20, 30, 64, 1, 0.0),
+            "zero_masks": (1, 8, 5, 7, 16, 1, 3.0), "c512": (2, 512, 23, 41, 512, 2, 1.0)}.items():
+        x = torch.randn(n, c, h, w, generator=g).to(dev, torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        ho, wo = D.out_size(h, w, s)
+        om = torch.randn(n, 27, ho, wo, generator=g)
+        om[:, :18] *= scale
+        if name == "integers":
+            om[:, :18] = torch.randint(-3, 4, (n, 18, ho, wo), generator=g).float()
+        if name == "zero_masks":
+            om[:, 18:] = -200.0
+        om = om.to(dev)
+        wt = (torch.randn(o, c, 3, 3, generator=g) * 0.05).to(dev, torch.bfloat16)
+        got = D.deform_conv(x, om, wt, s)
+        want = D.deform_conv_ref(x, om, wt, s)
+        if got.is_cuda and not got.is_contiguous(memory_format=torch.channels_last):
+            raise AssertionError("deform_conv's output is not channels_last")
+        rows.append(same_deform(got, want, name, (kernel_columns(x, om, s),
+                                                  D.sample_columns(x, om, s))))
+        if name == "zero_masks" and got.abs().max():
+            raise AssertionError("deform_conv: zero masks gave a product")
+    log("  deform_conv on made-up cases: " + json.dumps(rows))
+    rng = np.random.RandomState(28)
+    cases = [("cell", db_blob_maps(rng, 3, 736, 1312, 60), [[736, 1312], [700, 1200], [736, 1]],
+              100),
+             ("small", db_blob_maps(rng, 2, 33, 47, 6), [[33, 47], [1, 47]], 16),
+             ("empty", torch.zeros(2, 40, 64), [[40, 64], [0, 0]], 8),
+             ("cap", db_blob_maps(rng, 1, 200, 300, 80), [[200, 300]], 5)]
+    taken = 0
+    for name, prob, ext, cap in cases:
+        extent = torch.tensor(ext, dtype=torch.int32)
+        dest = extent.float() * 1.5
+        args = (DB_KW["thresh"], 0.0, 0.0, 1, cap)
+        got = ccl.ccl_label(prob[..., None].to(dev), extent.to(dev), *args, connectivity=8)
+        want = ccl.ccl_label_ref(prob[..., None], extent, *args, connectivity=8)
+        same_labels(got, want, f"8-connected {name} {tuple(prob.shape)}")
+        kw = (DB_KW["box_thresh"], DB_KW["unclip"], DB_KW["min_size"])
+        recs = DBB.db_boxes(prob.to(dev), want[0].to(dev), want[1].to(dev), want[3].to(dev),
+                            extent.to(dev), dest.to(dev), *kw)
+        plain = DBB.db_boxes_ref(prob, want[0], want[1], want[3], extent, dest, *kw)
+        for a, b, what in zip(recs, plain, ("records", "keep")):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"db_boxes {name}: {what} differ from the plain version")
+        taken += int(want[3].sum())
+        log(f"  ccl_label (8-connected), db_boxes {name} {tuple(prob.shape)} cap {cap}: equal; "
+            f"taken {want[3].tolist()} kept {plain[1].sum(1).tolist()} overflow "
+            f"{want[4].tolist()}")
+    return [{"name": "deform_conv", "cases": len(rows), "rows": rows},
+            {"name": "ccl_label_8", "cases": len(cases), "equal": True, "taken": taken},
+            {"name": "db_boxes", "cases": len(cases), "equal": True}]
+
+
+def db_batch(pred, n: int = DB_BATCH):
+    """``n`` held-out renders at 1280x720, prepped by DB's rule."""
+    from ctpn_tpu_torch.cli.train_craft_synth import holdout
+
+    preps = [pred.prep(im) for im, _ in holdout(n)]
+    return np.stack([p[0] for p in preps]), np.stack([p[1] for p in preps])
+
+
+def db_answers(out, n: int) -> list:
+    text, recs = out
+    r, c = recs.recs.cpu().numpy(), recs.count.cpu().numpy()
+    m = text.maps.cpu().numpy()
+    return [(r[i, :int(c[i])], m[i]) for i in range(n)]
+
+
+def offset_stats(om, h: int, w: int, stride: int) -> dict:
+    """What a deformable site's offsets and masks ``om`` (N, 27, Ho, Wo)
+    make of its sampling on an (h, w) input: the mean |dy| and |dx| in
+    pixels; the share of samples whose point is not a whole pixel, and of
+    those within 0.05 px of one in both directions (a near-grid gather);
+    the share that lies wholly off the map (y <= -1, y >= h, x <= -1 or
+    x >= w: every corner reads 0); and the mean mask."""
+    from ctpn_tpu_torch.ops.deform_conv import TAPS
+
+    om = om.float()
+    dy, dx = om[:, 0:2 * TAPS:2], om[:, 1:2 * TAPS:2]
+    ho, wo = om.shape[2:]
+    tap = torch.arange(TAPS, device=om.device)
+    y = (torch.arange(ho, device=om.device) * stride).view(1, 1, ho, 1) - 1 \
+        + (tap // 3).view(1, TAPS, 1, 1) + dy
+    x = (torch.arange(wo, device=om.device) * stride).view(1, 1, 1, wo) - 1 \
+        + (tap % 3).view(1, TAPS, 1, 1) + dx
+    off_y, off_x = (y - y.round()).abs(), (x - x.round()).abs()
+    return {"mean_abs_dy": float(dy.abs().mean()), "mean_abs_dx": float(dx.abs().mean()),
+            "between_pct": 100 * float(((off_y > 0) | (off_x > 0)).float().mean()),
+            "near_grid_pct": 100 * float(((off_y < 0.05) & (off_x < 0.05)).float().mean()),
+            "off_map_pct": 100 * float(((y <= -1) | (y >= h) | (x <= -1) | (x >= w))
+                                       .float().mean()),
+            "mean_mask": float(torch.sigmoid(om[:, 2 * TAPS:]).mean())}
+
+
+def db_site_checks(model, xs) -> list:
+    """The deformable conv at each of the 13 sites on the batch ``xs``
+    (normalised): the kernel against its plain version, each one's ms, the
+    site's least time (the op's bytes at the HBM rate or its operations at
+    the bfloat16 peak), and its offsets' ``offset_stats``."""
+    from ctpn_tpu_torch.models import resnet
+    from ctpn_tpu_torch.ops import deform_conv as D
+
+    calls, real = [], resnet.deform_conv
+
+    def kept(x, om, w, stride):
+        calls.append((x, om, w, stride))
+        return real(x, om, w, stride)
+
+    resnet.deform_conv = kept
+    try:
+        with torch.inference_mode():
+            model.trunk(xs)
+        torch.cuda.synchronize()
+    finally:
+        resnet.deform_conv = real
+    sites = []
+    for k, (x, om, w, stride) in enumerate(calls, start=1):
+        n, c, h, wd = x.shape
+        o, (ho, wo) = w.shape[0], om.shape[2:]
+        with torch.inference_mode():
+            row = same_deform(real(x, om, w, stride), D.deform_conv_ref(x, om, w, stride),
+                              f"site {k}")
+            ms = cuda_ms(lambda: real(x, om, w, stride), 10)
+            plain_ms = cuda_ms(lambda: D.deform_conv_ref(x, om, w, stride), 3)
+            sample_ms = cuda_ms(lambda: kernel_columns(x, om, stride), 10)
+        ops = 2.0 * n * ho * wo * c * o * 9
+        nbytes = n * (c * h * wd * 2 + 27 * ho * wo * 4 + o * ho * wo * 2) + o * c * 9 * 2
+        bound = max(ops / BF16_TENSOR_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+        sites.append(dict(row, site=k, shape=[n, c, h, wd], stride=stride, ms=ms,
+                          sample_ms=sample_ms, plain_ms=plain_ms, bound_ms=bound,
+                          bound_pct=100 * bound / ms, offsets=offset_stats(om, h, wd, stride)))
+    for s in sites:
+        log(f"  deform_conv site {s['site']} {tuple(s['shape'])}/{s['stride']}: "
+            f"{s['ms']:.3f} ms (sampling {s['sample_ms']:.3f}), bound {s['bound_ms']:.3f} "
+            f"({s['bound_pct']:.1f} %), plain {s['plain_ms']:.3f}; max gap {s['max_abs']:.3g} "
+            f"of {s['scale']:.3g}, {100 * s['equal_frac']:.2f} % equal; offsets "
+            + json.dumps(s["offsets"]))
+    if len(sites) != DB_SITES:
+        raise AssertionError(f"DB: {len(sites)} deformable sites (want {DB_SITES})")
+    return sites
+
+
+def drive_db(dev, artifact: Path = DB_ARTIFACT) -> dict:
+    """DB on the card at the cell's shape: launches per replayed run,
+    repeats bit for bit, each image's map and boxes in every slot and
+    alone, the eager program against the replay, the cap's overflow, the
+    kernel at the 13 sites, both post-process kernels on the batch's own
+    map against their plain versions, and their times."""
+    from ctpn_tpu_torch.inference.pipeline import CTPNPredictor, DBPredictor, craft_normalised
+    from ctpn_tpu_torch.ops import ccl, db_boxes as DBB
+    from ctpn_tpu_torch.postprocess.db import db_kwargs, map_extent
+    from ctpn_tpu_torch.utils.weights import load_params
+
+    db_cfg()
+    pred = CTPNPredictor(load_params(str(artifact), device=dev), device=dev)
+    assert isinstance(pred, DBPredictor)
+    data, infos = db_batch(pred)
+    x, info = torch.from_numpy(data).to(dev), torch.from_numpy(infos).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    first = pred.graphs(x, info)
+    first = pred.graphs(x, info)  # the first replay
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    zero_launch_counts()
+    runs = [pred.graphs(x, info) for _ in range(5)]
+    torch.cuda.synchronize()
+    expect_launches(launch_counts(), {k: 5 * v for k, v in DB_LAUNCHES.items()},
+                    "DB, 5 replayed runs")
+    base = db_answers(first, DB_BATCH)
+
+    def same(a, b):
+        return np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+
+    for out in runs:
+        if not all(same(a, b) for a, b in zip(db_answers(out, DB_BATCH), base)):
+            raise AssertionError("DB: a replay's map or boxes differ from the first")
+    eager = pred.program(x, info)
+    if not all(same(a, b) for a, b in zip(db_answers(eager, DB_BATCH), base)):
+        raise AssertionError("DB: the eager program's answers differ from the replay")
+    t, r = first
+    counts = {"on": t.on.cpu().tolist(), "labelled": t.labelled.cpu().tolist(),
+              "taken": t.count.cpu().tolist(), "kept": r.count.cpu().tolist()}
+    over = int(t.overflow.sum())
+    log("  DB per image: pixels on mean %.1f, components mean %.1f max %d, boxes kept mean "
+        "%.2f max %d min %d; overflow %d; peak memory %.2f GB" % (
+            np.mean(counts["on"]), np.mean(counts["labelled"]), max(counts["labelled"]),
+            np.mean(counts["kept"]), max(counts["kept"]), min(counts["kept"]), over, peak / 1e9))
+    if over:
+        raise AssertionError(f"DB: {over} components past the cap")
+
+    slot_diff = 0
+    for i in range(DB_BATCH):
+        alone = db_answers(pred.graphs(x[i:i + 1], info[i:i + 1]), 1)[0]
+        slot_diff += not same(alone, base[i])
+    rolled = db_answers(pred.graphs(x.roll(13, 0), info.roll(13, 0)), DB_BATCH)
+    slot_diff += sum(not same(rolled[(i + 13) % DB_BATCH], base[i]) for i in range(DB_BATCH))
+    log(f"  DB slots: {slot_diff} of {2 * DB_BATCH} image runs differ from the batch's")
+    if slot_diff:
+        raise AssertionError("DB: an image's map or boxes depend on its slot")
+
+    m = pred.model
+    sites = db_site_checks(m, craft_normalised(x))
+
+    kw = db_kwargs()
+    prob = first[0].maps
+    extent = map_extent(info, prob)
+    dest = info[:, 2:4].contiguous()
+    args = (kw["thresh"], 0.0, 0.0, 1, kw["max_boxes"])
+    got = ccl.ccl_label(prob[..., None], extent, *args, connectivity=8)
+    want = ccl.ccl_label_ref(prob[..., None], extent, *args, connectivity=8)
+    same_labels(got, want, f"8-connected on the batch's map {tuple(prob.shape)}")
+    bkw = (kw["box_thresh"], kw["unclip_ratio"], kw["min_size"])
+    recs = DBB.db_boxes(prob, got[0], got[1], got[3], extent, dest, *bkw)
+    plain = DBB.db_boxes_ref(prob, got[0], got[1], got[3], extent, dest, *bkw)
+    if not all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(recs, plain)):
+        raise AssertionError("db_boxes on the batch's map differs from the plain version")
+    log("  ccl_label and db_boxes on the batch's own map: equal to their plain versions bit "
+        "for bit")
+    ccl_ms = cuda_ms(lambda: ccl.ccl_label(prob[..., None], extent, *args, connectivity=8), 20)
+    boxes_ms = cuda_ms(lambda: DBB.db_boxes(prob, got[0], got[1], got[3], extent, dest, *bkw),
+                       20)
+    st, cnt = got[1].cpu().numpy(), got[3].cpu().numpy()
+    box_px = int(sum(int(st[i, k, 4]) * int(st[i, k, 5]) for i in range(len(cnt))
+                     for k in range(int(cnt[i]))))
+    ext = extent.cpu().numpy()
+    pixels = int((ext[:, 0] * ext[:, 1]).sum())
+    times = {"ccl_label_ms": ccl_ms,
+             "ccl_bound_ms": pixels * (4 + 4) / HBM_BYTES_PER_S * 1e3,
+             "db_boxes_ms": boxes_ms,
+             "db_boxes_bound_ms": (box_px * 8 + int(cnt.sum()) * 64) / HBM_BYTES_PER_S * 1e3,
+             "pixels": pixels, "box_pixels": box_px, "taken": int(cnt.sum()),
+             "dcn_ms": sum(s["ms"] for s in sites),
+             "dcn_bound_ms": sum(s["bound_ms"] for s in sites),
+             "dcn_plain_ms": sum(s["plain_ms"] for s in sites), "peak_bytes": int(peak)}
+    log("  DB kernels at (32, 736x1312): " + json.dumps(times))
+    return {"counts": {k: [float(np.mean(v)), max(v), min(v)] for k, v in counts.items()},
+            "times": times, "slot_differences": slot_diff, "sites": sites}
+
+
 # ---------------------------------------------------------- resize_concat
 
 
@@ -4916,6 +5261,15 @@ def main(argv=()) -> int:
         entries = check_craft_kernels(dev)
         craft = drive_craft(dev) if CRAFT_ARTIFACT.exists() else None
         print(json.dumps({"kernels": entries, "craft": craft}))
+        print(card)
+        return 0
+
+    if "--db" in argv:
+        log("[28/28] DB: the deformable conv, 8-connected labelling and box kernels, the "
+            "captured program at (32, 736x1312)")
+        entries = check_db_kernels(dev) + check_craft_kernels(dev)
+        db = drive_db(dev) if DB_ARTIFACT.exists() else None
+        print(json.dumps({"kernels": entries, "db": db}))
         print(card)
         return 0
 
@@ -5091,9 +5445,19 @@ def main(argv=()) -> int:
     entries.append(resize["kernel"])
     log(f"  resize_concat phase {time.perf_counter() - t0:.1f} s")
 
+    log("[28/28] DB: the deformable conv, 8-connected labelling and box kernels, the "
+        "captured program at (32, 736x1312)")
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_launch_counts()
+    entries += check_db_kernels(dev)
+    db = drive_db(dev)
+    log(f"  DB phase {time.perf_counter() - t0:.1f} s")
+
     log(f"[21/24] result (all phases {time.perf_counter() - t_start:.1f} s)")
     print(json.dumps({"kernels": entries, "east": east, "craft": craft,
-                      "resize_concat": resize}))
+                      "resize_concat": resize, "db": db}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -5,10 +5,10 @@ that one YAML file (``configs/text.yml``) loads into both; the ``TPU.*``
 knobs keep their names too. Of those, the port reads ``BUCKETS``,
 ``COMPUTE_DTYPE``, ``PARAM_DTYPE``, ``MAX_LINES``, ``NMS_FUSED``,
 ``FUSED_STEM``, EAST's caps ``EAST_MAX_MERGED`` and ``EAST_MAX_RECORDS``,
-CRAFT's ``CRAFT_MAX_BOXES`` and, in training, ``MAX_GT``, ``MAX_DONTCARE``,
-``PREFETCH_DEPTH`` and ``REMAT``; the others (tile sizes, ``MESH_AXIS``,
-``PACKED_STEM``, whose packed block equals the stock convs) are accepted
-and change nothing.
+CRAFT's ``CRAFT_MAX_BOXES``, DB's ``DB_MAX_BOXES`` and, in training,
+``MAX_GT``, ``MAX_DONTCARE``, ``PREFETCH_DEPTH`` and ``REMAT``; the others
+(tile sizes, ``MESH_AXIS``, ``PACKED_STEM``, whose packed block equals the
+stock convs) are accepted and change nothing.
 
 Re-implements the reference's global-EasyDict config
 (`lib/fast_rcnn/config.py:7-316`) and the separate hard-coded text-connector
@@ -216,6 +216,17 @@ def _default_cfg() -> AttrDict:
     x.MIN_COMPONENT_AREA = 10
     x.CANVAS_SIZE = 1280
     x.MAG_RATIO = 1.5
+    # DBNet (NET_NAME DB_RESNET50_DCN; MhLiao/DB seg_detector_representer.py
+    # and demo.py): a pixel is on over DB_THRESH; a box is kept when its
+    # short side reaches DB_MIN_SIZE, its mean probability DB_BOX_THRESH,
+    # and, unclipped by DB_UNCLIP_RATIO, DB_MIN_SIZE + 2; the host resize
+    # takes the short side to DB_SHORT_SIDE and the long side to the
+    # multiple of 32 that keeps the ratio (rounded up)
+    x.DB_THRESH = 0.3
+    x.DB_BOX_THRESH = 0.7
+    x.DB_UNCLIP_RATIO = 1.5
+    x.DB_MIN_SIZE = 3
+    x.DB_SHORT_SIDE = 736
     c.TEXT = x
 
     # ---- TPU build knobs (new; no reference equivalent) ----
@@ -238,6 +249,10 @@ def _default_cfg() -> AttrDict:
     # CRAFT: components kept (one box each) per image; the rest are counted;
     # 128 is 4.1x the most any 720p render of the benchmark kept (31)
     p.CRAFT_MAX_BOXES = 128
+    # DB: components taken (one box each) per image, the rest counted; 564
+    # is 4x the most any 720p render of the benchmark gave (141, 12 seeds),
+    # where DB's max_candidates is 100
+    p.DB_MAX_BOXES = 564
     p.NMS_TILE = 256  # Pallas NMS bitmask row-tile size (multiple of 8)
     p.NMS_TILE_J = 2048  # Pallas NMS bitmask column-tile size (mult. of 16)
     # single-kernel NMS (build+resolve fused, early exit); False: the

@@ -31,10 +31,23 @@ normalisation, the trunk's taps, the decoder, then the connected
 components and the boxes of ``postprocess/craft.py``, all on the card in
 the captured program; it answers with ``(CraftText, CraftRecords)``, and
 the host resizes by CRAFT's rule and unscales the boxes.
+
+With ``cfg.NET_NAME`` ``DB_RESNET50_DCN`` it is a :class:`DBPredictor`,
+which runs DBNet (``models/dbnet.py``) through :func:`db_program`: the
+normalisation, the deformable trunk, the neck and the binarize head, then
+the components and the scored, unclipped boxes of ``postprocess/db.py``,
+all on the card in the captured program; it answers with ``(DBText,
+DBRecords)``, whose records are in the original image's pixels already,
+and the host resizes by DB's rule.
+
+Each predictor's host calls are spans of its ``span_prefix``
+(``<prefix>.pad``, ``.run``, ``.fetch``, ``.unscale``): none for CTPN's,
+whose padding is ``predict.pad``.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
@@ -45,17 +58,19 @@ from ctpn_tpu_torch.inference.graphs import DetectGraphs
 from ctpn_tpu_torch.inference.records import unscale_quads, unscale_records
 from ctpn_tpu_torch.models.craft import CRAFT
 from ctpn_tpu_torch.models.ctpn import CTPN, CTPNOutputs
+from ctpn_tpu_torch.models.dbnet import DBNet
 from ctpn_tpu_torch.models.east import EAST
 from ctpn_tpu_torch.ops.proposal import Proposals, proposal_layer
 from ctpn_tpu_torch.postprocess.connector import TextLines
 from ctpn_tpu_torch.postprocess.detector import detect_lines
 from ctpn_tpu_torch.postprocess.craft import (CraftRecords, CraftText, craft_kwargs,
                                               craft_postprocess)
+from ctpn_tpu_torch.postprocess.db import DBRecords, DBText, db_kwargs, db_postprocess
 from ctpn_tpu_torch.postprocess.east import EastQuads, EastRecords, east_kwargs, east_postprocess
 from ctpn_tpu_torch.utils import timer
 from ctpn_tpu_torch.utils.device import device_constant, resolve_device
-from ctpn_tpu_torch.utils.image import (craft_resize_factor, load_image_bgr, prep_image,
-                                        resize_by_factor, resize_im)
+from ctpn_tpu_torch.utils.image import (craft_resize_factor, db_resize_size, load_image_bgr,
+                                        prep_image, resize_by_factor, resize_im, resize_to)
 from ctpn_tpu_torch.utils.weights import params_from_jax
 
 
@@ -256,6 +271,44 @@ def build_craft_detect_fn(
     return detect
 
 
+def db_program(
+    model: DBNet,
+    images: torch.Tensor,
+    im_info: torch.Tensor,
+    kw: Mapping[str, Any],
+    on_stage: Optional[Callable[[str], None]] = None,
+) -> Tuple[DBText, DBRecords]:
+    """DB's detect program: the normalisation and the trunk (``trunk``,
+    after a stamp before and after each deformable site), the FPN
+    (``neck``), the binarize head (``head``), then ``label`` and ``boxes``
+    (``postprocess/db.py``); ``on_stage`` is called at each. Like
+    :func:`detect_program`, no host sync: a CUDA graph captures all of it.
+    ``im_info`` (N, 4): each image's resized rows and columns, then its
+    original rows and columns."""
+    mark = on_stage or (lambda name: None)
+    feats = model.trunk(craft_normalised(images), mark)
+    mark("trunk")
+    fuse = model.neck(feats)
+    mark("neck")
+    prob = model.head(fuse)
+    mark("head")
+    return db_postprocess(prob, im_info, kw, mark)
+
+
+def build_db_detect_fn(
+    model: DBNet, on_stage: Optional[Callable[[str], None]] = None
+) -> Callable[[torch.Tensor, torch.Tensor], Tuple[DBText, DBRecords]]:
+    """Returns fn(images, im_info) -> (DBText, DBRecords), batched, with
+    the cfg's thresholds and cap (``db_kwargs``)."""
+    kw = db_kwargs()
+
+    @torch.inference_mode()
+    def detect(images: torch.Tensor, im_info: torch.Tensor):
+        return db_program(model, images, im_info, kw, on_stage)
+
+    return detect
+
+
 def _stamped(clock, detect):
     """``detect`` behind the stage clock's ``start`` stamp."""
 
@@ -274,7 +327,8 @@ class CTPNPredictor:
     ``model`` (default: ``get_network("VGGnet_test")`` from the cfg).
     Runs on CUDA unless ``device`` says otherwise; without CUDA it raises.
     ``CTPNPredictor(...)`` gives an :class:`EASTPredictor` instead when
-    ``cfg.NET_NAME`` is ``EAST_VGG16`` or ``model`` is an ``EAST``.
+    ``cfg.NET_NAME`` is ``EAST_VGG16`` or ``model`` is an ``EAST``, a
+    :class:`CRAFTPredictor` for CRAFT and a :class:`DBPredictor` for DBNet.
 
     ``buckets_run`` records, in first-run order, each (height, width)
     bucket that ``run_batch`` has run: the server reports it where the JAX
@@ -290,10 +344,12 @@ class CTPNPredictor:
     """
 
     stages = timer.STAGES  # the stage clock's stages
-    pad_span = "predict.pad"
+    # the host calls' spans: ``<prefix>.pad``, ``.run``, ``.fetch`` and
+    # ``.unscale``; None: CTPN's, whose padding alone is a span
+    span_prefix: Optional[str] = None
 
     def __new__(cls, params=None, model=None, mode=None, device="cuda"):
-        from ctpn_tpu_torch.models.factory import CRAFT_NAMES, EAST_NAMES
+        from ctpn_tpu_torch.models.factory import CRAFT_NAMES, DB_NAMES, EAST_NAMES
 
         if cls is CTPNPredictor and (
                 isinstance(model, EAST) or (model is None and cfg.NET_NAME in EAST_NAMES)):
@@ -301,7 +357,20 @@ class CTPNPredictor:
         elif cls is CTPNPredictor and (
                 isinstance(model, CRAFT) or (model is None and cfg.NET_NAME in CRAFT_NAMES)):
             cls = CRAFTPredictor
+        elif cls is CTPNPredictor and (
+                isinstance(model, DBNet) or (model is None and cfg.NET_NAME in DB_NAMES)):
+            cls = DBPredictor
         return super().__new__(cls)
+
+    @property
+    def pad_span(self) -> str:
+        return f"{self.span_prefix}.pad" if self.span_prefix else "predict.pad"
+
+    def _span(self, step: str):
+        """The span ``<prefix>.<step>`` of a host call; none without a prefix."""
+        if self.span_prefix is None:
+            return contextlib.nullcontext()
+        return timer.span(f"{self.span_prefix}.{step}")
 
     def __init__(
         self,
@@ -342,9 +411,10 @@ class CTPNPredictor:
         """Run the batched program on host arrays (``graphs``: on the card the
         first call of a shape runs it and captures it); returns once the
         work is queued, with no host sync: callers fetch with ``.cpu()``."""
-        self.buckets_run.setdefault(tuple(int(d) for d in images.shape[1:3]))
-        return self.graphs(np.ascontiguousarray(images),
-                           np.asarray(im_info, np.float32))
+        with self._span("run"):
+            self.buckets_run.setdefault(tuple(int(d) for d in images.shape[1:3]))
+            return self.graphs(np.ascontiguousarray(images),
+                               np.asarray(im_info, np.float32))
 
     def run_padded(self, images, infos, batch_size: int):
         """Run a possibly-partial batch padded to ``batch_size`` (callers
@@ -357,12 +427,19 @@ class CTPNPredictor:
 
     def fetch(self, recs, i: int = 0) -> Tuple[np.ndarray, int]:
         """Image ``i``'s padded records and their count, on the host."""
-        return recs.recs[i].cpu().numpy(), int(recs.count[i])
+        with self._span("fetch"):
+            return recs.recs[i].cpu().numpy(), int(recs.count[i])
 
     def unscale(self, recs: np.ndarray, count: int, f1: float, info,
                 y_off: float = 0.0) -> np.ndarray:
         """One image's padded records on the host -> records in ORIGINAL
-        image coords (``unscale_records``: the line union, then unscale)."""
+        image coords (:meth:`_unscale`)."""
+        with self._span("unscale"):
+            return self._unscale(recs, count, f1, info, y_off)
+
+    def _unscale(self, recs: np.ndarray, count: int, f1: float, info,
+                 y_off: float = 0.0) -> np.ndarray:
+        """CTPN's: ``unscale_records`` (the line union, then unscale)."""
         return unscale_records(recs, count, f1, info, y_off=y_off)
 
     def detect_image(self, im_bgr: np.ndarray) -> np.ndarray:
@@ -431,7 +508,7 @@ class EASTPredictor(CTPNPredictor):
     """
 
     stages = timer.EAST_STAGES
-    pad_span = "east.pad"
+    span_prefix = "east"
 
     def _network(self) -> torch.nn.Module:
         from ctpn_tpu_torch.models.factory import get_network
@@ -444,20 +521,11 @@ class EASTPredictor(CTPNPredictor):
     def _variant(self) -> Callable[[], Tuple]:
         return lambda: ("EAST",)
 
-    def run_batch(self, images: np.ndarray, im_info: np.ndarray):
-        with timer.span("east.run"):
-            return super().run_batch(images, im_info)
-
-    def fetch(self, recs, i: int = 0) -> Tuple[np.ndarray, int]:
-        with timer.span("east.fetch"):
-            return super().fetch(recs, i)
-
-    def unscale(self, recs: np.ndarray, count: int, f1: float, info,
-                y_off: float = 0.0) -> np.ndarray:
+    def _unscale(self, recs: np.ndarray, count: int, f1: float, info,
+                 y_off: float = 0.0) -> np.ndarray:
         """One image's padded quads on the host -> quads ``[x1, y1, ...,
         x4, y4, score]`` in ORIGINAL image coords (``unscale_quads``)."""
-        with timer.span("east.unscale"):
-            return unscale_quads(recs, count, f1, info, y_off=y_off)
+        return unscale_quads(recs, count, f1, info, y_off=y_off)
 
     def detect_image_host(self, im_bgr: np.ndarray) -> np.ndarray:
         raise ValueError("detect_image_host runs CTPN's host post-process; EAST has none")
@@ -477,7 +545,7 @@ class CRAFTPredictor(CTPNPredictor):
     """
 
     stages = timer.CRAFT_STAGES
-    pad_span = "craft.pad"
+    span_prefix = "craft"
 
     def _network(self) -> torch.nn.Module:
         from ctpn_tpu_torch.models.factory import get_network
@@ -494,20 +562,11 @@ class CRAFTPredictor(CTPNPredictor):
     def _variant(self) -> Callable[[], Tuple]:
         return lambda: ("CRAFT",)
 
-    def run_batch(self, images: np.ndarray, im_info: np.ndarray):
-        with timer.span("craft.run"):
-            return super().run_batch(images, im_info)
-
-    def fetch(self, recs, i: int = 0) -> Tuple[np.ndarray, int]:
-        with timer.span("craft.fetch"):
-            return super().fetch(recs, i)
-
-    def unscale(self, recs: np.ndarray, count: int, f1: float, info,
-                y_off: float = 0.0) -> np.ndarray:
+    def _unscale(self, recs: np.ndarray, count: int, f1: float, info,
+                 y_off: float = 0.0) -> np.ndarray:
         """One image's padded boxes on the host -> boxes ``[x1, y1, ..., x4,
         y4, score]`` in ORIGINAL image coords (``unscale_quads``)."""
-        with timer.span("craft.unscale"):
-            return unscale_quads(recs, count, f1, info, y_off=y_off)
+        return unscale_quads(recs, count, f1, info, y_off=y_off)
 
     def prep(self, im_bgr: np.ndarray) -> Tuple[np.ndarray, np.ndarray, float]:
         """One uint8 BGR image -> (padded image, im_info [h, w, 1], factor)
@@ -531,3 +590,63 @@ class CRAFTPredictor(CTPNPredictor):
 
     def detect_image_host(self, im_bgr: np.ndarray) -> np.ndarray:
         raise ValueError("detect_image_host runs CTPN's host post-process; CRAFT has none")
+
+
+class DBPredictor(CTPNPredictor):
+    """:class:`CTPNPredictor` for DBNet (``models/dbnet.py``, default
+    ``get_network(cfg.NET_NAME)``): the program is :func:`db_program`,
+    which answers with ``(DBText, DBRecords)`` (``postprocess/db.py``) in
+    place of ``(Proposals, TextLines)``, its records already in the
+    original image's pixels; ``graphs``' key carries ``"DB"``; the stage
+    clock has DB's stages; the host resizes by DB's rule (:meth:`prep`) and
+    only trims the records (:meth:`unscale`); there is no host
+    post-process (:meth:`detect_image_host`). Its host calls are
+    ``ctpn.db.*`` spans."""
+
+    stages = timer.DB_STAGES
+    span_prefix = "db"
+
+    def _network(self) -> torch.nn.Module:
+        from ctpn_tpu_torch.models.factory import get_network
+
+        return get_network(cfg.NET_NAME, self.device)
+
+    def _build(self, on_stage: Optional[Callable[[str], None]] = None):
+        return build_db_detect_fn(self.model, on_stage=on_stage)
+
+    def _variant(self) -> Callable[[], Tuple]:
+        return lambda: ("DB",)
+
+    def _unscale(self, recs: np.ndarray, count: int, f1: float, info,
+                 y_off: float = 0.0) -> np.ndarray:
+        """One image's records on the host, trimmed to ``count``: ``[x1, y1,
+        ..., x4, y4, score]`` in ORIGINAL image coords (the program mapped
+        them)."""
+        return np.asarray(recs)[:count].astype(np.float64)
+
+    def prep(self, im_bgr: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """One uint8 BGR image -> (image padded into its bucket, im_info
+        [resized h, resized w, original h, original w]) by DB's resize
+        (:func:`~ctpn_tpu_torch.utils.image.db_resize_size`, bilinear)."""
+        h, w = im_bgr.shape[:2]
+        (rh, rw), (bh, bw) = db_resize_size(h, w, int(cfg.TEXT.DB_SHORT_SIDE), cfg.TPU.BUCKETS)
+        data = np.zeros((bh, bw, 3), np.uint8)
+        data[:rh, :rw] = resize_to(im_bgr, rh, rw)
+        return data, np.array([rh, rw, h, w], np.float32)
+
+    def detect_image(self, im_bgr: np.ndarray) -> np.ndarray:
+        """One uint8 BGR image -> (M, 9) boxes in ORIGINAL image coords."""
+        data, info = self.prep(im_bgr)
+        _, recs = self.run_batch(data[None], info[None])
+        boxes, count = self.fetch(recs)
+        return self.unscale(boxes, count, 1.0, info)
+
+    def warmup(self, bucket: Optional[Tuple[int, int]] = None, batch: int = 1):
+        bh, bw = bucket or tuple(cfg.TPU.BUCKETS[0])
+        img = np.full((batch, bh, bw, 3), 128, np.uint8)
+        info = np.tile(np.array([bh, bw, bh, bw], np.float32), (batch, 1))
+        _, recs = self.run_batch(img, info)
+        recs.count.cpu()
+
+    def detect_image_host(self, im_bgr: np.ndarray) -> np.ndarray:
+        raise ValueError("detect_image_host runs CTPN's host post-process; DB has none")

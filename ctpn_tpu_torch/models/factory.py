@@ -10,6 +10,7 @@ import torch
 from ctpn_tpu_torch.config import cfg
 from ctpn_tpu_torch.models.craft import CRAFT
 from ctpn_tpu_torch.models.ctpn import CTPN
+from ctpn_tpu_torch.models.dbnet import DBNet
 from ctpn_tpu_torch.models.east import EAST
 from ctpn_tpu_torch.utils.device import resolve_device
 
@@ -18,12 +19,14 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 EAST_NAMES = ("EAST_VGG16",)
 CRAFT_NAMES = ("CRAFT_VGG16_BN",)
+DB_NAMES = ("DB_RESNET50_DCN",)
 
 
 def get_network(name: str, device: Union[str, torch.device] = "cuda") -> torch.nn.Module:
     """A randomly initialised ``CTPN``, ``EAST`` for ``EAST_VGG16``
-    (``models/east.py``) or ``CRAFT`` for ``CRAFT_VGG16_BN``
-    (``models/craft.py``), on ``device``, in eval mode.
+    (``models/east.py``), ``CRAFT`` for ``CRAFT_VGG16_BN``
+    (``models/craft.py``) or ``DBNet`` for ``DB_RESNET50_DCN``
+    (``models/dbnet.py``), on ``device``, in eval mode.
 
     ``TPU.FUSED_STEM`` routes block 1 of the test network (inference only)
     through the fused stem kernel. ``TPU.PACKED_STEM`` needs nothing: the packed block equals the
@@ -31,7 +34,7 @@ def get_network(name: str, device: Union[str, torch.device] = "cuda") -> torch.n
     convs one image at a time (``CTPN``'s ``per_image_tail``), so that a
     served image's records do not depend on its slot in the padded batch.
     """
-    if name not in ("VGGnet_train", "VGGnet_test", "ctpn") + EAST_NAMES + CRAFT_NAMES:
+    if name not in ("VGGnet_train", "VGGnet_test", "ctpn") + EAST_NAMES + CRAFT_NAMES + DB_NAMES:
         raise KeyError(f"Unknown network: {name}")
     dev = resolve_device(device)
     if DTYPES.get(cfg.TPU.PARAM_DTYPE) is not torch.float32:
@@ -44,6 +47,10 @@ def get_network(name: str, device: Union[str, torch.device] = "cuda") -> torch.n
         # block 5 one image at a time (models/craft.py)
         craft = CRAFT(dtype=DTYPES[cfg.TPU.COMPUTE_DTYPE], per_image_tail=True)
         return craft.to(dev).eval()
+    if name in DB_NAMES:
+        # stage 2's offset convs one image at a time (models/resnet.py)
+        db = DBNet(dtype=DTYPES[cfg.TPU.COMPUTE_DTYPE])
+        return db.to(dev).eval()
     model = CTPN(
         dtype=DTYPES[cfg.TPU.COMPUTE_DTYPE],
         fused_stem=bool(cfg.TPU.FUSED_STEM) and name == "VGGnet_test",

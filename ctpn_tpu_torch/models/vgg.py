@@ -76,14 +76,13 @@ class Conv3x3(nn.Conv2d):
         self.per_image = per_image
 
     def forward(self, x: torch.Tensor, bias: bool = True) -> torch.Tensor:
-        """The conv; ``bias=False`` leaves the bias out."""
+        """The conv (at its stride); ``bias=False`` leaves the bias out."""
         w = self.weight.to(x.dtype)
-        b = self.bias.to(x.dtype) if bias else None
-        pad, dil = self.padding, self.dilation
+        b = self.bias.to(x.dtype) if bias and self.bias is not None else None
+        kw = dict(stride=self.stride, padding=self.padding, dilation=self.dilation)
         if self.per_image and x.shape[0] > 1:
-            return torch.cat([F.conv2d(x[i:i + 1], w, b, padding=pad, dilation=dil)
-                              for i in range(x.shape[0])])
-        return F.conv2d(x, w, b, padding=pad, dilation=dil)
+            return torch.cat([F.conv2d(x[i:i + 1], w, b, **kw) for i in range(x.shape[0])])
+        return F.conv2d(x, w, b, **kw)
 
     def conv_relu(self, x: torch.Tensor, pool: bool = False) -> torch.Tensor:
         """ReLU of the conv, then the 2x2/2 max-pool if ``pool``.

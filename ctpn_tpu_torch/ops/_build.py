@@ -35,12 +35,13 @@ NVCC_FLAGS = (
     "-Xptxas=-v",
 )
 # per-source extra flags: the NMS IoU test, the chain walk's sums,
-# CRAFT's box corners and the bilinear blend must round exactly as the plain
+# CRAFT's and DB's box corners and the bilinear blends must round exactly as the plain
 # versions do, so no multiply-add contraction but the blend's own
 # (``__fmaf_rn``)
 EXTRA_FLAGS: Dict[str, Sequence[str]] = {
     "chain_walk": ("-fmad=false",),
     "craft_ccl": ("-fmad=false",),
+    "deform_conv": ("-fmad=false",),
     "nms_fused": ("-fmad=false",),
     "nms_bitmask": ("-fmad=false",),
     "quad_nms": ("-fmad=false",),

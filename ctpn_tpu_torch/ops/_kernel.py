@@ -34,12 +34,12 @@ import torch
 from ctpn_tpu_torch.ops import _build, _launches
 
 # argument types of the entry points; every entry takes the stream last
-PTR, INT, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+PTR, INT, FLOAT, DOUBLE = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 
 # the modules of the counted kernels; importing one registers its kernels
 MODULES = ("nms_fused", "nms_bitmask", "nms_resolve", "stem_fused", "conv_epilogue",
            "chain_walk", "successors", "lanms", "quad_nms", "ccl", "craft_boxes",
-           "resize_concat")
+           "resize_concat", "deform_conv", "db_boxes")
 
 _LIB = torch.library.Library("ctpn_torch", "FRAGMENT")
 _REGISTRY: Dict[str, "Entry"] = {}

@@ -1,6 +1,8 @@
 """Connected components of CRAFT's thresholded maps (Baek et al., CVPR
 2019; clovaai/CRAFT-pytorch ``craft_utils.py::getDetBoxes_core``, which
-calls ``cv2.connectedComponentsWithStats``).
+calls ``cv2.connectedComponentsWithStats``) and of DBNet's binarized
+probability map (MhLiao/DB ``boxes_from_bitmap``, whose
+``cv2.findContours`` traces each 8-connected component's outer border).
 
 No TPU counterpart: the JAX package runs CTPN only. Labelling is global
 (a component may span the map), so a captured program cannot run it as a
@@ -16,10 +18,12 @@ end; the card runs it as one op.
   one to the other.
 
 Contract (both versions): maps (B, H, W, 2) float32 ``[region, affinity]``
-and extent (B, 2) int32, the rows and columns of each image's map that
-are read. A pixel inside the extent is on when ``region > low_text`` or
-``affinity > link_threshold`` (float32 compares). Components are those of
-4-connectivity. Returns
+(CRAFT) or (B, H, W, 1) ``[probability]`` (DB), and extent (B, 2) int32,
+the rows and columns of each image's map that are read. A pixel inside
+the extent is on when ``region > low_text`` or ``affinity >
+link_threshold`` (float32 compares; a map of one channel has no
+affinity). Components are those of ``connectivity`` 4 (CRAFT's) or 8
+(DB's: a diagonal neighbour joins too). Returns
 
 * ``labels`` (B, H, W) int32: each on pixel's component, the least raster
   index ``y * W + x`` of its pixels; -1 off;
@@ -31,6 +35,9 @@ are read. A pixel inside the extent is on when ``region > low_text`` or
 * ``count`` (B,) int32 the components kept (at most ``cap``), ``overflow``
   (B,) those past the cap, ``on`` (B,) the pixels on and ``labelled``
   (B,) the components.
+
+The kernels are instantiated per channel count and connectivity (template
+parameters), so CRAFT's two-channel, 4-connected labelling is its own code.
 """
 
 from __future__ import annotations
@@ -47,10 +54,12 @@ Labels = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Ten
 STATS = 6  # label, area, x, y, w, h
 
 
-def _check(maps: torch.Tensor, extent: torch.Tensor, cap: int) -> None:
-    if maps.ndim != 4 or maps.shape[-1] != 2 or maps.dtype != torch.float32:
-        raise ValueError(f"maps must be float32 (B, H, W, 2), got {maps.dtype} "
+def _check(maps: torch.Tensor, extent: torch.Tensor, cap: int, connectivity: int = 4) -> None:
+    if maps.ndim != 4 or maps.shape[-1] not in (1, 2) or maps.dtype != torch.float32:
+        raise ValueError(f"maps must be float32 (B, H, W, 2) or (B, H, W, 1), got {maps.dtype} "
                          f"{tuple(maps.shape)}")
+    if connectivity not in (4, 8):
+        raise ValueError(f"connectivity must be 4 or 8, got {connectivity}")
     if extent.dtype != torch.int32 or tuple(extent.shape) != (maps.shape[0], 2):
         raise ValueError(f"extent must be int32 ({maps.shape[0]}, 2), got {extent.dtype} "
                          f"{tuple(extent.shape)}")
@@ -71,15 +80,17 @@ def _on(maps: torch.Tensor, extent: torch.Tensor, low: float, link: float) -> to
     cols = torch.arange(w, device=dev)[None, None, :]
     inside = (rows < extent[:, 0, None, None]) & (cols < extent[:, 1, None, None])
     lo = torch.tensor(low, dtype=torch.float32, device=dev)
+    if maps.shape[-1] == 1:
+        return inside & (maps[..., 0] > lo)
     li = torch.tensor(link, dtype=torch.float32, device=dev)
     return inside & ((maps[..., 0] > lo) | (maps[..., 1] > li))
 
 
-def component_labels(on: torch.Tensor) -> torch.Tensor:
+def component_labels(on: torch.Tensor, connectivity: int = 4) -> torch.Tensor:
     """(B, H, W) bool -> (B, H, W) int64 least raster index of each on
-    pixel's 4-connected component, -1 off: the least label of the four
-    neighbours taken until nothing changes, each step followed by a jump
-    to the label's own label."""
+    pixel's 4- or 8-connected component, -1 off: the least label of the
+    neighbours taken until nothing changes, each step followed by a jump to
+    the label's own label."""
     batch, h, w = on.shape
     big = h * w
     idx = torch.arange(big, device=on.device).view(1, h, w).expand(batch, h, w)
@@ -90,6 +101,11 @@ def component_labels(on: torch.Tensor) -> torch.Tensor:
         new[:, :, :-1] = torch.minimum(new[:, :, :-1], lab[:, :, 1:])
         new[:, 1:] = torch.minimum(new[:, 1:], lab[:, :-1])
         new[:, :-1] = torch.minimum(new[:, :-1], lab[:, 1:])
+        if connectivity == 8:
+            new[:, 1:, 1:] = torch.minimum(new[:, 1:, 1:], lab[:, :-1, :-1])
+            new[:, :-1, :-1] = torch.minimum(new[:, :-1, :-1], lab[:, 1:, 1:])
+            new[:, 1:, :-1] = torch.minimum(new[:, 1:, :-1], lab[:, :-1, 1:])
+            new[:, :-1, 1:] = torch.minimum(new[:, :-1, 1:], lab[:, 1:, :-1])
         new = torch.where(on, new, big)
         flat = new.reshape(batch, big)
         jumped = flat.gather(1, flat.clamp(max=big - 1)).view(batch, h, w)
@@ -102,14 +118,14 @@ def component_labels(on: torch.Tensor) -> torch.Tensor:
 
 def ccl_label_ref(maps: torch.Tensor, extent: torch.Tensor, low_text: float,
                   link_threshold: float, text_threshold: float, min_area: int,
-                  cap: int) -> Labels:
+                  cap: int, connectivity: int = 4) -> Labels:
     """Plain PyTorch version: labels by :func:`component_labels`, the
     statistics by ``scatter_reduce`` over the labels, every image at once."""
-    _check(maps, extent, cap)
+    _check(maps, extent, cap, connectivity)
     batch, h, w = maps.shape[:3]
     dev, hw = maps.device, h * w
     on = _on(maps, extent, low_text, link_threshold)
-    lab = component_labels(on)
+    lab = component_labels(on, connectivity)
     flat_on = on.reshape(batch, hw)
     # each pixel's slot: its root's, in the flat (B * H * W) space, or a
     # last slot for the pixels off
@@ -147,14 +163,14 @@ def ccl_label_ref(maps: torch.Tensor, extent: torch.Tensor, low_text: float,
             flat_on.sum(1, dtype=torch.int32), roots.sum(1, dtype=torch.int32))
 
 
-_KERNEL = _kernel.Entry("ccl_label", [PTR] * 10 + [INT, INT, INT, FLOAT, FLOAT, FLOAT, INT, INT],
-                        source="craft_ccl")
+_KERNEL = _kernel.Entry("ccl_label", [PTR] * 10 + [INT, INT, INT, FLOAT, FLOAT, FLOAT, INT, INT,
+                                                   INT, INT], source="craft_ccl")
 
 
 def _launch(maps: torch.Tensor, extent: torch.Tensor, low_text: float, link_threshold: float,
-            text_threshold: float, min_area: int, cap: int) -> Labels:
+            text_threshold: float, min_area: int, cap: int, connectivity: int = 4) -> Labels:
     """The op's CUDA implementation: launch the kernels or raise."""
-    _check(maps, extent, cap)
+    _check(maps, extent, cap, connectivity)
     dev = maps.device
     batch, h, w = maps.shape[:3]
     labels = torch.empty((batch, h, w), dtype=torch.int32, device=dev)
@@ -167,12 +183,14 @@ def _launch(maps: torch.Tensor, extent: torch.Tensor, low_text: float, link_thre
         return (labels, stats, score, *counts.unbind(0))
     _KERNEL(dev, maps.contiguous(), extent.contiguous(), labels, work, stats, score,
             counts[0], counts[1], counts[2], counts[3], batch, h, w, float(low_text),
-            float(link_threshold), float(text_threshold), int(min_area), int(cap))
+            float(link_threshold), float(text_threshold), int(min_area), int(cap),
+            maps.shape[-1], int(connectivity))
     return (labels, stats, score, *counts.unbind(0))
 
 
-def _fake(maps, extent, low_text, link_threshold, text_threshold, min_area, cap):
-    _check(maps, extent, cap)
+def _fake(maps, extent, low_text, link_threshold, text_threshold, min_area, cap,
+          connectivity=4):
+    _check(maps, extent, cap, connectivity)
     b, h, w = maps.shape[:3]
     i32 = torch.int32
     return (maps.new_empty((b, h, w), dtype=i32), maps.new_empty((b, cap, STATS), dtype=i32),
@@ -180,20 +198,22 @@ def _fake(maps, extent, low_text, link_threshold, text_threshold, min_area, cap)
 
 
 _kernel.op("ccl_label(Tensor maps, Tensor extent, float low_text, float link_threshold, "
-           "float text_threshold, int min_area, int cap) "
+           "float text_threshold, int min_area, int cap, int connectivity=4) "
            "-> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)",
            cpu=ccl_label_ref, cuda=_launch, fake=_fake)
 
 
 @_KERNEL.counts
 def ccl_label(maps: torch.Tensor, extent: torch.Tensor, low_text: float, link_threshold: float,
-              text_threshold: float, min_area: int, cap: int) -> Labels:
-    """(labels, stats, score, count, overflow, on, labelled) of CRAFT's maps.
+              text_threshold: float, min_area: int, cap: int, connectivity: int = 4) -> Labels:
+    """(labels, stats, score, count, overflow, on, labelled) of CRAFT's or
+    DB's maps.
 
     Calls the op ``torch.ops.ctpn_torch.ccl_label``: CPU tensors run
     :func:`ccl_label_ref`; CUDA tensors launch the kernels (adding one to
     ``ccl_label.LAUNCHES`` and ``LAUNCHES_BY_DEVICE``) or raise.
     """
-    _check(maps, extent, cap)
+    _check(maps, extent, cap, connectivity)
     return torch.ops.ctpn_torch.ccl_label(maps, extent, float(low_text), float(link_threshold),
-                                          float(text_threshold), int(min_area), int(cap))
+                                          float(text_threshold), int(min_area), int(cap),
+                                          int(connectivity))

@@ -13,6 +13,7 @@ happens on the device (``inference/pipeline.py::forward_features``).
 
 from __future__ import annotations
 
+import math
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -70,6 +71,34 @@ def craft_resize_factor(h: int, w: int, mag_ratio: float, canvas_size: int,
     if th > bh or tw > bw:
         f = min(f, bh / h, bw / w)
     return f, (bh, bw)
+
+
+def db_resize_size(h: int, w: int, short_side: int,
+                   buckets: Sequence[Sequence[int]] = None) -> Tuple[Tuple[int, int],
+                                                                  Tuple[int, int]]:
+    """DB's resize (MhLiao/DB ``demo.py::resize_image``): the short side to
+    ``short_side`` (the height where h < w, else the width), the other side
+    to ``ceil(short_side / short * long / 32) * 32``; in the smallest bucket
+    that holds it. Where none does, the short side drops by 32 until the
+    size fits the largest bucket (or reaches 32). Returns ((new h, new w),
+    bucket)."""
+    s = int(short_side)
+    while True:
+        if h < w:
+            nh, nw = s, int(math.ceil(s / h * w / 32) * 32)
+        else:
+            nh, nw = int(math.ceil(s / w * h / 32) * 32), s
+        bh, bw = pick_bucket(nh, nw, buckets)
+        if (nh <= bh and nw <= bw) or s <= 32:
+            return (min(nh, bh), min(nw, bw)), (bh, bw)
+        s -= 32
+
+
+def resize_to(im: np.ndarray, h: int, w: int) -> np.ndarray:
+    """Bilinear resize to (h, w); the same size copies."""
+    if im.shape[:2] == (h, w):
+        return im
+    return np.asarray(Image.fromarray(im.astype(np.uint8)).resize((w, h), Image.BILINEAR))
 
 
 def prep_image(

@@ -31,8 +31,10 @@ Spans, all host seconds: ``graphs.upload``, ``graphs.replay``,
 ``serve.accept_wait`` (``serving.py``); ``stream.prep``, ``stream.wait``
 and ``stream.fetch`` (``inference/streaming.py``); ``east.pad``,
 ``east.run``, ``east.fetch`` and ``east.unscale``, the host calls of the
-predictor's EAST path, and ``craft.pad``, ``craft.run``, ``craft.fetch``
-and ``craft.unscale``, those of its CRAFT path (``inference/pipeline.py``).
+predictor's EAST path, ``craft.pad``, ``craft.run``, ``craft.fetch``
+and ``craft.unscale``, those of its CRAFT path, and ``db.pad``, ``db.run``,
+``db.fetch`` and ``db.unscale``, those of its DB path
+(``inference/pipeline.py``).
 
 The stage clock's stages are :data:`STAGES` for CTPN's program and
 :data:`EAST_STAGES` for EAST's: ``trunk`` (the VGG16 taps), ``merge`` (the
@@ -41,7 +43,12 @@ RBOX restore), ``lanms`` (the locality-aware walk) and ``quad_nms`` (sort,
 bitmask, resolve, records); and :data:`CRAFT_STAGES` for CRAFT's:
 ``trunk`` (the normalisation and the taps), ``decoder`` (slice5, the
 U-net blocks and ``conv_cls``), ``label`` (the connected components) and
-``boxes`` (the minimum-area boxes).
+``boxes`` (the minimum-area boxes); and :data:`DB_STAGES` for DB's:
+``dcnNN_in`` and ``dcnNN_out`` around each deformable site NN of the trunk
+(a stage from the stamp before it, so ``dcnNN_out`` is the site's time:
+the offset conv, the sampling and the product), ``trunk`` (to the trunk's
+end), ``neck`` (the FPN), ``head`` (the binarize head), ``label`` and
+``boxes``.
 """
 
 from __future__ import annotations
@@ -190,6 +197,11 @@ def span(name: str):
 STAGES = ("start", "forward", "proposal_layer", "detect_lines")
 EAST_STAGES = ("start", "trunk", "merge", "decode", "lanms", "quad_nms")
 CRAFT_STAGES = ("start", "trunk", "decoder", "label", "boxes")
+# DB's: a stamp before and after each of the 13 deformable sites of the
+# trunk (dcn01_in, dcn01_out, ...), then the trunk's end and the rest
+DB_SITES = 13
+DB_STAGES = ("start", *(f"dcn{k:02d}_{side}" for k in range(1, DB_SITES + 1)
+                        for side in ("in", "out")), "trunk", "neck", "head", "label", "boxes")
 ROWS = 256
 
 
@@ -222,8 +234,8 @@ _kernel.op("stage_stamp(Tensor(a!) ring, int slot) -> ()", cpu=_stamp_ref, cuda=
 
 class StageClock:
     """A ring of ``ROWS`` rows of stamps in ns, one per stage of
-    ``stages`` (:data:`STAGES`, :data:`EAST_STAGES` or
-    :data:`CRAFT_STAGES`), on ``device``; the row counter (runs stamped in
+    ``stages`` (:data:`STAGES`, :data:`EAST_STAGES`, :data:`CRAFT_STAGES`
+    or :data:`DB_STAGES`), on ``device``; the row counter (runs stamped in
     full) is the ring's last element, kept on the device.
 
     ``stamp(name)`` queues the stamp of stage ``name`` on the current

@@ -23,6 +23,9 @@ CRAFT's published weights come as a clovaai/CRAFT-pytorch state dict
 ``conv_cls.8.bias``; a ``module.`` prefix from ``DataParallel`` is
 stripped as its ``copyStateDict`` does): :func:`craft_params_from_clovaai`
 folds each batch norm into its conv and gives the port's parameter tree.
+DBNet's come as a MhLiao/DB state dict (``backbone.layer2.0.conv2_offset.weight``,
+``decoder.binarize.4.running_var``, ...): :func:`db_params_from_mhliao`
+does the same for them.
 
 The pretrained-format converters are NumPy copies of the JAX package's
 (``ctpn_tpu/utils/weights.py``), on the JAX-layout tree as nested dicts of
@@ -220,6 +223,72 @@ def craft_params_from_clovaai(state: Mapping[str, Any]) -> Dict[str, np.ndarray]
         kernel = w[:, :, 0, 0].T if name == "cls_out" else w.transpose(2, 3, 1, 0)
         out[f"{key}/kernel"] = np.ascontiguousarray(kernel, np.float32)
         out[f"{key}/bias"] = b.astype(np.float32)
+    return out
+
+
+def db_mhliao_convs(blocks=None, dcn=None):
+    """(port name, MhLiao conv, MhLiao batch norm or None, transposed) of
+    each of DBNet's convs in MhLiao/DB's state dict (``SegDetectorModel``:
+    the backbone and the decoder), for stages of ``blocks`` bottlenecks,
+    deformable where ``dcn`` says (by default the published (3, 4, 6, 3)
+    and stages 2-4)."""
+    from ctpn_tpu_torch.models.resnet import STAGE_WITH_DCN, STAGES
+
+    blocks = blocks or tuple(n for n, _ in STAGES)
+    dcn = dcn or STAGE_WITH_DCN
+    out = [("backbone/conv1", "backbone.conv1", "backbone.bn1", False)]
+    for s, (n, d) in enumerate(zip(blocks, dcn), start=1):
+        for b in range(n):
+            at = f"layer{s}/{b}"
+            mh = f"backbone.layer{s}.{b}"
+            out += [(f"backbone/{at}/conv1", f"{mh}.conv1", f"{mh}.bn1", False),
+                    (f"backbone/{at}/conv2", f"{mh}.conv2", f"{mh}.bn2", False),
+                    (f"backbone/{at}/conv3", f"{mh}.conv3", f"{mh}.bn3", False)]
+            if d:
+                out.append((f"backbone/{at}/conv2_offset", f"{mh}.conv2_offset", None, False))
+            if b == 0:
+                out.append((f"backbone/{at}/downsample", f"{mh}.downsample.0",
+                            f"{mh}.downsample.1", False))
+    for k in (2, 3, 4, 5):
+        out += [(f"decoder/in{k}", f"decoder.in{k}", None, False),
+                (f"decoder/out{k}", f"decoder.out{k}" + ("" if k == 2 else ".0"), None, False)]
+    return out + [("decoder/bin_conv", "decoder.binarize.0", "decoder.binarize.1", False),
+                  ("decoder/bin_up1", "decoder.binarize.3", "decoder.binarize.4", True),
+                  ("decoder/bin_up2", "decoder.binarize.6", None, True)]
+
+
+def _strip_prefixes(key: str) -> str:
+    while key.startswith(("model.", "module.")):
+        key = key.split(".", 1)[1]
+    return key
+
+
+def db_params_from_mhliao(state: Mapping[str, Any], blocks=None,
+                          dcn=None) -> Dict[str, np.ndarray]:
+    """A MhLiao/DB state dict -> the port's DBNet parameters (flat ``a/b/c``
+    keys, float32, the layout of :func:`load_params`): ``model.`` and
+    ``module.`` prefixes stripped, each batch norm folded into its conv in
+    float64 (``w * g / sqrt(var + eps)``, ``(b - mean) * g / sqrt(var +
+    eps) + beta``; a conv without a bias has 0), the offset convs
+    (``conv2_offset``) read with their biases, the threshold branch and
+    ResNet's classifier left out. Conv kernels are stored HWIO; a transposed
+    conv's (in, out, kh, kw) weight is stored as (kh, kw, out, in), so that
+    :func:`params_from_jax` gives it back."""
+    flat = {_strip_prefixes(k): np.asarray(
+        v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v, np.float64)
+        for k, v in state.items()}
+    out: Dict[str, np.ndarray] = {}
+    for name, conv, bn, transposed in db_mhliao_convs(blocks, dcn):
+        w = flat[f"{conv}.weight"]
+        b = flat.get(f"{conv}.bias")
+        if bn is not None:
+            scale = flat[f"{bn}.weight"] / np.sqrt(flat[f"{bn}.running_var"] + BN_EPS)
+            w = w * (scale[None, :, None, None] if transposed else scale[:, None, None, None])
+            b = (0.0 if b is None else b) - flat[f"{bn}.running_mean"]
+            b = b * scale + flat[f"{bn}.bias"]
+        out[f"{name}/kernel"] = np.ascontiguousarray(w.transpose(2, 3, 1, 0), np.float32)
+        if b is not None:
+            out[f"{name}/bias"] = np.asarray(b, np.float32)
     return out
 
 

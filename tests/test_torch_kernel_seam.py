@@ -1,6 +1,6 @@
 """The seam of the hand-written kernels (``ctpn_tpu_torch/ops/_kernel.py``).
 
-The registry must hold the twelve counted kernels by the names the
+The registry must hold the fourteen counted kernels by the names the
 certificates print, each with its source; the ops' schemas must stay as
 they are, so that an exported artifact still loads; and a launch must hand
 the entry point its pointers and the stream, raise naming the kernel on a
@@ -36,6 +36,8 @@ KERNELS = {  # registry name: (module, wrapper)
     "ccl_label": ("ccl", "ccl_label"),
     "craft_boxes": ("craft_boxes", "craft_boxes"),
     "resize_concat": ("resize_concat", "resize_concat"),
+    "deform_conv": ("deform_conv", "deform_conv"),
+    "db_boxes": ("db_boxes", "db_boxes"),
 }
 
 SCHEMAS = [
@@ -54,11 +56,15 @@ SCHEMAS = [
     "-> (Tensor, Tensor, Tensor, Tensor)",
     "ctpn_torch::quad_bitmask(Tensor quads, Tensor valid, float thresh) -> Tensor",
     "ctpn_torch::ccl_label(Tensor maps, Tensor extent, float low_text, float link_threshold, "
-    "float text_threshold, int min_area, int cap) "
+    "float text_threshold, int min_area, int cap, int connectivity=4) "
     "-> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)",
     "ctpn_torch::craft_boxes(Tensor maps, Tensor labels, Tensor stats, Tensor score, "
     "Tensor count, Tensor extent, float low_text, float scale) -> Tensor",
     "ctpn_torch::resize_concat(Tensor h, Tensor skip) -> Tensor",
+    "ctpn_torch::deform_conv(Tensor x, Tensor om, Tensor weight, int stride) -> Tensor",
+    "ctpn_torch::db_boxes(Tensor prob, Tensor labels, Tensor stats, Tensor count, "
+    "Tensor extent, Tensor dest, float box_thresh, float unclip, float min_size) "
+    "-> (Tensor, Tensor)",
     "ctpn_torch::stage_stamp(Tensor(a!) ring, int slot) -> ()",
 ]
 
@@ -73,13 +79,15 @@ def fake_cuda(monkeypatch):
 
 
 def test_registry_holds_the_eight_kernels_each_with_its_source():
-    """Twelve since the successor graph's kernel, CRAFT's labelling and
-    box kernels and the decoders' resize-and-concatenate kernel joined the
-    eight (the name is kept, so that the test keeps its history)."""
+    """Fourteen since the successor graph's kernel, CRAFT's labelling and
+    box kernels, the decoders' resize-and-concatenate kernel, DB's
+    deformable conv and DB's box kernel joined the eight (the name is
+    kept, so that the test keeps its history)."""
     reg = _kernel.registry()
     assert sorted(reg) == sorted(KERNELS)
     assert reg["successors"].source == "chain_walk"
     assert reg["ccl_label"].source == reg["craft_boxes"].source == "craft_ccl"
+    assert reg["db_boxes"].source == "craft_ccl"
     for name, entry in reg.items():
         module, wrapper = KERNELS[name]
         assert entry.wrapper is getattr(
@@ -89,9 +97,9 @@ def test_registry_holds_the_eight_kernels_each_with_its_source():
         assert (_build.CSRC / f"{entry.source}.cu").is_file()
     assert _kernel.wrappers() == {name: e.wrapper for name, e in reg.items()}
     assert reg["resize_concat"].source == "resize_concat"
-    assert _kernel.sources() == ["chain_walk", "conv_epilogue", "craft_ccl", "nms_bitmask",
-                                 "nms_fused", "nms_resolve", "quad_nms", "resize_concat",
-                                 "stem_fused"]
+    assert _kernel.sources() == ["chain_walk", "conv_epilogue", "craft_ccl", "deform_conv",
+                                 "nms_bitmask", "nms_fused", "nms_resolve", "quad_nms",
+                                 "resize_concat", "stem_fused"]
     assert "stage_stamp" not in reg
 
 
