@@ -369,8 +369,8 @@ Phases (any failure exits non-zero and prints no result line):
     boxes as phase 26 holds them); then DB's captured program on
     ``data/artifacts/dbnet_r50_dcn_synth.npz`` at the cell
     ``db_device_b32``'s shape (32 held-out renders, 736x1312): 35 conv
-    epilogues, 13 deformable convs, one ``ccl_label`` and one ``db_boxes``
-    per replayed run and no other kernel, replays equal to the first bit
+    epilogues, 13 deformable convs, 16 residual epilogues, one
+    ``ccl_label`` and one ``db_boxes`` per replayed run and no other kernel, replays equal to the first bit
     for bit and to the eager program, no overflow of the cap, each image's
     map and boxes the same alone and in another slot (the slot gate); the
     kernel at each of the 13 sites on the batch's own feature maps against
@@ -381,6 +381,20 @@ Phases (any failure exits non-zero and prints no result line):
     the mean mask: ``offset_stats``); both post-process kernels on the batch's own map
     against their plain versions bit for bit, and their ms. Every other
     route's launch gate counts the two new kernels at 0.
+
+29. the bottlenecks' tails (``--residual`` runs it alone): the
+    ``residual_epilogue`` kernel against its plain version (PyTorch's bias
+    adds, sum and ReLU on the card) bit for bit on made-up maps with -0.0,
+    NaN and infinities among the values, each bias on and off, at each
+    stage's width, and on adds that round at a tie; then at DB's 16
+    bottlenecks on the cell's renders through the trunk at its batch and
+    shape, each call against the plain version and against the block's
+    tail as PyTorch ran it before the op (conv3 and the projection with
+    their biases, the sum, ``F.relu``), bit for bit; each launch's ms
+    beside its byte bound (both maps read, the output written, at 3.35
+    TB/s) and the plain passes' ms; 16 launches per replayed DB run over
+    5 runs, and none with gradients on. Every CTPN, EAST and CRAFT launch
+    gate above counts it at 0.
 
 Every recall gate counts lines as ``ctpn-torch-eval`` does
 (``eval.match_boxes``: one-to-one, IoU >= 0.5, integer corner boxes).
@@ -4802,10 +4816,12 @@ DB_ARTIFACT = REPO / "data" / "artifacts" / "dbnet_r50_dcn_synth.npz"
 DB_BATCH, DB_BUCKET = 32, (736, 1312)
 # kernel launches per DB program run in bf16: a conv epilogue per conv with
 # a ReLU (the stem, two per bottleneck, the head's conv and first
-# transposed conv), a deformable conv per bottleneck of stages 2-4, one
-# labelling and one box kernel
+# transposed conv), a deformable conv per bottleneck of stages 2-4, a
+# residual epilogue per bottleneck, one labelling and one box kernel
 DB_SITES = 13
-DB_LAUNCHES = {"conv_epilogue": 35, "deform_conv": DB_SITES, "ccl_label": 1, "db_boxes": 1}
+DB_BLOCKS = 16
+DB_LAUNCHES = {"conv_epilogue": 35, "deform_conv": DB_SITES, "residual_epilogue": DB_BLOCKS,
+               "ccl_label": 1, "db_boxes": 1}
 DB_KW = dict(thresh=0.3, box_thresh=0.7, unclip=1.5, min_size=3.0)
 
 
@@ -5115,6 +5131,148 @@ def drive_db(dev, artifact: Path = DB_ARTIFACT) -> dict:
             "times": times, "slot_differences": slot_diff, "sites": sites}
 
 
+# ------------------------------------------------------ residual_epilogue
+
+
+def check_residual_epilogue_kernel(dev) -> dict:
+    """The residual epilogue against its plain version (PyTorch's passes on
+    the card), bit for bit, on made-up maps with -0.0, NaN and infinities
+    among the values, with and without each bias, and on adds that round
+    at a tie."""
+    from ctpn_tpu_torch.ops import residual_epilogue as RE
+
+    rng = np.random.RandomState(29)
+    cases = [((2, 256, 23, 41), True, True), ((2, 512, 12, 21), True, False),
+             ((2, 1024, 6, 11), False, True), ((2, 2048, 3, 6), False, False),
+             ((3, 24, 9, 13), True, True), ((1, 8, 1, 1), True, False)]
+    with torch.inference_mode():
+        for shape, with_b, with_bi in cases:
+            y, idt = edge_values(rng, shape, dev), edge_values(rng, shape, dev)
+            b = edge_values(rng, (shape[1],), dev) if with_b else None
+            bi = edge_values(rng, (shape[1],), dev) if with_bi else None
+            got = RE.residual_epilogue(y, b, idt, bi)
+            if not (got.is_contiguous(memory_format=torch.channels_last)
+                    and torch.equal(bits_of(got), bits_of(RE.residual_epilogue_ref(
+                        y, b, idt, bi)))):
+                raise AssertionError(f"residual_epilogue {shape} biases {with_b, with_bi} "
+                                     "differs from the plain version")
+        # ties: 1 + 2**-8 and (1 + 2**-7) + 2**-8 round to even
+        halves = torch.tensor([1.0, 1.0 + 2 ** -7] * 4).view(1, 8, 1, 1)
+        y = halves.to(dev, torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        b = torch.full((8,), 2 ** -8, dtype=torch.bfloat16, device=dev)
+        got = RE.residual_epilogue(y, b, y, b)
+        if not torch.equal(bits_of(got), bits_of(RE.residual_epilogue_ref(y, b, y, b))):
+            raise AssertionError("residual_epilogue: a tie rounds otherwise than PyTorch's add")
+    log(f"  residual_epilogue on {len(cases) + 1} made-up cases (edge values, each bias on "
+        "and off, ties): equal to the plain version bit for bit")
+    return {"name": "residual_epilogue", "cases": len(cases) + 1, "equal": True}
+
+
+def check_residual_epilogue_sites(model, xs) -> list:
+    """The op at each of DB's 16 bottlenecks on the batch ``xs``
+    (normalised) through ``model``'s trunk: its output against the plain version
+    on the same inputs and against the block's tail as PyTorch ran it
+    before the op (conv3 and the projection with their biases, the sum,
+    ``F.relu``), bit for bit; then its ms, the launcher's alone, the plain
+    passes' ms, and its byte bound (both maps and biases read, the output
+    written, at 3.35 TB/s)."""
+    from ctpn_tpu_torch.models import resnet
+    from ctpn_tpu_torch.ops import residual_epilogue as RE
+
+    real, current, sites = resnet.residual_epilogue, {}, []
+
+    def checked(y, b, idt, bi):
+        got = real(y, b, idt, bi)
+        block, x, out = current["block"], current["x"], current["out"]
+        ds = block.downsample
+        before = F.relu(block.conv3(out) + (x if ds is None else ds(x)))
+        same = (torch.equal(bits_of(got), bits_of(RE.residual_epilogue_ref(y, b, idt, bi)))
+                and torch.equal(bits_of(got), bits_of(before)))
+        del before
+        nbytes = 2 * (y.numel() + idt.numel() + got.numel()) + sum(
+            2 * t.numel() for t in (b, bi) if t is not None)
+        ms = cuda_ms(lambda: real(y, b, idt, bi), 20)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        sites.append({"shape": list(y.shape), "projection": ds is not None, "equal": same,
+                      "ms": ms, "launcher_ms": launch_ms(RE, y, b, idt, bi),
+                      "plain_ms": cuda_ms(lambda: RE.residual_epilogue_ref(y, b, idt, bi), 5),
+                      "bound_ms": bound, "bound_pct": 100 * bound / ms, "bytes": nbytes})
+        return got
+
+    def at_block(block, args):
+        current.update(block=block, x=args[0])
+
+    def at_conv3(conv, args):
+        current["out"] = args[0]
+
+    blocks = [b for b in model.modules() if isinstance(b, resnet.Bottleneck)]
+    hooks = [b.register_forward_pre_hook(at_block) for b in blocks]
+    hooks += [b.conv3.register_forward_pre_hook(at_conv3) for b in blocks]
+    resnet.residual_epilogue = checked
+    try:
+        with torch.inference_mode():
+            model.trunk(xs)
+        torch.cuda.synchronize()
+    finally:
+        resnet.residual_epilogue = real
+        for h in hooks:
+            h.remove()
+        current.clear()
+    for k, s in enumerate(sites, start=1):
+        log(f"  residual_epilogue block {k} {tuple(s['shape'])}"
+            f"{' projection' if s['projection'] else ''}: "
+            f"{'equal' if s['equal'] else 'DIFFERS'}; {s['ms']:.4f} ms ({s['launcher_ms']:.4f} "
+            f"launcher), bound {s['bound_ms']:.4f} ({s['bound_pct']:.1f} %), plain "
+            f"{s['plain_ms']:.4f}")
+    if len(sites) != DB_BLOCKS:
+        raise AssertionError(f"DB: {len(sites)} residual epilogues (want {DB_BLOCKS})")
+    bad = [k for k, s in enumerate(sites, start=1) if not s["equal"]]
+    if bad:
+        raise AssertionError(f"residual_epilogue differs from the passes at blocks {bad}")
+    return sites
+
+
+def drive_residual_epilogue(dev, artifact: Path = DB_ARTIFACT) -> dict:
+    """Phase 29: the kernel on made-up cases; then at DB's 16 bottlenecks
+    on the cell's renders at its batch and shape; 16 launches per replayed
+    DB program run over 5 replays; none with gradients on."""
+    from ctpn_tpu_torch.inference.pipeline import CTPNPredictor, craft_normalised
+    from ctpn_tpu_torch.ops import residual_epilogue as RE
+    from ctpn_tpu_torch.utils.weights import load_params
+
+    entry = check_residual_epilogue_kernel(dev)
+    db_cfg()
+    pred = CTPNPredictor(load_params(str(artifact), device=dev), device=dev)
+    data, infos = db_batch(pred)
+    x, info = torch.from_numpy(data).to(dev), torch.from_numpy(infos).to(dev)
+    sites = check_residual_epilogue_sites(pred.model, craft_normalised(x))
+    total = {k: sum(s[k] for s in sites) for k in ("ms", "bound_ms", "plain_ms", "bytes")}
+    log(f"  residual_epilogue, {DB_BLOCKS} blocks per batch of {DB_BATCH}: {total['ms']:.4f} "
+        f"ms, bound {total['bound_ms']:.4f} ({100 * total['bound_ms'] / total['ms']:.1f} %, "
+        f"{total['bytes'] / total['ms'] / 1e9:.3f} TB/s), plain {total['plain_ms']:.4f}")
+    pred.graphs(x, info)
+    pred.graphs(x, info)  # the capture, then the first replay
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    for _ in range(5):
+        pred.graphs(x, info)
+    torch.cuda.synchronize()
+    expect_launches(launch_counts(), {k: 5 * v for k, v in DB_LAUNCHES.items()},
+                    "DB, 5 replayed runs")
+    zero_launch_counts()
+    with torch.enable_grad():  # training runs the plain passes
+        pred.model.trunk(craft_normalised(x[:2]))
+    torch.cuda.synchronize()
+    if RE.residual_epilogue.LAUNCHES:
+        raise AssertionError("DB's trunk with gradients on launched residual_epilogue")
+    log("  residual_epilogue: 16 launches per replayed DB run over 5 runs, none with "
+        "gradients on")
+    del pred, x, info
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"kernel": entry, "sites": sites, "total": total}
+
+
 # ---------------------------------------------------------- resize_concat
 
 
@@ -5270,6 +5428,13 @@ def main(argv=()) -> int:
         entries = check_db_kernels(dev) + check_craft_kernels(dev)
         db = drive_db(dev) if DB_ARTIFACT.exists() else None
         print(json.dumps({"kernels": entries, "db": db}))
+        print(card)
+        return 0
+
+    if "--residual" in argv:
+        log("[29/29] residual_epilogue: made-up cases, DB's 16 bottlenecks at "
+            "(32, 736x1312), the launch gates")
+        print(json.dumps({"residual_epilogue": drive_residual_epilogue(dev)}))
         print(card)
         return 0
 
@@ -5455,9 +5620,18 @@ def main(argv=()) -> int:
     db = drive_db(dev)
     log(f"  DB phase {time.perf_counter() - t0:.1f} s")
 
+    log("[29/29] residual_epilogue: made-up cases, DB's 16 bottlenecks at "
+        "(32, 736x1312), the launch gates")
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    residual = drive_residual_epilogue(dev)
+    entries.append(residual["kernel"])
+    log(f"  residual_epilogue phase {time.perf_counter() - t0:.1f} s")
+
     log(f"[21/24] result (all phases {time.perf_counter() - t_start:.1f} s)")
     print(json.dumps({"kernels": entries, "east": east, "craft": craft,
-                      "resize_concat": resize, "db": db}))
+                      "resize_concat": resize, "db": db, "residual_epilogue": residual}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -21,8 +21,9 @@ The batch norms fold into the convs' weights and biases at load
 its own bias. Every conv with a ReLU after it (the stem, each bottleneck's
 conv1 and conv2) runs ``Conv3x3.conv_relu``: the ``conv_epilogue`` op in
 bfloat16 inference, the deformable convs' through
-:meth:`DeformConv3x3.conv_relu`. The sum ``conv3 + identity`` and its ReLU
-are PyTorch's passes.
+:meth:`DeformConv3x3.conv_relu`. In bfloat16 inference a bottleneck ends
+in the ``residual_epilogue`` op: conv3's bias, the projection's bias, the
+sum with the identity and its ReLU in one pass (:meth:`Bottleneck.forward`).
 
 ``PER_IMAGE_OFFSETS``: the stages (1-based) whose offset convs run one
 image at a time (``Conv3x3``'s ``per_image``), so that an image's maps do
@@ -44,6 +45,7 @@ import torch.nn.functional as F
 from ctpn_tpu_torch.models.vgg import Conv3x3
 from ctpn_tpu_torch.ops.conv_epilogue import conv_epilogue
 from ctpn_tpu_torch.ops.deform_conv import OFFSETS, deform_conv, deform_conv_ref
+from ctpn_tpu_torch.ops.residual_epilogue import residual_epilogue
 
 STAGES: Tuple[Tuple[int, int], ...] = ((3, 64), (4, 128), (6, 256), (3, 512))
 STAGE_WITH_DCN: Tuple[bool, ...] = (False, True, True, True)
@@ -100,7 +102,11 @@ class DeformConv3x3(nn.Module):
 
 class Bottleneck(nn.Module):
     """ResNet's bottleneck (v1.5: the stride on conv2); ``dcn`` makes conv2
-    deformable, with its offset conv ``conv2_offset``."""
+    deformable, with its offset conv ``conv2_offset``. With gradients off
+    and a bfloat16 input the block ends in the ``residual_epilogue`` op on
+    conv3's and the projection's :meth:`Conv3x3.bias_apart` splits, with
+    the bits of the passes it replaces; otherwise (training, float32) in
+    those passes."""
 
     def __init__(self, cin: int, planes: int, stride: int, dcn: bool,
                  offsets_alone: bool = False):
@@ -127,9 +133,15 @@ class Bottleneck(nn.Module):
             mark(f"dcn{site:02d}_out")
         else:
             out = self.conv2.conv_relu(out)
-        out = self.conv3(out)
-        identity = x if self.downsample is None else self.downsample(x)
-        return F.relu(out + identity)
+        if torch.is_grad_enabled() or x.dtype != torch.bfloat16:
+            identity = x if self.downsample is None else self.downsample(x)
+            return F.relu(self.conv3(out) + identity)
+        y, bias = self.conv3.bias_apart(out)
+        if self.downsample is None:
+            identity, identity_bias = x.contiguous(memory_format=torch.channels_last), None
+        else:
+            identity, identity_bias = self.downsample.bias_apart(x)
+        return residual_epilogue(y, bias, identity, identity_bias)
 
 
 class ResNet50DCN(nn.Module):

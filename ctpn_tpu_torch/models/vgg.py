@@ -38,7 +38,7 @@ concatenation.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -84,26 +84,33 @@ class Conv3x3(nn.Conv2d):
             return torch.cat([F.conv2d(x[i:i + 1], w, b, **kw) for i in range(x.shape[0])])
         return F.conv2d(x, w, b, **kw)
 
+    def bias_apart(self, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The conv's output in ``channels_last`` and the bias an epilogue op
+        still has to add, so that the op gives the bits of the conv with its
+        bias and PyTorch's passes after it: on CUDA, PyTorch's cuDNN conv
+        rounds its output to bf16 and then adds the bias, so the conv runs
+        without its bias and the bias is handed on; the CPU's conv sums the
+        bias into its float32 accumulator, so there the conv keeps it and
+        None is handed on."""
+        if x.is_cuda:
+            y, b = self(x, bias=False), self.bias.to(x.dtype)
+        else:
+            y, b = self(x), None
+        return y.contiguous(memory_format=torch.channels_last), b
+
     def conv_relu(self, x: torch.Tensor, pool: bool = False) -> torch.Tensor:
         """ReLU of the conv, then the 2x2/2 max-pool if ``pool``.
 
         With gradients off and a bfloat16 input, the passes after the conv
-        are one, the op :func:`~ctpn_tpu_torch.ops.conv_epilogue.conv_epilogue`,
-        and the bits stay those of the separate passes: on CUDA, PyTorch's
-        cuDNN conv rounds its output to bf16 and then adds the bias, so the
-        conv runs without its bias and the op adds it; the CPU's conv sums
-        the bias into its float32 accumulator, so there the conv keeps it
-        and the op adds none. Otherwise (training, for which the op has no
+        are one, the op :func:`~ctpn_tpu_torch.ops.conv_epilogue.conv_epilogue`
+        on :meth:`bias_apart`'s split, and the bits stay those of the
+        separate passes. Otherwise (training, for which the op has no
         backward; float32) the separate passes run.
         """
         if torch.is_grad_enabled() or x.dtype != torch.bfloat16:
             y = F.relu(self(x))
             return F.max_pool2d(y, 2, 2) if pool else y
-        if x.is_cuda:
-            y, b = self(x, bias=False), self.bias.to(x.dtype)
-        else:
-            y, b = self(x), None
-        return conv_epilogue(y.contiguous(memory_format=torch.channels_last), b, pool)
+        return conv_epilogue(*self.bias_apart(x), pool)
 
 
 def upsample_concat(h: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:

@@ -39,7 +39,7 @@ PTR, INT, FLOAT, DOUBLE = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.
 # the modules of the counted kernels; importing one registers its kernels
 MODULES = ("nms_fused", "nms_bitmask", "nms_resolve", "stem_fused", "conv_epilogue",
            "chain_walk", "successors", "lanms", "quad_nms", "ccl", "craft_boxes",
-           "resize_concat", "deform_conv", "db_boxes")
+           "resize_concat", "deform_conv", "db_boxes", "residual_epilogue")
 
 _LIB = torch.library.Library("ctpn_torch", "FRAGMENT")
 _REGISTRY: Dict[str, "Entry"] = {}

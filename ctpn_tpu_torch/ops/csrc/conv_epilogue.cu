@@ -33,6 +33,17 @@
 //   * indices are 32-bit per pixel and 64-bit per byte offset.
 // With no bias (a null pointer) the kernel adds -0.0, the identity of
 // float addition, so every value passes through the rounding unchanged.
+//
+// The second kernel, residual_epilogue_kernel, ends a ResNet bottleneck
+// (DBNet's trunk, models/resnet.py) in the same way: PyTorch adds conv3's
+// bias to its output, the projection's bias to the identity (the first
+// block of a stage), sums the two and applies the ReLU, four passes over
+// the block's widest map. The kernel reads conv3's bias-less output and the
+// identity once and writes the activated sum: relu(bf16(bf16(y + bias) +
+// bf16(identity + identity_bias))), each add in float and rounded to bf16
+// as PyTorch's add is, the ReLU as clamp_min. Same design as above: a
+// thread per 8 channels of a pixel, streaming loads of both inputs, a
+// grid-stride loop over whole pixels.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,6 +73,19 @@ __device__ __forceinline__ uint4 load_stream(const __nv_bfloat16* p, uint64_t po
 // bias, round to bf16, ReLU as clamp_min: the result as a float (exact)
 __device__ __forceinline__ float activate(__nv_bfloat16 y, float bias) {
   const float v = __bfloat162float(__float2bfloat16(__bfloat162float(y) + bias));
+  return isnan(v) ? v : fmaxf(v, 0.0f);
+}
+
+// a float rounded to bf16 and widened again (exact)
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// both biases, the sum, each rounded to bf16, then ReLU as clamp_min
+__device__ __forceinline__ float residual(__nv_bfloat16 y, float bias, __nv_bfloat16 identity,
+                                          float identity_bias) {
+  const float v = round_bf16(round_bf16(__bfloat162float(y) + bias) +
+                             round_bf16(__bfloat162float(identity) + identity_bias));
   return isnan(v) ? v : fmaxf(v, 0.0f);
 }
 
@@ -148,41 +172,91 @@ conv_epilogue_kernel(const __nv_bfloat16* __restrict__ y,
   }
 }
 
-// resident blocks per SM of each variant on each device, 0 until first asked
-int g_blocks_per_sm[kMaxDevices][2];
+// y, identity, out: (n, h, w, c) bf16, NHWC; `stride` as above
+__global__ void __launch_bounds__(kThreads)
+residual_epilogue_kernel(const __nv_bfloat16* __restrict__ y,
+                         const __nv_bfloat16* __restrict__ bias,
+                         const __nv_bfloat16* __restrict__ identity,
+                         const __nv_bfloat16* __restrict__ identity_bias,
+                         __nv_bfloat16* __restrict__ out, int pixels, int groups,
+                         long long stride) {
+  long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= stride) return;
+  const int g = static_cast<int>(i % groups);
+  const int c = groups * kVec;
+  float b[kVec], bi[kVec];
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) {
+    b[k] = bias != nullptr ? __bfloat162float(bias[g * kVec + k]) : -0.0f;
+    bi[k] = identity_bias != nullptr ? __bfloat162float(identity_bias[g * kVec + k]) : -0.0f;
+  }
+  const uint64_t policy = evict_first_policy();
+  const int step = static_cast<int>(stride / groups);  // pixels per stride
+  for (int p = static_cast<int>(i / groups); p < pixels; p += step) {
+    const long long at = static_cast<long long>(p) * c + g * kVec;
+    const uint4 vy = load_stream(y + at, policy);
+    const uint4 vi = load_stream(identity + at, policy);
+    __nv_bfloat16 ey[kVec], ei[kVec];
+    unpack(vy, ey);
+    unpack(vi, ei);
+    float r[kVec];
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) r[k] = residual(ey[k], b[k], ei[k], bi[k]);
+    *reinterpret_cast<uint4*>(out + at) = pack(r);
+  }
+}
+
+// resident blocks per SM of each kernel on each device, 0 until first asked
+// (conv_epilogue_kernel<false>, <true>, residual_epilogue_kernel)
+int g_blocks_per_sm[kMaxDevices][3];
 int g_sms[kMaxDevices];
 
-template <bool kPool>
-cudaError_t launch(const void* y, const void* bias, void* out, int n, int c, int h, int w,
-                   cudaStream_t stream) {
+// The grid-stride loop's `stride` (items, a whole number of pixels) and
+// grid for `pixels` pixels of `groups` vectors: as many threads as fit on
+// the SMs at once, at most one per item and at least one per group. Zero
+// items give stride 0 (no launch).
+template <typename Kernel>
+cudaError_t grid_stride(Kernel kernel, int variant, int pixels, int groups,
+                        long long* stride, int* grid) {
+  *stride = 0;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  int& per_sm = g_blocks_per_sm[dev][kPool ? 1 : 0];
+  int& per_sm = g_blocks_per_sm[dev][variant];
   if (per_sm == 0) {
     err = cudaDeviceGetAttribute(&g_sms[dev], cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
     int blocks = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, conv_epilogue_kernel<kPool>, kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, 0);
     if (err != cudaSuccess) return err;
     per_sm = blocks > 0 ? blocks : 1;
   }
-  const int ho = kPool ? h / 2 : h;
-  const int wo = kPool ? w / 2 : w;
-  const int groups = c / kVec;
-  const int pixels = n * ho * wo;
   if (pixels == 0 || groups == 0) return cudaSuccess;
   const long long items = static_cast<long long>(pixels) * groups;
   long long threads = static_cast<long long>(per_sm) * g_sms[dev] * kThreads;
   if (threads > items) threads = items;
   if (threads < groups) threads = groups;
-  const long long stride = threads / groups * groups;
-  const int grid = static_cast<int>((stride + kThreads - 1) / kThreads);
+  *stride = threads / groups * groups;
+  *grid = static_cast<int>((*stride + kThreads - 1) / kThreads);
+  return cudaSuccess;
+}
+
+template <bool kPool>
+cudaError_t launch(const void* y, const void* bias, void* out, int n, int c, int h, int w,
+                   cudaStream_t stream) {
+  const int ho = kPool ? h / 2 : h;
+  const int wo = kPool ? w / 2 : w;
+  const int groups = c / kVec;
+  long long stride = 0;
+  int grid = 0;
+  const cudaError_t err =
+      grid_stride(conv_epilogue_kernel<kPool>, kPool ? 1 : 0, n * ho * wo, groups, &stride,
+                  &grid);
+  if (err != cudaSuccess || stride == 0) return err;
   conv_epilogue_kernel<kPool><<<grid, kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(y), static_cast<const __nv_bfloat16*>(bias),
-      static_cast<__nv_bfloat16*>(out), pixels, groups, h, w, ho, wo, stride);
+      static_cast<__nv_bfloat16*>(out), n * ho * wo, groups, h, w, ho, wo, stride);
   return cudaGetLastError();
 }
 
@@ -202,6 +276,28 @@ int ctpn_conv_epilogue(const void* y, const void* bias, void* out, int n, int c,
   const cudaError_t err = pool ? launch<true>(y, bias, out, n, c, h, w, s)
                                : launch<false>(y, bias, out, n, c, h, w, s);
   return static_cast<int>(err);
+}
+
+// y, identity: (n, c, h, w) bf16 in channels_last memory (NHWC), c a
+// multiple of 8, 16-byte aligned; bias, identity_bias: c bf16 each, or null
+// for none; out: (n, c, h, w), channels_last. Launches on `stream` (nothing
+// when the output is empty) and returns cudaGetLastError(). The wrapper
+// checks the shapes and keeps n * h * w below 2**31.
+int ctpn_residual_epilogue(const void* y, const void* bias, const void* identity,
+                           const void* identity_bias, void* out, int n, int c, int h, int w,
+                           void* stream) {
+  const int groups = c / kVec;
+  long long stride = 0;
+  int grid = 0;
+  cudaError_t err =
+      grid_stride(residual_epilogue_kernel, 2, n * h * w, groups, &stride, &grid);
+  if (err != cudaSuccess || stride == 0) return static_cast<int>(err);
+  residual_epilogue_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(y), static_cast<const __nv_bfloat16*>(bias),
+      static_cast<const __nv_bfloat16*>(identity),
+      static_cast<const __nv_bfloat16*>(identity_bias), static_cast<__nv_bfloat16*>(out),
+      n * h * w, groups, stride);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

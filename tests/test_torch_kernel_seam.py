@@ -1,6 +1,6 @@
 """The seam of the hand-written kernels (``ctpn_tpu_torch/ops/_kernel.py``).
 
-The registry must hold the fourteen counted kernels by the names the
+The registry must hold the fifteen counted kernels by the names the
 certificates print, each with its source; the ops' schemas must stay as
 they are, so that an exported artifact still loads; and a launch must hand
 the entry point its pointers and the stream, raise naming the kernel on a
@@ -38,6 +38,7 @@ KERNELS = {  # registry name: (module, wrapper)
     "resize_concat": ("resize_concat", "resize_concat"),
     "deform_conv": ("deform_conv", "deform_conv"),
     "db_boxes": ("db_boxes", "db_boxes"),
+    "residual_epilogue": ("residual_epilogue", "residual_epilogue"),
 }
 
 SCHEMAS = [
@@ -65,6 +66,8 @@ SCHEMAS = [
     "ctpn_torch::db_boxes(Tensor prob, Tensor labels, Tensor stats, Tensor count, "
     "Tensor extent, Tensor dest, float box_thresh, float unclip, float min_size) "
     "-> (Tensor, Tensor)",
+    "ctpn_torch::residual_epilogue(Tensor y, Tensor? bias, Tensor identity, "
+    "Tensor? identity_bias) -> Tensor",
     "ctpn_torch::stage_stamp(Tensor(a!) ring, int slot) -> ()",
 ]
 
@@ -79,15 +82,17 @@ def fake_cuda(monkeypatch):
 
 
 def test_registry_holds_the_eight_kernels_each_with_its_source():
-    """Fourteen since the successor graph's kernel, CRAFT's labelling and
+    """Fifteen since the successor graph's kernel, CRAFT's labelling and
     box kernels, the decoders' resize-and-concatenate kernel, DB's
-    deformable conv and DB's box kernel joined the eight (the name is
-    kept, so that the test keeps its history)."""
+    deformable conv, DB's box kernel and the bottleneck's residual
+    epilogue joined the eight (the name is kept, so that the test keeps its
+    history)."""
     reg = _kernel.registry()
     assert sorted(reg) == sorted(KERNELS)
     assert reg["successors"].source == "chain_walk"
     assert reg["ccl_label"].source == reg["craft_boxes"].source == "craft_ccl"
     assert reg["db_boxes"].source == "craft_ccl"
+    assert reg["residual_epilogue"].source == "conv_epilogue"
     for name, entry in reg.items():
         module, wrapper = KERNELS[name]
         assert entry.wrapper is getattr(
