@@ -280,7 +280,9 @@ def db_program(
 ) -> Tuple[DBText, DBRecords]:
     """DB's detect program: the normalisation and the trunk (``trunk``,
     after a stamp before and after each deformable site), the FPN
-    (``neck``), the binarize head (``head``), then ``label`` and ``boxes``
+    (``neck``, after its children ``neck.lateral``, ``neck.topdown``,
+    ``neck.smooth`` and ``neck.fuse``), the binarize head (``head``, after
+    ``head.conv`` and ``head.map``), then ``label`` and ``boxes``
     (``postprocess/db.py``); ``on_stage`` is called at each. Like
     :func:`detect_program`, no host sync: a CUDA graph captures all of it.
     ``im_info`` (N, 4): each image's resized rows and columns, then its
@@ -288,9 +290,9 @@ def db_program(
     mark = on_stage or (lambda name: None)
     feats = model.trunk(craft_normalised(images), mark)
     mark("trunk")
-    fuse = model.neck(feats)
+    fuse = model.neck(feats, mark)
     mark("neck")
-    prob = model.head(fuse)
+    prob = model.head(fuse, mark)
     mark("head")
     return db_postprocess(prob, im_info, kw, mark)
 

@@ -113,28 +113,45 @@ class DBNet(nn.Module):
         x = x.contiguous(memory_format=torch.channels_last) if x.is_cuda else x.contiguous()
         return self.backbone(x, mark)
 
-    def neck(self, feats: List[torch.Tensor]) -> torch.Tensor:
-        """The FPN: (N, inner, H/4, W/4) in the compute dtype."""
+    def neck(self, feats: List[torch.Tensor], mark: Mark = _no_mark) -> torch.Tensor:
+        """The FPN: (N, inner, H/4, W/4) in the compute dtype. ``mark`` is
+        called after each part, the stage clock's children of ``neck``
+        (``utils/timer.py``'s ``DB_STAGES``): ``neck.lateral`` (the 1x1
+        convs), ``neck.topdown`` (the upsample-and-add passes),
+        ``neck.smooth`` (the 3x3 convs) and ``neck.fuse`` (the upsamples
+        to stride 4 and the concat)."""
         d = self.decoder
         in2, in3, in4, in5 = (getattr(d, f"in{k}")(f) for k, f in zip((2, 3, 4, 5), feats))
+        mark("neck.lateral")
         out4 = up(in5, in4) + in4
         out3 = up(out4, in3) + in3
         out2 = up(out3, in2) + in2
-        p2 = d.out2(out2)
-        return torch.cat([up(d.out5(in5), p2), up(d.out4(out4), p2), up(d.out3(out3), p2), p2],
-                         1)
+        mark("neck.topdown")
+        p5, p4, p3, p2 = d.out5(in5), d.out4(out4), d.out3(out3), d.out2(out2)
+        mark("neck.smooth")
+        fuse = torch.cat([up(p5, p2), up(p4, p2), up(p3, p2), p2], 1)
+        mark("neck.fuse")
+        return fuse
 
-    def head(self, fuse: torch.Tensor) -> torch.Tensor:
-        """The binarize head: (N, H, W) float32 probabilities at stride 1."""
-        return torch.sigmoid(self.head_logits(fuse))
+    def head(self, fuse: torch.Tensor, mark: Mark = _no_mark) -> torch.Tensor:
+        """The binarize head: (N, H, W) float32 probabilities at stride 1.
+        ``mark`` is called after each part, the stage clock's children of
+        ``head``: ``head.conv`` (the 3x3 conv and the first transposed
+        conv) and ``head.map`` (the float32 transposed conv to stride 1 and
+        the sigmoid)."""
+        prob = torch.sigmoid(self.head_logits(fuse, mark))
+        mark("head.map")
+        return prob
 
-    def head_logits(self, fuse: torch.Tensor) -> torch.Tensor:
+    def head_logits(self, fuse: torch.Tensor, mark: Mark = _no_mark) -> torch.Tensor:
         """The binarize head before its sigmoid, (N, H, W) float32. The last
         transposed conv (one output channel) is a float32 matmul of each
         stride-2 pixel's channels with the (C, 4) kernel, its four outputs
-        the 2x2 pixels it covers."""
+        the 2x2 pixels it covers; ``mark("head.conv")`` is called before
+        it."""
         d = self.decoder
         h = d.bin_up1.conv_relu(d.bin_conv.conv_relu(fuse))
+        mark("head.conv")
         n, c, hh, ww = h.shape
         w = d.bin_up2.weight.float().reshape(c, 4)
         y = h.float().permute(0, 2, 3, 1).reshape(-1, c) @ w + d.bin_up2.bias.float()

@@ -2,8 +2,7 @@
 tracing system).
 
 ``Stopwatch`` is the JAX package's accumulating wall-clock stopwatch, as it
-is. ``profile_trace`` records a ``torch.profiler`` trace of the host and the
-card, written as a Chrome trace (open it in Perfetto or chrome://tracing).
+is.
 
 Tracing is off by default; :func:`enable` switches it for the process.
 
@@ -21,7 +20,11 @@ Tracing is off by default; :func:`enable` switches it for the process.
   CPU writes ``time.perf_counter_ns()``) into a ring of rows, one row per
   run of the program. A CUDA event captured into a graph would be recorded
   again by the next replay before it could be read; a stamp stays in its
-  row until the ring comes round.
+  row until the ring comes round. A stage named ``<parent>.<child>`` is a
+  child of the top-level stage ``<parent>``: it stands between the stamps
+  before its parent and the parent itself, and is timed from the stamp
+  just before it, while a top-level stage is timed from the top-level
+  stamp before it, so that adding children never moves a parent.
 
 Spans, all host seconds: ``graphs.upload``, ``graphs.replay``,
 ``graphs.clone``, ``graphs.capture`` and ``graphs.finish``
@@ -48,14 +51,18 @@ U-net blocks and ``conv_cls``), ``label`` (the connected components) and
 (a stage from the stamp before it, so ``dcnNN_out`` is the site's time:
 the offset conv, the sampling and the product), ``trunk`` (to the trunk's
 end), ``neck`` (the FPN), ``head`` (the binarize head), ``label`` and
-``boxes``.
+``boxes``; and the children of ``neck``: ``neck.lateral`` (the 1x1
+lateral convs), ``neck.topdown`` (the upsample-and-add passes),
+``neck.smooth`` (the 3x3 convs) and ``neck.fuse`` (the upsamples to
+stride 4 and the concat), and of ``head``: ``head.conv`` (the 3x3 conv
+and the first transposed conv) and ``head.map`` (the float32 transposed
+conv to stride 1 and the sigmoid).
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
-import os
 import threading
 import time
 from typing import Dict, Optional
@@ -109,21 +116,6 @@ class Stopwatch:
     @property
     def mean(self) -> float:
         return self.total / len(self.laps) if self.laps else 0.0
-
-
-@contextlib.contextmanager
-def profile_trace(log_dir: str):
-    """Record a ``torch.profiler`` trace (CPU, and CUDA when the card is
-    present) around a code block; writes ``<log_dir>/trace.json``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 # --------------------------------------------------------------- spans
@@ -198,10 +190,13 @@ STAGES = ("start", "forward", "proposal_layer", "detect_lines")
 EAST_STAGES = ("start", "trunk", "merge", "decode", "lanms", "quad_nms")
 CRAFT_STAGES = ("start", "trunk", "decoder", "label", "boxes")
 # DB's: a stamp before and after each of the 13 deformable sites of the
-# trunk (dcn01_in, dcn01_out, ...), then the trunk's end and the rest
+# trunk (dcn01_in, dcn01_out, ...), then the trunk's end and the rest, the
+# decoder's stages each after its children
 DB_SITES = 13
 DB_STAGES = ("start", *(f"dcn{k:02d}_{side}" for k in range(1, DB_SITES + 1)
-                        for side in ("in", "out")), "trunk", "neck", "head", "label", "boxes")
+                        for side in ("in", "out")), "trunk",
+             "neck.lateral", "neck.topdown", "neck.smooth", "neck.fuse", "neck",
+             "head.conv", "head.map", "head", "label", "boxes")
 ROWS = 256
 
 
@@ -232,6 +227,27 @@ def _stamp_launch(ring: torch.Tensor, slot: int) -> None:
 _kernel.op("stage_stamp(Tensor(a!) ring, int slot) -> ()", cpu=_stamp_ref, cuda=_stamp_launch)
 
 
+def _parents(stages) -> list:
+    """For each stage after the first, the index of the stamp it is timed
+    from: a top-level stage's from the top-level stamp before it, a child's
+    (``<parent>.<child>``) from the stamp just before it. Raises
+    ``ValueError`` where a child stands at either end or anywhere but
+    before its own parent, as the next top-level stage."""
+    if "." in stages[0] or "." in stages[-1]:
+        raise ValueError(f"a child stage at an end of {stages}")
+    out, top = [], 0
+    for i, name in enumerate(stages[1:], start=1):
+        if "." in name:
+            parent = next(s for s in stages[i + 1:] if "." not in s)
+            if name.split(".", 1)[0] != parent:
+                raise ValueError(f"child stage {name!r} comes before {parent!r}, not its parent")
+            out.append(i - 1)
+        else:
+            out.append(top)
+            top = i
+    return out
+
+
 class StageClock:
     """A ring of ``ROWS`` rows of stamps in ns, one per stage of
     ``stages`` (:data:`STAGES`, :data:`EAST_STAGES`, :data:`CRAFT_STAGES`
@@ -241,11 +257,20 @@ class StageClock:
     ``stamp(name)`` queues the stamp of stage ``name`` on the current
     stream: a program calls ``stamp("start")`` first and passes ``stamp``
     as ``build_detect_fn(on_stage=)``. :meth:`row` and :meth:`read` wait
-    for the device."""
+    for the device.
+
+    Stages nest one level: ``<parent>.<child>`` is a child of the top-level
+    stage ``<parent>`` and is stamped after the stamps before its parent
+    and before the parent's own, its siblings in the order they run. A
+    top-level stage is timed from the top-level stamp before it, so its
+    time is the same with or without children; a child from the stamp
+    just before it. The constructor raises ``ValueError`` on a child out of
+    that place (or first or last)."""
 
     def __init__(self, device, stages=STAGES):
         self.device = torch.device(device)
         self.stages = tuple(stages)
+        self._from = np.array(_parents(self.stages))
         self.ring = torch.zeros(ROWS * len(self.stages) + 1, dtype=torch.int64,
                                 device=self.device)
         self._slot = {name: i for i, name in enumerate(self.stages)}
@@ -263,11 +288,12 @@ class StageClock:
         return int(self._host()[-1])
 
     def read(self, since_row: int = 0) -> Optional[Dict[str, float]]:
-        """Median ms per run of each stage (``forward``, ``proposal_layer``,
-        ``detect_lines``, or EAST's: from the stamp before it) over the complete rows
-        from ``since_row`` on that the ring still holds, and ``between``:
-        the median ms from one run's last stamp to the next run's first.
-        ``rows`` is the count of rows read. None without a complete row."""
+        """Median ms per run of each stage (a top-level stage from the
+        top-level stamp before it, a child from the stamp before it) over
+        the complete rows from ``since_row`` on that the ring still holds,
+        and ``between``: the median ms from one run's last stamp to the
+        next run's first. ``rows`` is the count of rows read. None without
+        a complete row."""
         host = self._host()
         done = int(host[-1])
         slots = len(self.stages)
@@ -277,7 +303,7 @@ class StageClock:
             return None
         idx = np.arange(first, done) % ROWS
         t = host[:-1].reshape(ROWS, slots)[idx].astype(np.float64)
-        steps = np.diff(t, axis=1) / 1e6
+        steps = (t[:, 1:] - t[:, self._from]) / 1e6
         out = {name: float(np.median(steps[:, i]))
                for i, name in enumerate(self.stages[1:])}
         if len(t) > 1:

@@ -222,13 +222,10 @@ def test_compare_result_dirs_matches_jax():
             assert got["reference_boxes"] > 0
 
 
-def test_stopwatch_and_profile_trace(tmp_path):
-    """The demo's ``Stopwatch`` (the JAX package's, as it is) and
-    ``profile_trace``, a ``torch.profiler`` Chrome trace."""
-    import json
-
+def test_stopwatch_and_profile_trace():
+    """The demo's ``Stopwatch`` (the JAX package's, as it is)."""
     from ctpn_tpu.utils.timer import Stopwatch as JaxStopwatch
-    from ctpn_tpu_torch.utils.timer import Stopwatch, profile_trace
+    from ctpn_tpu_torch.utils.timer import Stopwatch
 
     for cls in (Stopwatch, JaxStopwatch):
         sw = cls()
@@ -237,11 +234,6 @@ def test_stopwatch_and_profile_trace(tmp_path):
                 pass
         assert sw.count == 3 and sw.total >= sw.last >= 0.0
         assert sw.mean == pytest.approx(sw.total / 3)
-    with profile_trace(str(tmp_path / "trace")):
-        torch.ones(64, 64) @ torch.ones(64, 64)
-    with open(tmp_path / "trace" / "trace.json") as f:
-        events = json.load(f)["traceEvents"]
-    assert any("mm" in str(e.get("name", "")) for e in events)
 
 
 def test_export_frozen_dp_cli(tmp_path):

@@ -574,9 +574,11 @@ def test_the_predictor_class_follows_the_network():
     assert type(db) is DBPredictor
     assert (db.stages, db.pad_span, db.span_prefix, db.graphs.variant()) == (
         timer.DB_STAGES, "db.pad", "db", ("DB",))
-    assert len(timer.DB_STAGES) == 1 + 26 + 5
+    assert len(timer.DB_STAGES) == 1 + 26 + 11
     assert timer.DB_STAGES[:3] == ("start", "dcn01_in", "dcn01_out")
-    assert timer.DB_STAGES[-5:] == ("trunk", "neck", "head", "label", "boxes")
+    assert timer.DB_STAGES[-11:] == ("trunk", "neck.lateral", "neck.topdown", "neck.smooth",
+                                     "neck.fuse", "neck", "head.conv", "head.map", "head",
+                                     "label", "boxes")
     cfg_from_list(["NET_NAME", "DB_RESNET50_DCN"])
     assert CTPNPredictor.__new__(CTPNPredictor).__class__ is DBPredictor
     with pytest.raises(ValueError):
@@ -601,6 +603,81 @@ def test_stage_clock_and_spans_cover_db_on_the_cpu():
         timer.reset()
     assert {"db.pad", "db.run", "db.fetch", "db.unscale"} <= set(spans)
     assert set(read) >= set(timer.DB_STAGES[1:]) and read["rows"] == 2
+
+
+NECK = ("neck.lateral", "neck.topdown", "neck.smooth", "neck.fuse")
+HEAD = ("head.conv", "head.map")
+
+
+def _narrow(dtype=torch.float32):
+    """The published depth (13 deformable sites, each stamped) at narrow
+    widths."""
+    torch.manual_seed(0)
+    return DBNet(dtype=dtype, stages=((3, 8), (4, 8), (6, 8), (3, 8)), stem_width=8,
+                 inner=32).eval()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_traced_program_stamps_the_decoders_children_and_answers_the_same(dtype):
+    """A traced predictor stamps the six children of ``neck`` and ``head``
+    and every stage it stamped before, and answers bit for bit as the
+    untraced one: the marks add no work to the program."""
+    _db_cfg(dtype)
+    m = _narrow(getattr(torch, dtype))
+    params = params_to_jax(m.state_dict())
+    untraced = CTPNPredictor(params, model=m, device="cpu")
+    preps = [untraced.prep(im) for im in _images()]
+    x, info = np.stack([p[0] for p in preps]), np.stack([p[1] for p in preps])
+    want = untraced.run_batch(x, info)
+    timer.enable(True)
+    try:
+        traced = CTPNPredictor(params, model=m, device="cpu")
+        got = traced.run_batch(x, info)
+        read = traced.clock.read()
+        row = traced.clock.ring[:len(timer.DB_STAGES)]
+    finally:
+        timer.enable(False)
+        timer.reset()
+    assert m.sites == timer.DB_SITES
+    assert untraced.clock is None and read["rows"] == 1
+    # every slot of the run's row stamped, in order
+    assert bool((row > 0).all()) and bool((row[1:] >= row[:-1]).all())
+    assert set(read) == set(timer.DB_STAGES[1:]) | {"rows"}
+    assert set(NECK + HEAD) < set(read)
+    # each parent spans its children
+    assert sum(read[s] for s in NECK) <= read["neck"]
+    assert sum(read[s] for s in HEAD) <= read["head"]
+    for a, b in zip(want, got):
+        for u, v in zip(a, b):
+            assert u.dtype == v.dtype and torch.equal(u, v)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_the_neck_in_its_stages_is_the_one_expression(dtype):
+    """``neck`` computes the four smoothing convs before the upsamples and
+    the concat: the same ops on the same inputs as the one ``cat``
+    expression that interleaved them, bit for bit; ``head`` with its marks
+    is ``head`` without."""
+    from ctpn_tpu_torch.models.dbnet import up
+
+    m = _narrow(getattr(torch, dtype))
+    x = torch.randn(2, 96, 160, 3, generator=torch.Generator().manual_seed(3))
+    marks = []
+    with torch.inference_mode():
+        feats = m.trunk(x)
+        d = m.decoder
+        in2, in3, in4, in5 = (getattr(d, f"in{k}")(f) for k, f in zip((2, 3, 4, 5), feats))
+        out4 = up(in5, in4) + in4
+        out3 = up(out4, in3) + in3
+        out2 = up(out3, in2) + in2
+        p2 = d.out2(out2)
+        want = torch.cat([up(d.out5(in5), p2), up(d.out4(out4), p2), up(d.out3(out3), p2), p2],
+                         1)
+        fuse = m.neck(feats, marks.append)
+        prob = m.head(fuse, marks.append)
+        assert torch.equal(prob, m.head(want))
+    assert fuse.dtype == want.dtype and torch.equal(fuse, want)
+    assert tuple(marks) == NECK + HEAD
 
 
 def test_east_and_craft_spans_come_from_their_prefix():
